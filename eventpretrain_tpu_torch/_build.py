@@ -1,0 +1,138 @@
+"""Build the port's CUDA kernels with ``nvcc`` and bind them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles on its own into
+``build/torch_kernels/lib<name>.so`` at the repository root (``build/`` is
+git-ignored) for ``sm_90a``, and exports plain C launchers that take
+pointers and the stream as ``void*`` and return a ``cudaError_t``. A
+library is built at its first use, and rebuilt when its source or a shared
+header is newer than it. :func:`build` starts one ``nvcc`` per stale source,
+all at once, and waits for them.
+
+There is no fallback: a missing ``nvcc``, a failed build or a failed load
+raises. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# Every exported launcher, with its C argument types (all return int).
+SIGNATURES: dict[str, dict[str, list]] = {
+    "splat": {"splat_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "ln_gemm": {
+        "ln_gemm_bf16": [_P, _P, _P, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P],
+    },
+    "attention": {"attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P]},
+}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOCK = threading.RLock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the port's CUDA kernels cannot be built"
+        )
+    return found
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = lib_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(d.stat().st_mtime for d in deps)
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, str]:
+    """Compile every stale library of ``names`` in parallel.
+
+    Returns ``{name: compiler output}`` for the sources it compiled (with
+    ``-Xptxas -v``: registers, shared memory and spills of each kernel).
+    Raises ``RuntimeError`` with the compiler's output if any build fails.
+    """
+    with _LOCK:
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        jobs = {}
+        for name in todo:
+            # compile to a private name, then rename: a concurrent reader
+            # never sees a half-written library
+            tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            jobs[name] = (proc, tmp)
+        logs, failed = {}, []
+        for name, (proc, tmp) in jobs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode == 0:
+                os.replace(tmp, lib_path(name))
+            else:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(
+                "nvcc failed for "
+                + ", ".join(failed)
+                + "\n"
+                + "\n".join(logs[n] for n in failed)
+            )
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ``ctypes`` handle of ``lib<name>.so``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        build((name,))
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{fn}: CUDA error {code} ({msg})")

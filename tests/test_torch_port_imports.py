@@ -1,0 +1,72 @@
+"""The port imports torch and never jax: the machine with the card has no
+jax, and the port must not lean on the JAX package."""
+
+import ast
+import pathlib
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "eventpretrain_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "eventpretrain_tpu")
+
+
+def _port_modules():
+    names = ["eventpretrain_tpu_torch"]
+    for info in pkgutil.walk_packages([str(PKG)], "eventpretrain_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_module_imports_without_jax():
+    mods = _port_modules()
+    assert "eventpretrain_tpu_torch.cli.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventpretrain_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
+        "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                     'eventpretrain_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_module_names_jax(path):
+    """No import statement of a port module (or of chip_smoke.py) names jax,
+    its ecosystem or the JAX package."""
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_kernel_sources_ship_with_the_package():
+    from eventpretrain_tpu_torch import _build
+
+    for name in _build.SIGNATURES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+    assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"

@@ -1,0 +1,309 @@
+"""Port ops (eventpretrain_tpu_torch/ops) against the JAX package on the CPU.
+
+The same numpy-seeded inputs go through the JAX function and its port. The
+JAX Pallas kernels run in interpret mode (their default off a TPU); the
+port's wrappers take their plain PyTorch versions because the tensors lie
+on the CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventpretrain_tpu.ops import view_augment as jva
+from eventpretrain_tpu.ops.events import events_to_voxel_grid_batch as jvox
+from eventpretrain_tpu.ops.fused_attn_layer import (
+    fused_ln_attn_layer as j_attn,
+    supports_fused_attn_layer as j_supports_attn,
+)
+from eventpretrain_tpu.ops.fused_mlp import (
+    fused_ln_mlp as j_mlp,
+    supports_fused_ln_mlp as j_supports_mlp,
+)
+from eventpretrain_tpu.ops.pallas_voxel import splat_mxu
+from eventpretrain_tpu_torch.ops import view_augment as tva
+from eventpretrain_tpu_torch.ops.events import (
+    bilinear_bin_weights,
+    events_to_voxel_grid_batch,
+)
+from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+    fused_ln_attn_layer,
+    supports_fused_attn_layer,
+)
+from eventpretrain_tpu_torch.ops.fused_mlp import (
+    fused_ln_mlp,
+    supports_fused_ln_mlp,
+)
+from eventpretrain_tpu_torch.ops.splat import splat, voxelize_batch
+
+
+def _events(rng, b, e, h, w, *, margin=3.0):
+    """xytp events with fractional and out-of-frame coordinates, sorted t,
+    polarity in {0, 1}."""
+    ev = np.stack([
+        rng.uniform(-margin, w + margin, (b, e)),
+        rng.uniform(-margin, h + margin, (b, e)),
+        np.sort(rng.uniform(0, 1, (b, e)), axis=1),
+        rng.integers(0, 2, (b, e)).astype(np.float64),
+    ], axis=-1).astype(np.float32)
+    return ev
+
+
+# exact f32 scatter on both sides; only the order of the f32 additions
+# differs (cells hold a few unit weights)
+VOXEL_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("num_bins", [5, 6, 9])
+def test_voxel_grid_matches_jax_scatter(num_bins):
+    rng = np.random.default_rng(num_bins)
+    b, e, h, w = 4, 700, 24, 32
+    ev = _events(rng, b, e, h, w)
+    ev[2, :, 2] = 0.25          # a window of 0 becomes 1
+    counts = np.array([e, 431, 650, 0], np.int32)  # ragged, one empty
+    want = jvox(jnp.asarray(ev), jnp.asarray(counts), num_bins=num_bins,
+                height=h, width=w, use_mxu=False)
+    got = events_to_voxel_grid_batch(
+        torch.from_numpy(ev), torch.from_numpy(counts), num_bins=num_bins,
+        height=h, width=w,
+    )
+    assert got.shape == (b, h, w, num_bins) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=VOXEL_ATOL)
+    assert float(np.abs(np.asarray(want)[3]).max()) == 0.0
+    # voxelize_batch is the entry point the dispatcher routes through
+    again = voxelize_batch(torch.from_numpy(ev), torch.from_numpy(counts),
+                           num_bins=num_bins, height=h, width=w)
+    np.testing.assert_allclose(again.numpy(), got.numpy(), atol=VOXEL_ATOL)
+
+
+def test_bin_weights_sum_to_polarity():
+    """Each valid event in the window splits exactly +-1 over its bins."""
+    rng = np.random.default_rng(3)
+    ev = _events(rng, 2, 300, 10, 10)
+    counts = torch.tensor([300, 120])
+    wb = bilinear_bin_weights(torch.from_numpy(ev), counts, 5)
+    total = wb.sum(-1).numpy()
+    pol = np.where(ev[..., 3] == 0, -1.0, 1.0)
+    np.testing.assert_allclose(total[0], pol[0], atol=1e-6)
+    np.testing.assert_allclose(total[1, :120], pol[1, :120], atol=1e-6)
+    assert np.all(total[1, 120:] == 0)
+
+
+# splat_mxu carries the f32 weights as a bf16 hi+lo split (~1e-5 relative
+# to the weights, pallas_voxel.py:206-221); the port's scatter is exact f32
+SPLAT_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("b,c,e,h,w", [(2, 3, 300, 16, 24),
+                                       (3, 5, 1100, 20, 20)])
+def test_splat_matches_jax_splat_mxu(b, c, e, h, w):
+    rng = np.random.default_rng(e)
+    y = rng.integers(-2, h + 2, (b, e)).astype(np.int32)
+    x = rng.integers(-2, w + 2, (b, e)).astype(np.int32)
+    wts = rng.normal(size=(b, c, e)).astype(np.float32)
+    want = splat_mxu(jnp.asarray(y), jnp.asarray(x), jnp.asarray(wts),
+                     height=h, width=w, interpret=True)
+    got = splat(torch.from_numpy(y), torch.from_numpy(x),
+                torch.from_numpy(wts), height=h, width=w)
+    assert got.shape == (b, h, w, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=SPLAT_ATOL)
+
+
+def _to_torch_params(p: jva.ViewParams) -> tva.ViewParams:
+    return tva.ViewParams(*(torch.from_numpy(np.array(a)) for a in p))
+
+
+# both sides are f32 resampling contractions; sums run in another order
+VIEW_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "nearest", "bicubic"])
+@pytest.mark.parametrize("negate", [True, False])
+def test_view_augment_matches_jax(mode, negate):
+    rng = np.random.default_rng(11)
+    b, h, w, c = 6, 30, 40, 5
+    views = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    jp = jva.sample_view_params(rng, b, h, w, scale_min=0.3)
+    out = (48, 56)
+    want = jva.apply_view_augment(jnp.asarray(views), jp, out, mode,
+                                  negate_on_tflip=negate)
+    got = tva.apply_view_augment(torch.from_numpy(views),
+                                 _to_torch_params(jp), out, mode,
+                                 negate_on_tflip=negate)
+    assert got.shape == (b, *out, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=VIEW_ATOL)
+
+
+def test_view_augment_identity_per_sample_box():
+    """The eval view: each sample's own sensor box on a shared canvas."""
+    rng = np.random.default_rng(5)
+    views = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    jp = jva.identity_view_params(2, 32, 32)._replace(
+        crop_h=jnp.asarray([20, 32], jnp.int32),
+        crop_w=jnp.asarray([24, 30], jnp.int32),
+    )
+    want = jva.apply_view_augment(jnp.asarray(views), jp, (64, 64),
+                                  "bilinear")
+    tp = tva.identity_view_params(2, 32, 32)._replace(
+        crop_h=torch.tensor([20, 32], dtype=torch.int32),
+        crop_w=torch.tensor([24, 30], dtype=torch.int32),
+    )
+    got = tva.apply_view_augment(torch.from_numpy(views), tp, (64, 64),
+                                 "bilinear")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=VIEW_ATOL)
+
+
+def _subblock(rng, b, l, c, hidden):
+    """numpy inputs in the JAX layout: kernels (in, out)."""
+    return dict(
+        x=rng.normal(size=(b, l, c)),
+        g=rng.normal(size=(c,)) * 0.1 + 1.0,
+        beta=rng.normal(size=(c,)) * 0.1,
+        w1=rng.normal(size=(c, hidden)) * c ** -0.5,
+        b1=rng.normal(size=(hidden,)) * 0.1,
+        w2=rng.normal(size=(hidden, c)) * hidden ** -0.5,
+        b2=rng.normal(size=(c,)) * 0.1,
+    )
+
+
+def _as(a, jdt, tdt):
+    return jnp.asarray(a, jdt), torch.from_numpy(np.asarray(a, np.float32)
+                                                 ).to(tdt)
+
+
+# f32: same algorithm, sums in another order. bf16: both round at the same
+# points, so an output may differ by a bf16 ulp where a rounded
+# intermediate landed on the other side of a tie; bound the error at 2% of
+# the output's scale (a few ulps of the largest values).
+F32_ATOL = 1e-4
+BF16_REL = 2e-2
+
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _check(got, want, dtype):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert np.isfinite(got).all()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=F32_ATOL)
+    else:
+        err = np.abs(got - want).max()
+        assert err <= BF16_REL * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,l,c,h", [(2, 20, 128, 4), (1, 49, 256, 8)])
+def test_fused_ln_attn_layer_matches_jax_kernel(dtypes, b, l, c, h):
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(l * c)
+    a = _subblock(rng, b, l, c, 3 * c)
+    wo = rng.normal(size=(c, c)) * c ** -0.5
+    scale = (c // h) ** -0.5
+    x_j, x_t = _as(a["x"], jdt, tdt)
+    wqkv_j, wqkv_t = _as(a["w1"], jdt, tdt)
+    bqkv_j, bqkv_t = _as(a["b1"], jdt, tdt)
+    wo_j, wo_t = _as(wo, jdt, tdt)
+    bo_j, bo_t = _as(a["b2"], jdt, tdt)
+    g_j, g_t = _as(a["g"], jnp.float32, torch.float32)
+    beta_j, beta_t = _as(a["beta"], jnp.float32, torch.float32)
+    want = j_attn(x_j, g_j, beta_j, wqkv_j, bqkv_j, wo_j, bo_j,
+                  num_heads=h, scale=scale)
+    got = fused_ln_attn_layer(x_t, g_t, beta_t, wqkv_t.t().contiguous(),
+                              bqkv_t, wo_t.t().contiguous(), bo_t,
+                              num_heads=h, scale=scale)
+    assert got.dtype == tdt and got.shape == (b, l, c)
+    _check(got, want, tdt)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,l,c", [(2, 20, 128), (1, 49, 256)])
+def test_fused_ln_mlp_matches_jax_kernel(dtypes, b, l, c):
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(l + c)
+    a = _subblock(rng, b, l, c, 4 * c)
+    x_j, x_t = _as(a["x"], jdt, tdt)
+    w1_j, w1_t = _as(a["w1"], jdt, tdt)
+    b1_j, b1_t = _as(a["b1"], jdt, tdt)
+    w2_j, w2_t = _as(a["w2"], jdt, tdt)
+    b2_j, b2_t = _as(a["b2"], jdt, tdt)
+    g_j, g_t = _as(a["g"], jnp.float32, torch.float32)
+    beta_j, beta_t = _as(a["beta"], jnp.float32, torch.float32)
+    want = j_mlp(x_j, g_j, beta_j, w1_j, b1_j, w2_j, b2_j)
+    got = fused_ln_mlp(x_t, g_t, beta_t, w1_t.t().contiguous(), b1_t,
+                       w2_t.t().contiguous(), b2_t)
+    assert got.dtype == tdt and got.shape == (b, l, c)
+    _check(got, want, tdt)
+
+
+@pytest.mark.parametrize("l", [16, 49, 196, 256, 257])
+@pytest.mark.parametrize("c,h", [(128, 4), (384, 12), (768, 12), (512, 16),
+                                 (96, 3), (200, 8)])
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_gates_match_jax(l, c, h, dtypes):
+    jdt, tdt = dtypes
+    assert supports_fused_attn_layer(l, c, h, tdt) == j_supports_attn(
+        l, c, h, jdt)
+    assert supports_fused_ln_mlp(l, c, 4 * c, tdt) == j_supports_mlp(
+        l, c, 4 * c, jdt)
+
+
+def test_wrappers_never_fall_back_off_cpu():
+    """A tensor that is not on the CPU must launch the kernel or raise; a
+    'meta' tensor cannot launch, so each wrapper raises."""
+    c = 128
+    x = torch.zeros((1, 16, c), dtype=torch.bfloat16, device="meta")
+    w = torch.zeros((3 * c, c), dtype=torch.bfloat16, device="meta")
+    v = torch.zeros((3 * c,), dtype=torch.bfloat16, device="meta")
+    wo = torch.zeros((c, c), dtype=torch.bfloat16, device="meta")
+    bo = torch.zeros((c,), dtype=torch.bfloat16, device="meta")
+    g = torch.ones((c,), device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_ln_attn_layer(x, g, g, w, v, wo, bo, num_heads=4, scale=0.1)
+    w1 = torch.zeros((4 * c, c), dtype=torch.bfloat16, device="meta")
+    b1 = torch.zeros((4 * c,), dtype=torch.bfloat16, device="meta")
+    w2 = torch.zeros((c, 4 * c), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_ln_mlp(x, g, g, w1, b1, w2, bo)
+    y = torch.zeros((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="expected cuda"):
+        splat(y, y, torch.zeros((1, 2, 8), device="meta"), height=4, width=4)
+    assert splat.launches == fused_ln_attn_layer.launches == 0
+    assert fused_ln_mlp.launches == 0
+
+
+@pytest.mark.parametrize("num_bins", [2, 3, 5])
+def test_normalize_representation_matches_jax(num_bins):
+    from eventpretrain_tpu.data.representations import (
+        normalize_representation as j_norm,
+    )
+    from eventpretrain_tpu_torch.data.representations import (
+        normalize_representation,
+    )
+
+    rng = np.random.default_rng(num_bins)
+    evg = np.abs(rng.normal(size=(3, 8, 9, num_bins))).astype(np.float32)
+    evg[1] = 0.0  # an empty sample: the MEM factor falls back to 1
+    want = j_norm(jnp.asarray(evg), num_bins)
+    got = normalize_representation(torch.from_numpy(evg), num_bins)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("kw", [dict(num_bins=2), dict(num_bins=3),
+                                dict(num_bins=5, use_evrep=True),
+                                dict(num_bins=5, tile_table=torch.zeros(1))])
+def test_unported_representations_raise(kw):
+    from eventpretrain_tpu_torch.data.representations import (
+        build_representation,
+    )
+
+    ev = torch.zeros((1, 4, 4))
+    with pytest.raises(NotImplementedError):
+        build_representation(ev, torch.tensor([4]), height=8, width=8, **kw)
