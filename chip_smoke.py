@@ -12,26 +12,41 @@ Phases (any failure exits non-zero; nothing is caught):
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the LN
    attention (K1) and LN MLP (K2) sub-blocks in bf16 at (8, 196, 384) and
-   (8, 196, 768), 12 heads.
-3. Main path: the ViT-S/16 classification hub (2 classes, N-Cars), full
-   width, random weights from seed 0, bf16 on the card, fed synthetic raw
-   N-Cars-shaped events (sensor 100x120 on a 128x128 canvas, E=30000, B=8)
-   through ``make_cls_infer``. Launch counts are read from this one run;
-   the logits are held against the unfused plain path and an f32 run.
+   (8, 196, 768), 12 heads; their backward kernels with the same ``dy`` at
+   K1 (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12 and K2
+   C=768, 512, 384.
+3. Slice 1, serving: the ViT-S/16 classification hub (2 classes, N-Cars),
+   full width, random weights from seed 0, bf16 on the card, fed synthetic
+   raw N-Cars-shaped events (sensor 100x120 on a 128x128 canvas, E=30000,
+   B=8) through ``make_cls_infer``. Launch counts are read from this one
+   run; the logits are held against the unfused plain path and an f32 run.
 4. Serving: ``make_server`` on an ephemeral port, POST /predict at batch 1,
    8 and 64 plus GET /healthz, each answer against a direct call.
-5. Timing (CUDA events, median of 20 after warm-up): each kernel against
-   its plain version at the B=64 main-path shapes, and the served
-   function's samples/s at B=64 from raw events to logits.
+5. Slice 2, stage-1 rec training: ``pretrain_hub_base`` (ViT-B/16 encoder
+   on the 49 kept patches, the C=512 decoder on all 196), full width, bf16
+   compute with f32 parameters, random weights from seed 0, B=64 batches of
+   ``SyntheticPretrainSource(size=224)`` through ``PretrainPipeline``; 10
+   ``make_rec_step`` steps on the kernel path (launch counts read from this
+   run) and 10 on the plain path from the same init and the same replayed
+   masks, both loss curves and their gap; then ``cli.pretrain.main`` for
+   one epoch (4 steps).
+6. Timing (CUDA events, median of 20 after warm-up; plain, kernel, kernel,
+   plain): each kernel against its plain version with its bound, the
+   served function's samples/s at B=64, and the rec step's ms, samples/s
+   and peak memory on both paths; then a ``torch.profiler`` window over
+   each kernel path for its device time by kernel and busy share.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it the
+The last line is ``{"ok": true, "device": {...}}``; the lines before it
+hold the card's name and power limit, the end-to-end record and the
 per-kernel JSON record.
 """
 
 from __future__ import annotations
 
+import copy
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,6 +64,16 @@ NUM_BINS = 5
 EVENTS = 30000
 DEPTH = 12
 REPS = 20
+# slice 2: pretrain_hub_base at the CLI's batch; 12 encoder + 8 decoder
+# blocks, each one K1 and one K2 call forward and backward per step
+TRAIN_BATCH = 64
+TRAIN_INPUT = 224
+TRAIN_STEPS = 10
+TRAIN_BLOCKS = 12 + 8
+# the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
+# cores and device-memory bandwidth
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def log(*args):
@@ -237,6 +262,66 @@ def phase_kernel_parity(dev) -> dict:
                                 "version")
             if c == 384:
                 errs[name] = (err, tol)
+    errs.update(phase_backward_parity(dev))
+    return errs
+
+
+GRAD_NAMES = ("dx", "dgamma", "dbeta", "dw_in", "db_in", "dw_out", "db_out")
+
+
+def phase_backward_parity(dev) -> dict:
+    """K1 and K2 backward kernels against their plain backward versions,
+    bf16, the same ``dy``. Both round at the same points (do, p, ds, dq,
+    dk, dv, dh_pre, dx, and every weight gradient once), but their f32 sums
+    run in other orders, so a rounded value may land one bf16 ulp apart;
+    the weight gradients, sums of such values over B*L tokens, move by a
+    few ulps of their scale. Each gradient is bounded at 2% of its own
+    scale, as the forward outputs are."""
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        fused_ln_attn_layer_bwd,
+        fused_ln_attn_layer_bwd_reference,
+    )
+    from eventpretrain_tpu_torch.ops.fused_mlp import (
+        fused_ln_mlp_bwd,
+        fused_ln_mlp_bwd_reference,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    errs = {}
+    cases = [("fused_ln_attn_layer_bwd", l, c, h)
+             for l, c, h in ((49, 768, 12), (196, 512, 16), (196, 384, 12))]
+    cases += [("fused_ln_mlp_bwd", 196 if c != 768 else 49, c, 0)
+              for c in (768, 512, 384)]
+    for name, l, c, h in cases:
+        if h:
+            args = k1_args(gen, 8, l, c, dev)
+            kw = dict(num_heads=h, scale=(c // h) ** -0.5)
+            fn, plain = fused_ln_attn_layer_bwd, fused_ln_attn_layer_bwd_reference
+        else:
+            args = k2_args(gen, 8, l, c, dev)
+            kw = {}
+            fn, plain = fused_ln_mlp_bwd, fused_ln_mlp_bwd_reference
+        dy = (torch.randn((8, l, c), generator=gen)).to(dev, torch.bfloat16)
+        got = fn(*args, dy, **kw)
+        want = plain(*args[:6], dy, **kw)
+        torch.cuda.synchronize()
+        worst, worst_abs = 0.0, 0.0
+        for g, w, gname in zip(got, want, GRAD_NAMES):
+            g, w = g.float(), w.float()
+            require(bool(torch.isfinite(g).all()), f"{name} {gname} non-finite")
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            rel = err / max(scale, 1e-30)
+            require(rel <= SUBBLOCK_REL_TOL,
+                    f"{name} {gname} at (8, {l}, {c}) off by {rel:.3g} of "
+                    f"its scale")
+            worst, worst_abs = max(worst, rel), max(worst_abs, err)
+        log(f"{name} (8, {l}, {c}){f' H={h}' if h else ''} bf16: worst "
+            f"gradient error {worst:.3g} of its scale (tol "
+            f"{SUBBLOCK_REL_TOL}), max_abs_err {worst_abs:.4g}")
+        prev = errs.get(name, (0.0, SUBBLOCK_REL_TOL, 0.0))
+        errs[name] = (max(prev[0], worst_abs), SUBBLOCK_REL_TOL,
+                      max(prev[2], worst))
     return errs
 
 
@@ -260,22 +345,44 @@ def set_fused(hub, fused: bool) -> None:
             m.use_fused_layer = None if fused else False
 
 
+COUNTED = {}  # kernel row name -> (wrapper, counter attribute)
+
+
+def counters() -> dict:
+    if not COUNTED:
+        from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+            fused_ln_attn_layer,
+        )
+        from eventpretrain_tpu_torch.ops.fused_mlp import fused_ln_mlp
+        from eventpretrain_tpu_torch.ops.splat import splat
+
+        COUNTED.update({
+            "splat": (splat, "launches"),
+            "fused_ln_attn_layer": (fused_ln_attn_layer, "launches"),
+            "fused_ln_attn_layer_bwd": (fused_ln_attn_layer, "launches_bwd"),
+            "fused_ln_mlp": (fused_ln_mlp, "launches"),
+            "fused_ln_mlp_bwd": (fused_ln_mlp, "launches_bwd"),
+        })
+    return COUNTED
+
+
+def reset_counts() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
 def phase_main_path(dev, hub, infer, inputs) -> dict:
     from eventpretrain_tpu_torch.cli.serve import make_cls_infer
-    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
-        fused_ln_attn_layer,
-    )
-    from eventpretrain_tpu_torch.ops.fused_mlp import fused_ln_mlp
-    from eventpretrain_tpu_torch.ops.splat import splat
 
-    wrappers = {"splat": splat, "fused_ln_attn_layer": fused_ln_attn_layer,
-                "fused_ln_mlp": fused_ln_mlp}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     logits = infer(*inputs)
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"main path: logits {logits.shape} {logits.dtype}, finite "
+    launches = read_counts()
+    log(f"main path (serve): logits {logits.shape} {logits.dtype}, finite "
         f"{bool(np.isfinite(logits).all())}, launches {launches}")
     require(logits.shape == (inputs[0].shape[0], NUM_CLASSES), "logit shape")
     require(bool(np.isfinite(logits).all()), "non-finite logits")
@@ -286,6 +393,9 @@ def phase_main_path(dev, hub, infer, inputs) -> dict:
     require(launches["fused_ln_mlp"] == DEPTH,
             f"fused_ln_mlp launched {launches['fused_ln_mlp']} times, "
             f"expected {DEPTH}")
+    require(launches["fused_ln_attn_layer_bwd"] == 0
+            and launches["fused_ln_mlp_bwd"] == 0,
+            "a backward kernel ran while serving")
 
     # the same weights on the unfused plain path (bf16) and in f32
     set_fused(hub, False)
@@ -355,15 +465,229 @@ def phase_serving(infer, big_inputs) -> None:
 # ---------------------------------------------------------------- phase 5
 
 
-def phase_timing(dev, hub, infer, big_inputs, errs, launches, smi) -> None:
-    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
-        fused_ln_attn_layer,
-        fused_ln_attn_layer_reference,
+def build_pretrain_hub(dev):
+    from eventpretrain_tpu_torch.models.pretrain_hub import pretrain_hub_base
+
+    return pretrain_hub_base(dtype=torch.bfloat16, device=dev,
+                             generator=torch.Generator().manual_seed(0),
+                             input_size=TRAIN_INPUT)
+
+
+def rec_batches(dev, steps: int) -> list[dict]:
+    """``steps`` B=64 batches of the synthetic source through the pipeline,
+    each with an explicit random masking (replayed on both paths)."""
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        PretrainDataConfig,
+        PretrainPipeline,
+        SyntheticPretrainSource,
     )
-    from eventpretrain_tpu_torch.ops.fused_mlp import (
-        fused_ln_mlp,
-        fused_ln_mlp_reference,
+    from eventpretrain_tpu_torch.ops.masking import random_masking
+
+    source = SyntheticPretrainSource(n=TRAIN_BATCH * steps, size=TRAIN_INPUT,
+                                     seed=0)
+    cfg = PretrainDataConfig(input_size=TRAIN_INPUT,
+                             transfer_dtype="bfloat16")
+    num_patches = (TRAIN_INPUT // 16) ** 2
+    gen = torch.Generator(dev).manual_seed(0)
+    batches = []
+    for batch in PretrainPipeline(source, cfg, TRAIN_BATCH, seed=0,
+                                  device=dev):
+        ids_keep, mask, ids_restore = random_masking(
+            gen, TRAIN_BATCH, num_patches, 0.75, device=dev)
+        batch.update(ids_keep=ids_keep, mask=mask, ids_restore=ids_restore)
+        batches.append(batch)
+    return batches
+
+
+def make_trainer(hub, steps_per_epoch: int):
+    """The CLI's optimizer and step (cli/pretrain.py) with its defaults:
+    lr 1e-3 * 64 / 256, wd 0.05, betas (0.9, 0.95); the warmup is one
+    epoch of the 10 steps here, so the steps do move the weights."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
     )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import make_rec_step
+
+    schedule = cosine_warmup_schedule(1e-3 * TRAIN_BATCH / 256, 0.0, 1, 400,
+                                      steps_per_epoch)
+    state = TrainState(hub, build_optimizer(hub, weight_decay=0.05), schedule)
+    step = make_rec_step(hub, patch_size=16, num_patches=hub.num_patches)
+    return state, step
+
+
+def run_steps(step, state, batches) -> list[dict]:
+    metrics = [step(state, b) for b in batches]
+    torch.cuda.synchronize()
+    return [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+# The kernel and plain paths start from the same weights and see the same
+# batches and masks; both compute in bf16 but round in other places (the
+# plain path's cuBLAS GEMMs and softmax round their own outputs), so the
+# loss, a mean over 64 * 147 * 256 squared errors, differs by ~1e-3 at the
+# first step and the gap may grow as the updates compound: bound it at 2%.
+LOSS_GAP_REL = 2e-2
+
+
+def phase_training(dev):
+    hub = build_pretrain_hub(dev)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    t0 = time.perf_counter()
+    batches = rec_batches(dev, TRAIN_STEPS)
+    log(f"rec batches: {len(batches)} x evg {tuple(batches[0]['evg'].shape)}"
+        f" {batches[0]['evg'].dtype}, frame "
+        f"{tuple(batches[0]['frame'].shape)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state, step = make_trainer(hub, TRAIN_STEPS)
+    pstate, pstep = make_trainer(plain_hub, TRAIN_STEPS)
+
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts()["fused_ln_attn_layer"]
+            == launches["fused_ln_attn_layer"],
+            "the plain path launched K1")
+    lk = [m["loss"] for m in kern]
+    lp = [m["loss"] for m in plain]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log("rec loss, kernel path: " + " ".join(f"{v:.5f}" for v in lk))
+    log("rec loss, plain path:  " + " ".join(f"{v:.5f}" for v in lp))
+    log("grad norm, kernel path: "
+        + " ".join(f"{m['grad_norm']:.4g}" for m in kern))
+    log(f"largest loss gap {gap:.3g} of the plain loss (bound "
+        f"{LOSS_GAP_REL}); launches over {TRAIN_STEPS} steps {launches}")
+    require(all(np.isfinite([*lk, *lp])), "non-finite rec loss")
+    require(all(np.isfinite([m["grad_norm"] for m in kern])),
+            "non-finite grad norm")
+    require(gap <= LOSS_GAP_REL, "kernel path loss leaves the plain path's")
+    for name in ("fused_ln_attn_layer", "fused_ln_attn_layer_bwd",
+                 "fused_ln_mlp", "fused_ln_mlp_bwd"):
+        per_step = launches[name] / TRAIN_STEPS
+        require(per_step == TRAIN_BLOCKS,
+                f"{name}: {per_step} launches per step, expected "
+                f"{TRAIN_BLOCKS}")
+    return dict(hub=hub, plain_hub=plain_hub, state=state, step=step,
+                pstate=pstate, pstep=pstep, batches=batches,
+                launches=launches, loss_gap=gap, losses=lk, plain_losses=lp)
+
+
+def phase_cli(dev) -> None:
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    out = os.path.join("build", "chip_smoke_pretrain")
+    t0 = time.perf_counter()
+    state = pretrain_main([
+        "--pr_phase", "rec", "--dataset", "synthetic", "--model_size",
+        "base", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+        "--output_dir", out, "--print_freq", "1",
+        "--input_size", str(TRAIN_INPUT), "--device", str(dev),
+    ])
+    sd = load_torch_checkpoint(os.path.join(out, "checkpoint.pth"))
+    log(f"cli.pretrain: {state.step} steps in "
+        f"{time.perf_counter() - t0:.1f} s, checkpoint of {len(sd)} tensors")
+    require(state.step == 4, f"the CLI ran {state.step} steps, expected 4")
+    require(set(sd) == set(state.module.state_dict()),
+            "the checkpoint's keys are not the hub's")
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of operations
+    over the bf16 tensor-core peak and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_work(b, l, c, h, backward=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of K1 on these shapes. Forward: qkv, per-head q.k and
+    p.v, out projection; x in, y out, weights in. Backward: dWo, do,
+    the attention backward (s recomputed, dp, dv, dq, dk), dWqkv, d_yln;
+    x, dy, the saved qkv and o in, dx and every gradient out."""
+    m, d = b * l, c // h
+    weights = (4 * c * c + 4 * c) * 2 + 2 * c * 4
+    if not backward:
+        return (2 * m * c * 4 * c + 4 * b * h * l * l * d,
+                2 * m * c * 2 + weights)
+    return (2 * m * c * 8 * c + 10 * b * h * l * l * d,
+            (2 + 4 + 1) * m * c * 2 + 2 * weights)
+
+
+def k2_work(b, l, c, backward=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of K2. Forward: fc1 and fc2. Backward: the h_pre
+    recompute, dW2, dh, dW1, d_yln; x, dy in, dx and every gradient out."""
+    m = b * l
+    weights = (8 * c * c + 5 * c) * 2 + 2 * c * 4
+    if not backward:
+        return 2 * m * c * 8 * c, 2 * m * c * 2 + weights
+    return 2 * m * c * 20 * c, 3 * m * c * 2 + 2 * weights
+
+
+def device_profile(fn, calls: int) -> dict:
+    """``calls`` calls of ``fn`` under ``torch.profiler``: device time per
+    kernel (the 10 largest), device time and host-clock wall time per call,
+    and the device's busy share of the wall time (kernels and copies run on
+    one stream, so their times add; the profiler's own host cost lengthens
+    the wall time, so the share is a lower bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per: dict[str, float] = {}
+    for e in prof.key_averages():
+        # device work only: user-annotated ranges (Optimizer.step#..., with
+        # a '#' where the flag is missing) carry the device time of the
+        # kernels inside them, which are counted on their own
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False) or "#" in e.key):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per[e.key] = per.get(e.key, 0.0) + us / 1e3
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    return {"calls": calls, "wall_ms": wall / calls,
+            "device_ms": busy / calls,
+            "busy_share": busy / wall if busy else None,
+            "top_ms": [[k[:90], v / calls] for k, v in top]}
+
+
+def log_profile(what: str, prof: dict) -> None:
+    if prof["busy_share"] is None:
+        log(f"profile {what}: the profiler recorded no device time")
+        return
+    log(f"profile {what}: {prof['device_ms']:.4g} ms of device time in "
+        f"{prof['wall_ms']:.4g} ms per call (busy {prof['busy_share']:.1%})")
+    for name, ms in prof["top_ms"]:
+        log(f"  {ms:9.4f} ms  {name}")
+
+
+def time_pair(fn, plain) -> tuple[float, float]:
+    """plain, kernel, kernel, plain: both see the same clocks."""
+    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, fn, fn, plain))
+    return min(k1, k2), min(p1, p2)
+
+
+def phase_timing(dev, hub, infer, big_inputs, errs, launches, train,
+                 smi) -> None:
+    import torch.nn.functional as F
+
+    from eventpretrain_tpu_torch.ops import fused_attn_layer as k1
+    from eventpretrain_tpu_torch.ops import fused_mlp as k2
     from eventpretrain_tpu_torch.ops.splat import splat, splat_reference
 
     b = big_inputs[0].shape[0]
@@ -371,36 +695,125 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, smi) -> None:
     y, x, wb = splat_args(rng, b, dev)
     hw = dict(height=CANVAS[0], width=CANVAS[1])
     gen = torch.Generator().manual_seed(4)
-    a1 = k1_args(gen, b, 196, 384, dev)
-    kw1 = dict(num_heads=12, scale=32 ** -0.5)
-    a2 = k2_args(gen, b, 196, 384, dev)
+
+    def k1_case(l, c, h, backward):
+        a = k1_args(gen, b, l, c, dev)
+        kw = dict(num_heads=h, scale=(c // h) ** -0.5)
+        if not backward:
+            return (lambda: k1.fused_ln_attn_layer(*a, **kw),
+                    lambda: k1.fused_ln_attn_layer_reference(*a, **kw))
+        dy = torch.randn((b, l, c), generator=gen).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            _, qkv, o = k1._forward_cuda(*a, h, kw["scale"], 1e-6)
+        return (lambda: k1._backward_cuda(*a[:4], a[5], qkv, o, dy, h,
+                                          kw["scale"], 1e-6),
+                lambda: k1.fused_ln_attn_layer_bwd_reference(*a[:6], dy,
+                                                             **kw))
+
+    def k2_case(l, c, backward):
+        a = k2_args(gen, b, l, c, dev)
+        if not backward:
+            return (lambda: k2.fused_ln_mlp(*a),
+                    lambda: k2.fused_ln_mlp_reference(*a))
+        dy = torch.randn((b, l, c), generator=gen).to(dev, torch.bfloat16)
+        return (lambda: k2._backward_cuda(*a[:6], dy, 1e-6),
+                lambda: k2.fused_ln_mlp_bwd_reference(*a[:6], dy))
+
+    def sdpa(l, c, h, backward):
+        q, kk, v = (torch.randn((b, h, l, c // h), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(3))
+        if not backward:
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, kk, v))
+        q, kk, v = (t.requires_grad_() for t in (q, kk, v))
+        out = F.scaled_dot_product_attention(q, kk, v)
+        do = torch.randn_like(out)
+        return cuda_ms(lambda: torch.autograd.grad(out, (q, kk, v), do,
+                                                   retain_graph=True))
+
+    # (name, source, also, replaces, shapes, backward): the first shape is
+    # the row's; the others follow in "shapes". K1/K2 forward keep slice 1's shape (ViT-S,
+    # L=196, C=384) and add the rec path's two; the backward rows are the
+    # rec path's decoder and encoder blocks.
+    csrc = "eventpretrain_tpu_torch/csrc/"
     rows = [
-        ("splat", "eventpretrain_tpu_torch/csrc/splat.cu", [],
-         "eventpretrain_tpu/ops/pallas_voxel.py:227",
-         lambda: splat(y, x, wb, **hw),
-         lambda: splat_reference(y, x, wb, **hw)),
-        ("fused_ln_attn_layer", "eventpretrain_tpu_torch/csrc/attention.cu",
-         ["eventpretrain_tpu_torch/csrc/ln_gemm.cu"],
-         "eventpretrain_tpu/ops/fused_attn_layer.py:471",
-         lambda: fused_ln_attn_layer(*a1, **kw1),
-         lambda: fused_ln_attn_layer_reference(*a1, **kw1)),
-        ("fused_ln_mlp", "eventpretrain_tpu_torch/csrc/ln_gemm.cu", [],
-         "eventpretrain_tpu/ops/fused_mlp.py:484",
-         lambda: fused_ln_mlp(*a2), lambda: fused_ln_mlp_reference(*a2)),
+        ("fused_ln_attn_layer", csrc + "attention.cu", [csrc + "ln_gemm.cu"],
+         "eventpretrain_tpu/ops/fused_attn_layer.py:357",
+         [(196, 384, 12), (49, 768, 12), (196, 512, 16)], False),
+        ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu",
+         [csrc + "ln_gemm.cu", csrc + "ln_bwd.cu", csrc + "attention.cu"],
+         "eventpretrain_tpu/ops/fused_attn_layer.py:386",
+         [(196, 512, 16), (49, 768, 12)], True),
+        ("fused_ln_mlp", csrc + "ln_gemm.cu", [],
+         "eventpretrain_tpu/ops/fused_mlp.py:329",
+         [(196, 384, 0), (49, 768, 0), (196, 512, 0)], False),
+        ("fused_ln_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
+         "eventpretrain_tpu/ops/fused_mlp.py:356 (C<=512), :416 (C=768)",
+         [(196, 512, 0), (49, 768, 0)], True),
     ]
+    total = {k: launches["serve"].get(k, 0) + launches["rec_train"].get(k, 0)
+             for k in counters()}
     kernels = []
-    for name, source, also, replaces, fn, plain in rows:
-        # plain, kernel, kernel, plain: both see the same clocks
-        p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, fn, fn, plain))
-        ms, plain_ms = min(k1, k2), min(p1, p2)
-        err, tol = errs[name]
-        log(f"time {name} at B={b}: kernel {ms:.4g} ms, plain {plain_ms:.4g}"
-            f" ms ({smi})")
+    # the library call: index_put_(accumulate=True) alone, on the in-frame
+    # cells and weights splat_reference computes first
+    ok = (y >= 0) & (y < CANVAS[0]) & (x >= 0) & (x < CANVAS[1])
+    cell = ((torch.arange(b, device=dev)[:, None] * CANVAS[0] + y.long())
+            * CANVAS[1] + x.long())[ok]
+    vals = wb.transpose(1, 2)[ok].float()
+    acc = torch.zeros((b * CANVAS[0] * CANVAS[1], NUM_BINS), device=dev)
+    ms, plain_ms = time_pair(lambda: splat(y, x, wb, **hw),
+                             lambda: splat_reference(y, x, wb, **hw))
+    lib_ms = cuda_ms(lambda: acc.index_put_((cell,), vals, accumulate=True))
+    nbytes = (y.numel() + x.numel()) * 4 + wb.numel() * 4 + acc.numel() * 4
+    bms, bby = bound(wb.numel(), nbytes)
+    err, tol = errs["splat"]
+    kernels.append({
+        "name": "splat", "route": "cuda", "source": csrc + "splat.cu",
+        "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:227",
+        "launches": total["splat"],
+        "launches_by_path": {p: launches[p]["splat"] for p in launches},
+        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
+        "library": "index_put_(accumulate=True)",
+        "shape": [b, NUM_BINS, EVENTS], "flops": wb.numel(),
+        "bytes": nbytes,
+    })
+    log(f"time splat B={b}: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, "
+        f"index_put_ {lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
+    for name, source, also, replaces, shapes, backward in rows:
+        per_shape = []
+        for l, c, h in shapes:
+            fn, plain = (k1_case(l, c, h, backward) if h
+                         else k2_case(l, c, backward))
+            ms, plain_ms = time_pair(fn, plain)
+            flops, nbytes = (k1_work(b, l, c, h, backward) if h
+                             else k2_work(b, l, c, backward))
+            bms, bby = bound(flops, nbytes)
+            entry = {"shape": [b, l, c] + ([h] if h else []), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                     "flops": flops, "bytes": nbytes}
+            if h:
+                entry["sdpa_ms"] = sdpa(l, c, h, backward)
+            per_shape.append(entry)
+            del fn, plain
+            log(f"time {name} {entry['shape']}: kernel {ms:.4g} ms, plain "
+                f"{plain_ms:.4g} ms, bound {bms:.4g} ms ({bby})"
+                + (f", sdpa {entry['sdpa_ms']:.4g} ms" if h else "")
+                + f" ({smi})")
+        err, tol = errs[name][:2]
+        head = per_shape[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "also": also, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "tol": tol,
-            "ms": ms, "plain_ms": plain_ms, "shape_batch": b,
+            "name": name, "route": "cuda", "source": source, "also": also,
+            "replaces": replaces, "launches": total[name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": err, "tol": tol,
+            **({"max_rel_err": errs[name][2],
+                "tol_is": "max_rel_err, of each gradient's scale"}
+               if backward else {}),
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None,
+            "shape": head["shape"], "flops": head["flops"],
+            "bytes": head["bytes"], "shapes": per_shape[1:],
         })
 
     # served function, raw numpy events -> numpy logits; kernel and plain
@@ -410,13 +823,59 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, smi) -> None:
         set_fused(hub, fused)
         runs[fused] += host_ms(lambda: infer(*big_inputs), reps=REPS // 2)
     set_fused(hub, True)
-    e2e = {"batch": b, "reps": REPS, "card": smi}
+    e2e = {"serve": {"batch": b, "reps": REPS, "card": smi}}
     for fused, key in ((True, ""), (False, "plain_")):
         q1, med, q3 = statistics.quantiles(runs[fused], n=4)
-        e2e.update({
+        e2e["serve"].update({
             f"{key}ms": med, f"{key}ms_q1": q1, f"{key}ms_q3": q3,
             f"{key}samples_per_s": b / med * 1e3,
         })
+
+    # the rec step, B=64, host clock around synchronised steps, on both
+    # paths in turns (each call is a real update of its own path's state)
+    batches = train["batches"]
+    paths = {True: (train["step"], train["state"]),
+             False: (train["pstep"], train["pstate"])}
+    runs = {True: [], False: []}
+    peak = {}
+    for fused in (False, True, True, False):
+        step, state = paths[fused]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls = [0]
+
+        def one_step():
+            calls[0] += 1
+            return step(state, batches[calls[0] % len(batches)])
+
+        runs[fused] += host_ms(one_step, reps=REPS // 2, warmup=2)
+        peak[fused] = max(peak.get(fused, 0.0),
+                          (torch.cuda.max_memory_allocated() - base) / 2**30)
+    e2e["rec_train"] = {
+        "model": "pretrain_hub_base", "batch": TRAIN_BATCH, "reps": REPS,
+        "card": smi, "loss_gap": train["loss_gap"],
+        "resident_gib": torch.cuda.memory_allocated() / 2**30,
+    }
+    for fused, key in ((True, ""), (False, "plain_")):
+        q1, med, q3 = statistics.quantiles(runs[fused], n=4)
+        e2e["rec_train"].update({
+            f"{key}step_ms": med, f"{key}step_ms_q1": q1,
+            f"{key}step_ms_q3": q3,
+            f"{key}samples_per_s": TRAIN_BATCH / med * 1e3,
+            f"{key}peak_step_gib": peak[fused],
+        })
+    log(f"rec step B={TRAIN_BATCH}: kernel {e2e['rec_train']['step_ms']:.4g}"
+        f" ms, plain {e2e['rec_train']['plain_step_ms']:.4g} ms ({smi})")
+
+    # where the time goes, both main paths on the kernel path
+    e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
+    log_profile("serve B=64", e2e["serve"]["profile"])
+    step, state = paths[True]
+    e2e["rec_train"]["profile"] = device_profile(
+        lambda: step(state, batches[0]), 3)
+    log_profile(f"rec step B={TRAIN_BATCH}", e2e["rec_train"]["profile"])
+    log(smi)
     log(json.dumps({"e2e": e2e}))
     log(json.dumps({"kernels": kernels}))
 
@@ -436,10 +895,13 @@ def main() -> int:
     infer = make_cls_infer(hub, num_bins=NUM_BINS, canvas=CANVAS)
     rng = np.random.default_rng(0)
     big_inputs = make_events(rng, 64)
-    launches = phase_main_path(dev, hub, infer,
-                               tuple(a[:8] for a in big_inputs))
+    launches = {"serve": phase_main_path(dev, hub, infer,
+                                         tuple(a[:8] for a in big_inputs))}
     phase_serving(infer, big_inputs)
-    phase_timing(dev, hub, infer, big_inputs, errs, launches, smi)
+    train = phase_training(dev)
+    launches["rec_train"] = train["launches"]
+    phase_cli(dev)
+    phase_timing(dev, hub, infer, big_inputs, errs, launches, train, smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

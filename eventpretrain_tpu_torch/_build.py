@@ -33,10 +33,19 @@ _F = ctypes.c_float
 SIGNATURES: dict[str, dict[str, list]] = {
     "splat": {"splat_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
     "ln_gemm": {
-        "ln_gemm_bf16": [_P, _P, _P, _F, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _P],
+        "gemm_bf16": [_P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P],
     },
     "attention": {"attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P]},
+    "attention_bwd": {
+        "attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "ln_bwd": {
+        "ln_rows_bf16": [_P, _P, _P, _F, _P, _I, _I, _P],
+        "ln_backward_bf16": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _P],
+        "colsum_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = (

@@ -141,8 +141,8 @@ def make_server(infer, name: str, host: str = "127.0.0.1",
                                make_handler(infer, name, "cls_hub"))
 
 
-def build_hub(weights: str, num_classes: int, num_bins: int, device: str,
-              **bk) -> FtClsHub:
+def build_hub(weights: str, num_classes: int, num_bins: int = 5,
+              device: str = "cuda", **bk) -> FtClsHub:
     """A ViT-S cls hub (``bk`` overrides backbone widths) with ``weights``
     loaded strictly; bf16 on CUDA, f32 elsewhere."""
     dtype = torch.bfloat16 if device.startswith("cuda") else torch.float32

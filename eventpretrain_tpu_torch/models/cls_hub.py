@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from eventpretrain_tpu_torch.models.layers import init_weights
+from eventpretrain_tpu_torch.models.layers import Linear, init_weights
 from eventpretrain_tpu_torch.models.vit import (
     ViT,
     vit_base_patch16,
@@ -26,9 +26,10 @@ class FtClsHub(nn.Module):
     def __init__(self, backbone: ViT, num_classes: int):
         super().__init__()
         self.backbone = backbone
-        w = backbone.patch_embed.proj.weight
-        self.classify_head = nn.Linear(backbone.embed_dim, num_classes,
-                                       dtype=w.dtype, device=w.device)
+        self.classify_head = Linear(
+            backbone.embed_dim, num_classes, dtype=backbone.dtype,
+            device=backbone.patch_embed.proj.weight.device,
+        )
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         """``x (B, H, W, num_bins)`` -> ``(emb_h, logits, attn)``."""
@@ -51,17 +52,18 @@ def _hub(make_backbone, num_classes: int, num_bins: int, dtype, device,
 
 
 def cls_hub_vit_small(num_classes: int, num_bins: int = 5, *,
-                      dtype=torch.float32, device=None,
+                      dtype=torch.float32, device="cuda",
                       generator: Optional[torch.Generator] = None,
                       **bk) -> FtClsHub:
-    """ViT-S/16 hub, randomly initialised from ``generator`` (a CPU
-    generator; seed 0 when None)."""
+    """ViT-S/16 hub on ``device`` (the card unless the caller asks for the
+    CPU), f32 parameters computed in ``dtype``, randomly initialised from
+    ``generator`` (a CPU generator; seed 0 when None)."""
     return _hub(vit_small_patch16, num_classes, num_bins, dtype, device,
                 generator, **bk)
 
 
 def cls_hub_vit_base(num_classes: int, num_bins: int = 5, *,
-                     dtype=torch.float32, device=None,
+                     dtype=torch.float32, device="cuda",
                      generator: Optional[torch.Generator] = None,
                      **bk) -> FtClsHub:
     """ViT-B/16 hub, randomly initialised from ``generator``."""

@@ -5,17 +5,22 @@ Counterpart of eventpretrain_tpu/models/layers.py:87-429, with the same
 parameter names (so reference / exported checkpoints load strictly) and
 channels-last activations at the public boundary.
 
-Dtypes follow flax's split between parameter and compute dtype: Linear and
-Conv weights are stored in the compute ``dtype`` (flax casts them at use,
-which gives the same values), LayerNorm parameters stay f32, and every
-LayerNorm computes in f32 and returns the activation dtype.
+Dtypes follow flax's split between ``param_dtype`` and ``dtype``: every
+parameter is stored in f32, and Linear and Conv weights and biases are cast
+to the compute ``dtype`` at use (``Linear``, ``Conv2d``, and the K1/K2
+wrappers receive ``w.to(dtype)``). So an optimizer updates the f32 copy,
+and a weight's gradient is the compute-dtype gradient of the cast, upcast,
+as under flax. Every LayerNorm computes in f32 and returns the activation
+dtype.
 
 ``ViTBlock`` takes the LN-fused sub-block kernels K1
-(``fused_ln_attn_layer``) and K2 (``fused_ln_mlp``) under the JAX gates of
-layers.py:343-380: 2-byte activations, no active dropout or drop-path, no
-attention weights requested, shapes inside ``supports_*``. The JAX package
-enables them only on a TPU; here they are always eligible, and each wrapper
-runs its plain version on CPU tensors. ``use_fused_layer=False`` forces the
+(``fused_ln_attn_layer``) and K2 (``fused_ln_mlp``), forward and backward,
+under the JAX gates of layers.py:343-380: a 2-byte compute dtype, no active
+dropout or drop-path, no attention weights requested, shapes inside
+``supports_*`` (K1's with the backward kernel's shared-memory bound while
+gradients are on). The JAX package enables them only on a TPU; here they
+are always eligible, and each wrapper runs its plain version on CPU
+tensors. ``use_fused_layer=False`` forces the
 unfused composition. The unfused paths' own kernels (K4 ``fused_attn_layer``,
 K5 ``fused_mlp``, K7 ``fused_mha``) are not ported: they run plain PyTorch.
 ``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported yet.
@@ -37,6 +42,36 @@ from eventpretrain_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp,
     supports_fused_ln_mlp,
 )
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with f32 parameters, computed in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, *, dtype=torch.float32, device=None):
+        super().__init__(in_features, out_features, bias, device=device,
+                         dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with f32 parameters, computed in ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, *, dtype=torch.float32, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         device=device, dtype=torch.float32)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -84,8 +119,8 @@ class Mlp(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.fc1 = nn.Linear(dim, hidden_dim, **kw)
-        self.fc2 = nn.Linear(hidden_dim, dim, **kw)
+        self.fc1 = Linear(dim, hidden_dim, **kw)
+        self.fc2 = Linear(hidden_dim, dim, **kw)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,8 +141,8 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attn_drop_rate = attn_drop
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias, **kw)
-        self.proj = nn.Linear(dim, dim, **kw)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias, **kw)
+        self.proj = Linear(dim, dim, **kw)
         self.attn_drop = nn.Dropout(attn_drop)
         self.proj_drop = nn.Dropout(proj_drop)
 
@@ -134,6 +169,7 @@ class ViTBlock(nn.Module):
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
         self.num_heads = num_heads
         self.drop = drop
         self.attn_drop = attn_drop
@@ -155,28 +191,32 @@ class ViTBlock(nn.Module):
             and self.attn_drop == 0.0
             and (self.drop == 0.0 or deterministic)
             and (self.drop_path_rate == 0.0 or deterministic)
-            and supports_fused_attn_layer(x.shape[1], x.shape[2],
-                                          self.num_heads, x.dtype)
+            and supports_fused_attn_layer(
+                x.shape[1], x.shape[2], self.num_heads, self.dtype,
+                backward=torch.is_grad_enabled(),
+            )
         )
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
         if self._fuse_block(x, return_attn):
+            dt = self.dtype
+            x = x.to(dt).contiguous()
             qkv_bias = self.attn.qkv.bias
             if qkv_bias is None:
                 qkv_bias = torch.zeros_like(self.attn.qkv.weight[:, 0])
             x = fused_ln_attn_layer(
-                x, self.norm1.weight.float(), self.norm1.bias.float(),
-                self.attn.qkv.weight, qkv_bias,
-                self.attn.proj.weight, self.attn.proj.bias,
+                x, self.norm1.weight, self.norm1.bias,
+                self.attn.qkv.weight.to(dt), qkv_bias.to(dt),
+                self.attn.proj.weight.to(dt), self.attn.proj.bias.to(dt),
                 num_heads=self.num_heads, scale=self.attn.scale,
                 eps=self.layer_norm_eps,
             )
             if supports_fused_ln_mlp(x.shape[1], x.shape[2],
-                                     self.mlp.fc1.out_features, x.dtype):
+                                     self.mlp.fc1.out_features, dt):
                 return fused_ln_mlp(
-                    x, self.norm2.weight.float(), self.norm2.bias.float(),
-                    self.mlp.fc1.weight, self.mlp.fc1.bias,
-                    self.mlp.fc2.weight, self.mlp.fc2.bias,
+                    x, self.norm2.weight, self.norm2.bias,
+                    self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.to(dt),
+                    self.mlp.fc2.weight.to(dt), self.mlp.fc2.bias.to(dt),
                     eps=self.layer_norm_eps,
                 )
             return x + self.mlp(layer_norm(x, self.norm2))
@@ -197,13 +237,12 @@ class PatchEmbed(nn.Module):
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size,
-                              dtype=dtype, device=device)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, patch_size,
+                           dtype=dtype, device=device)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.proj.weight.dtype).permute(0, 3, 1, 2)
-        x = self.proj(x).permute(0, 2, 3, 1)
+        x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return F.gelu(layer_norm(x, self.norm), approximate="none")
 
 

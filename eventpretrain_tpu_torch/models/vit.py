@@ -1,8 +1,10 @@
-"""ViT backbone (no cls token, fixed sincos pos-embed): the dense path.
+"""ViT backbone (no cls token, fixed sincos pos-embed): the masked and the
+dense paths.
 
-Counterpart of eventpretrain_tpu/models/vit.py:35-233. ``encode_dense``
-returns the same taps, pyramid and optional last-block attention; the
-masked path (``encode_masked``) comes with the pretraining slice.
+Counterpart of eventpretrain_tpu/models/vit.py:35-233. ``encode_masked``
+embeds only the kept patches and taps blocks ``masked_taps`` for the fused
+feature; ``encode_dense`` returns the dense taps, the pyramid and the
+optional last-block attention.
 """
 
 from __future__ import annotations
@@ -19,15 +21,7 @@ from eventpretrain_tpu_torch.models.layers import (
     layer_norm,
 )
 from eventpretrain_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed
-
-
-def emb2patch_frame(emb: torch.Tensor) -> torch.Tensor:
-    """``(B, L, C)`` -> ``(B, h, w, C)`` channels-last patch frame."""
-    b, num_tokens, c = emb.shape
-    grid = int(num_tokens ** 0.5)
-    if grid * grid != num_tokens:
-        raise ValueError(f"{num_tokens} tokens do not form a square grid")
-    return emb.reshape(b, grid, grid, c)
+from eventpretrain_tpu_torch.ops.reshape import emb2patch_frame, frame2emb
 
 
 class ViT(nn.Module):
@@ -37,16 +31,23 @@ class ViT(nn.Module):
                  out_indices: Sequence[int] = (3, 5, 7, 11),
                  num_bins: int = 5, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 use_feature_fusion: bool = True,
+                 masked_taps: Sequence[int] = (1, 3),
                  dense_taps: Sequence[int] = (0, 1),
                  layer_norm_eps: float = 1e-6, *, dtype=torch.float32,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
         self.embed_dim = embed_dim
         self.depth = depth
+        self.patch_size = patch_size
         self.out_indices = tuple(out_indices)
+        self.use_feature_fusion = use_feature_fusion
+        self.masked_taps = tuple(masked_taps)
         self.dense_taps = tuple(dense_taps)
         self.grid_size = input_size // patch_size
+        self.num_patches = self.grid_size ** 2
         self.patch_embed = PatchEmbed(patch_size, num_bins, embed_dim, **kw)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.vit_block = nn.ModuleList(
@@ -71,6 +72,40 @@ class ViT(nn.Module):
         x = x.reshape(x.shape[0], -1, x.shape[-1])  # (B, L, D)
         x = x + self.pos_embed.to(x.dtype)
         return self.pos_drop(x)
+
+    def _embed_gathered(self, x: torch.Tensor,
+                        ids_keep: torch.Tensor) -> torch.Tensor:
+        """Embed only the kept patches: gather before the patch conv.
+
+        The stride-p conv, its LayerNorm and GELU are patch-local, so the
+        same PatchEmbed on the (B*K) gathered p x p patches gives the values
+        of ``_embed`` followed by a gather (vit.py:112-143).
+        """
+        b, k = ids_keep.shape
+        p = self.patch_size
+        patches = frame2emb(p, x)  # (B, L, p*p*bins)
+        idx = ids_keep[..., None].expand(b, k, patches.shape[-1])
+        patches = torch.gather(patches, 1, idx)
+        patches = patches.reshape(b * k, p, p, x.shape[-1])
+        emb = self.patch_embed(patches).reshape(b, k, self.embed_dim)
+        emb = emb + self.pos_embed[0].to(emb.dtype)[ids_keep]
+        return self.pos_drop(emb)
+
+    def encode_masked(self, x: torch.Tensor, ids_keep: torch.Tensor):
+        """Visible-token encoding of ``x (B, H, W, num_bins)`` at
+        ``ids_keep (B, K)``: ``(emb_l1, emb_l2, emb_lh)``, each (B, K, D),
+        with ``emb_lh = norm(emb_l1 + emb_l2 + emb_h)`` under feature fusion,
+        else ``norm(emb_h)`` (vit.py:145-173)."""
+        x = self._embed_gathered(x, ids_keep)
+        taps = {}
+        for i, blk in enumerate(self.vit_block):
+            x = blk(x)
+            if i in self.masked_taps:
+                taps[i] = x
+        emb_l1 = taps[self.masked_taps[0]]
+        emb_l2 = taps[self.masked_taps[1]]
+        fused = emb_l1 + emb_l2 + x if self.use_feature_fusion else x
+        return emb_l1, emb_l2, layer_norm(fused, self.norm_layer)
 
     def encode_dense(self, x: torch.Tensor, return_attn: bool = False,
                      return_pyramid: bool = True):

@@ -1,24 +1,42 @@
-"""K1 — the pre-norm attention sub-block ``y = x + AttnLayer(LayerNorm(x))``.
+"""K1 — the pre-norm attention sub-block ``y = x + AttnLayer(LayerNorm(x))``,
+forward and backward.
 
 Replaces eventpretrain_tpu/ops/fused_attn_layer.py::fused_ln_attn_layer
-(forward, ``_ln_fwd_kernel``):
+(forward ``_ln_fwd_kernel``, backward ``_ln_bwd_kernel`` through
+``_ln_bwd_call`` :386 and the custom VJP :436-468):
 
     q|k|v = LN(x) . Wqkv^T + bqkv            (rounded to x.dtype)
     o_h   = softmax(q_h k_h^T * scale) v_h    (f32 softmax, p rounded, o_h rounded)
     y     = x + concat_h(o_h) . Wo^T + bo     (f32, rounded once)
 
-On the TPU this is one kernel with both weight matrices resident in VMEM.
-On Hopper they do not fit in shared memory (Wqkv alone is 884 KB at C=384,
-against 227 KB a block may use), so the CUDA path is three launches of two
-hand-written kernels: the LN-prologue GEMM (csrc/ln_gemm.cu) for qkv, the
-per-(sample, head) attention kernel (csrc/attention.cu), and the GEMM with
-the residual epilogue for the out projection. qkv and the head outputs
-round-trip device memory between them (3C + C bf16 per token); keeping them
-on chip is later work. The attention kernel is bound by CUDA-core FMA
-issue, the GEMMs by a simple WMMA loop (see the sources).
+and the backward with the Pallas kernel's rounding points: ``do = dy . Wo``
+rounded; per head the softmax recomputed in f32, ``dv = bf16(p)^T . do``,
+``ds = bf16(p * (dp - rowsum(dp * p)) * scale)``, ``dq = ds . k`` and
+``dk = ds^T . q``, each rounded; ``d_yln = dqkv . Wqkv`` kept in f32; the
+LayerNorm backward in f32 with ``dx`` rounded once; every weight and bias
+gradient summed in f32 over all B*L tokens and rounded to the weight dtype
+once.
+
+On the TPU each direction is one kernel with both weight matrices resident
+in VMEM. On Hopper they do not fit in shared memory (Wqkv alone is 884 KB
+at C=384, against 227 KB a block may use), so the CUDA path is a few
+launches of hand-written kernels:
+
+    forward   LN-prologue GEMM for qkv (csrc/ln_gemm.cu), the per-(sample,
+              head) attention kernel (csrc/attention.cu), the GEMM with the
+              residual epilogue for the out projection;
+    backward  dWo = dy^T . o and do = dy . Wo (GEMM, weight-gradient and
+              dgrad layouts), the attention backward (csrc/attention_bwd.cu),
+              dWqkv = dqkv^T . LN(x) and d_yln = dqkv . Wqkv (GEMM), the LN
+              rows, LN backward and bias sums (csrc/ln_bwd.cu).
+
+qkv and the head outputs round-trip device memory between launches. The
+CUDA forward saves them for the backward instead of recomputing them (the
+same values bit for bit; 4C bf16 per token), and the backward recomputes
+only LN(x). The attention kernels are bound by CUDA-core FMA throughput, the
+GEMMs by a simple WMMA loop (see the sources).
 
 Weights are in the torch layout: ``wqkv`` (3C, C), ``wo`` (C, C).
-The backward (``_ln_bwd_kernel``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,10 +47,17 @@ from eventpretrain_tpu_torch import _build
 from eventpretrain_tpu_torch.ops.common import (
     EPI_BIAS,
     EPI_BIAS_RESIDUAL,
+    EPI_F32,
     MAX_FUSED_SEQ_LEN,
     check_cuda_operands,
+    colsum,
+    gemm_dgrad,
+    gemm_wgrad,
+    ln_backward,
+    ln_backward_reference,
     ln_forward,
     ln_gemm,
+    ln_rows,
     mm_f32,
 )
 
@@ -45,43 +70,95 @@ def attention_smem_bytes(seq_len: int, head_dim: int) -> int:
     return 3 * seq_len * head_dim * 2 + _ATTN_WARPS * seq_len * 4
 
 
+def attention_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
+    """csrc/attention_bwd.cu: q, k, v, do with rows padded to D + 2, the
+    row statistics and the warps' buffers."""
+    buf = max(seq_len, 64)
+    return (4 * seq_len * (head_dim + 2) * 2
+            + 4 * (3 * seq_len + _ATTN_WARPS * buf))
+
+
 def supports_fused_attn_layer(seq_len: int, dim: int, num_heads: int,
-                              dtype=None) -> bool:
-    """The JAX gate (fused_attn_layer.py:48-63), plus the attention
-    kernel's shared-memory bound: q, k and v of one head must fit a block
-    (every ViT and decoder width of the repo does; head_dim 256 at long
-    sequences does not)."""
+                              dtype=None, backward: bool = False) -> bool:
+    """The JAX gate (fused_attn_layer.py:48-63), plus the shared-memory
+    bound of the attention kernel: q, k and v of one head must fit a block,
+    and with ``backward`` q, k, v and do of the backward kernel too. Every
+    ViT and decoder width of the repo fits both (the largest, L=196 at
+    head_dim 64, takes 112 KB in the backward); head_dim 256 at long
+    sequences does not."""
     if dtype is not None and torch.empty((), dtype=dtype).element_size() > 2:
         return False
     if dim % num_heads != 0:
         return False
     head_dim = dim // num_heads
-    return (
+    ok = (
         seq_len <= MAX_FUSED_SEQ_LEN
         and head_dim % 8 == 0
         and head_dim <= 256
         and dim % 128 == 0
         and attention_smem_bytes(seq_len, head_dim) <= MAX_BLOCK_SMEM
     )
+    if ok and backward:
+        ok = attention_bwd_smem_bytes(seq_len, head_dim) <= MAX_BLOCK_SMEM
+    return ok
+
+
+def _heads_softmax(qkv, b, l, num_heads, scale):
+    """(b, l, 3c) packed qkv -> (q, k, v) each (b, h, l, d) and f32 p."""
+    d = qkv.shape[-1] // (3 * num_heads)
+    q, k, v = qkv.view(b, l, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    s = mm_f32(q, k.transpose(-1, -2)) * scale
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    return q, k, v, p / p.sum(-1, keepdim=True)
 
 
 def fused_ln_attn_layer_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
                                   *, num_heads: int, scale: float,
                                   eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of K1, with the kernel's rounding points."""
+    """Plain PyTorch version of K1's forward, with the kernel's rounding
+    points."""
     b, l, c = x.shape
-    d = c // num_heads
     yln = ln_forward(x, ln_weight, ln_bias, eps)
     qkv = (mm_f32(yln, wqkv.t()) + bqkv.float()).to(x.dtype)
-    q, k, v = qkv.view(b, l, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    s = mm_f32(q, k.transpose(-1, -2)) * scale
-    s = s - s.amax(-1, keepdim=True)
-    p = torch.exp(s)
-    p = p / p.sum(-1, keepdim=True)
+    _, _, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
     o = mm_f32(p.to(x.dtype), v).to(x.dtype)  # (b, h, l, d)
     o = o.transpose(1, 2).reshape(b, l, c)
     y = mm_f32(o, wo.t()) + bo.float()
     return (x.float() + y).to(x.dtype)
+
+
+def fused_ln_attn_layer_bwd_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo,
+                                      dy, *, num_heads: int, scale: float,
+                                      eps: float = 1e-6):
+    """Plain PyTorch version of K1's backward (``_ln_bwd_kernel``), with the
+    kernel's rounding points: ``(dx, dgamma, dbeta, dwqkv, dbqkv, dwo,
+    dbo)``, LN gradients f32, the rest in the dtypes of x and the weights.
+    """
+    dt = x.dtype
+    b, l, c = x.shape
+    yln = ln_forward(x, ln_weight, ln_bias, eps)
+    qkv = (mm_f32(yln, wqkv.t()) + bqkv.float()).to(dt)
+    q, k, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
+    o = mm_f32(p.to(dt), v).to(dt).transpose(1, 2).reshape(b * l, c)
+    dy2 = dy.reshape(b * l, c)
+    dwo = mm_f32(dy2.t(), o).to(wo.dtype)
+    dbo = dy2.float().sum(0).to(wo.dtype)
+    do = mm_f32(dy2, wo).to(dt)
+    do_h = do.view(b, l, num_heads, -1).transpose(1, 2)  # (b, h, l, d)
+    dv = mm_f32(p.to(dt).transpose(-1, -2), do_h)
+    dp = mm_f32(do_h, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt)
+    dq = mm_f32(ds, k)
+    dk = mm_f32(ds.transpose(-1, -2), q)
+    # (3, b, h, l, d) -> (b, l, 3, h, d): the packing of qkv
+    dqkv = torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4)
+    dqkv = dqkv.reshape(b * l, 3 * c)
+    dwqkv = mm_f32(dqkv.t(), yln.reshape(b * l, c)).to(wqkv.dtype)
+    dbqkv = dqkv.float().sum(0).to(wqkv.dtype)
+    d_yln = mm_f32(dqkv, wqkv).view(b, l, c)
+    dx, dg, dbeta = ln_backward_reference(x, ln_weight, eps, dy, d_yln)
+    return dx, dg, dbeta, dwqkv, dbqkv, dwo, dbo
 
 
 def _attention(qkv: torch.Tensor, b: int, l: int, num_heads: int,
@@ -98,28 +175,28 @@ def _attention(qkv: torch.Tensor, b: int, l: int, num_heads: int,
     return out
 
 
-def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
-                        ln_bias: torch.Tensor, wqkv: torch.Tensor,
-                        bqkv: torch.Tensor, wo: torch.Tensor,
-                        bo: torch.Tensor, *, num_heads: int, scale: float,
-                        eps: float = 1e-6) -> torch.Tensor:
-    """``x + AttnLayer(LayerNorm(x))`` over (B, L, C) tokens.
-
-    CPU tensors take :func:`fused_ln_attn_layer_reference`. CUDA tensors
-    launch the kernels or raise: ``x``, weights and biases bf16, LayerNorm
-    parameters f32, all contiguous; shapes inside
-    :func:`supports_fused_attn_layer`.
-    """
-    if x.device.type == "cpu":
-        return fused_ln_attn_layer_reference(
-            x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
-            num_heads=num_heads, scale=scale, eps=eps,
+def _attention_bwd(qkv: torch.Tensor, do: torch.Tensor, b: int, l: int,
+                   num_heads: int, scale: float) -> torch.Tensor:
+    c = do.shape[-1]
+    dqkv = torch.empty((b * l, 3 * c), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load("attention_bwd")
+    with torch.cuda.device(qkv.device):
+        code = lib.attention_bwd_bf16(
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, l, num_heads,
+            c // num_heads, float(scale),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
         )
+    _build.check(lib, "attention_bwd_bf16", code)
+    return dqkv
+
+
+def _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
+                backward):
     if x.ndim != 3:
         raise ValueError(f"fused_ln_attn_layer: x must be (B, L, C), "
                          f"got {tuple(x.shape)}")
     b, l, c = x.shape
-    if not supports_fused_attn_layer(l, c, num_heads, x.dtype):
+    if not supports_fused_attn_layer(l, c, num_heads, x.dtype, backward):
         raise ValueError(
             f"fused_ln_attn_layer: L={l} C={c} heads={num_heads} "
             f"{x.dtype} is outside the kernel's gate"
@@ -128,13 +205,125 @@ def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
         raise ValueError("fused_ln_attn_layer: weights must be (3C, C), (C, C)")
     check_cuda_operands("fused_ln_attn_layer", torch.bfloat16, x=x,
                         wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo)
+    check_cuda_operands("fused_ln_attn_layer", torch.float32,
+                        ln_weight=ln_weight, ln_bias=ln_bias)
+    if ln_weight.device != x.device:
+        raise ValueError("fused_ln_attn_layer: operands on several devices")
+
+
+def _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
+                  scale, eps):
+    """(y, qkv, o): the output and the two intermediates the backward
+    takes."""
+    b, l, c = x.shape
     x2 = x.view(b * l, c)
     qkv = ln_gemm(x2, wqkv, bqkv, epilogue=EPI_BIAS,
                   ln=(ln_weight, ln_bias, eps))
     o = _attention(qkv, b, l, num_heads, scale)
     y = ln_gemm(o, wo, bo, epilogue=EPI_BIAS_RESIDUAL, residual=x2)
-    fused_ln_attn_layer.launches += 1
-    return y.view(b, l, c)
+    return y.view(b, l, c), qkv, o
+
+
+def _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o, dy, num_heads,
+                   scale, eps):
+    b, l, c = x.shape
+    x2 = x.view(b * l, c)
+    check_cuda_operands("fused_ln_attn_layer backward", torch.bfloat16,
+                        dy=dy, qkv=qkv, o=o)
+    dy2 = dy.view(b * l, c)
+    dwo = gemm_wgrad(dy2, o)
+    dbo = colsum(dy2)
+    do = gemm_dgrad(dy2, wo)
+    dqkv = _attention_bwd(qkv, do, b, l, num_heads, scale)
+    yln = ln_rows(x2, ln_weight, ln_bias, eps)
+    dwqkv = gemm_wgrad(dqkv, yln)
+    dbqkv = colsum(dqkv)
+    d_yln = gemm_dgrad(dqkv, wqkv, epilogue=EPI_F32)
+    dx, dg, dbeta = ln_backward(x2, ln_weight, eps, dy2, d_yln)
+    return dx.view(b, l, c), dg, dbeta, dwqkv, dbqkv, dwo, dbo
+
+
+class _FusedLnAttnLayer(torch.autograd.Function):
+    """K1 with its backward: the plain versions for CPU tensors, the CUDA
+    kernels for CUDA tensors (never autograd of the plain forward)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
+                scale, eps):
+        ctx.cfg = (num_heads, scale, eps)
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, ln_weight, ln_bias, wqkv, bqkv, wo)
+            return fused_ln_attn_layer_reference(
+                x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
+                num_heads=num_heads, scale=scale, eps=eps,
+            )
+        y, qkv, o = _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
+                                  num_heads, scale, eps)
+        fused_ln_attn_layer.launches += 1
+        ctx.save_for_backward(x, ln_weight, ln_bias, wqkv, bqkv, wo, qkv, o)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        num_heads, scale, eps = ctx.cfg
+        dy = dy.contiguous()
+        saved = ctx.saved_tensors
+        x, ln_weight, ln_bias, wqkv, bqkv, wo = saved[:6]
+        if x.device.type == "cpu":
+            grads = fused_ln_attn_layer_bwd_reference(
+                x, ln_weight, ln_bias, wqkv, bqkv, wo, dy,
+                num_heads=num_heads, scale=scale, eps=eps,
+            )
+        else:
+            qkv, o = saved[6:]
+            grads = _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o,
+                                   dy, num_heads, scale, eps)
+            fused_ln_attn_layer.launches_bwd += 1
+        return (*grads, None, None, None)
+
+
+def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
+                        ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                        bqkv: torch.Tensor, wo: torch.Tensor,
+                        bo: torch.Tensor, *, num_heads: int, scale: float,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """``x + AttnLayer(LayerNorm(x))`` over (B, L, C) tokens, differentiable.
+
+    CPU tensors take :func:`fused_ln_attn_layer_reference` and, under
+    autograd, :func:`fused_ln_attn_layer_bwd_reference`. CUDA tensors launch
+    the kernels or raise: ``x``, weights and biases bf16, LayerNorm
+    parameters f32, all contiguous; shapes inside
+    :func:`supports_fused_attn_layer` (with the backward's bound when
+    gradients are on). ``launches`` and ``launches_bwd`` count the CUDA
+    forward and backward calls.
+    """
+    if x.device.type != "cpu":
+        _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
+                    torch.is_grad_enabled())
+    return _FusedLnAttnLayer.apply(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
+                                   int(num_heads), float(scale), float(eps))
+
+
+def fused_ln_attn_layer_bwd(x: torch.Tensor, ln_weight: torch.Tensor,
+                            ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                            bqkv: torch.Tensor, wo: torch.Tensor,
+                            bo: torch.Tensor, dy: torch.Tensor, *,
+                            num_heads: int, scale: float, eps: float = 1e-6):
+    """K1's backward alone for a given ``dy`` (the gradients of
+    :func:`fused_ln_attn_layer_bwd_reference`). On CUDA it runs the forward
+    kernels for qkv and o, then the backward kernels; neither counter
+    moves."""
+    if x.device.type == "cpu":
+        return fused_ln_attn_layer_bwd_reference(
+            x, ln_weight, ln_bias, wqkv, bqkv, wo, dy,
+            num_heads=num_heads, scale=scale, eps=eps,
+        )
+    _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads, True)
+    _, qkv, o = _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
+                              num_heads, scale, eps)
+    return _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o,
+                          dy.contiguous(), num_heads, scale, eps)
 
 
 fused_ln_attn_layer.launches = 0
+fused_ln_attn_layer.launches_bwd = 0

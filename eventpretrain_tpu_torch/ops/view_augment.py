@@ -1,17 +1,20 @@
 """Batched view augmentation (crop -> resize -> hflip -> time-flip), plain
 PyTorch.
 
-Counterpart of eventpretrain_tpu/ops/view_augment.py:27-227. Parameters are
-per-sample tensors; crop and resize of a whole batch are two dense
-contractions with per-sample ``(out, full)`` resampling matrices, which are
-torch-exact (``F.interpolate`` of the crop, taps clamped to the crop
-border).
+Counterpart of eventpretrain_tpu/ops/view_augment.py:27-253. Parameters
+are drawn on the host with numpy, draw for draw as in JAX
+(``sample_view_params``), and held as per-sample tensors; crop and resize
+of a whole batch are two dense contractions with per-sample ``(out,
+full)`` resampling matrices, which are torch-exact (``F.interpolate`` of
+the crop, taps clamped to the crop border).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -124,3 +127,60 @@ def apply_view_augment(views: torch.Tensor, params: ViewParams,
     out = torch.where(hflip, out.flip(2), out)
     flipped = -out.flip(3) if negate_on_tflip else out.flip(3)
     return torch.where(params.tflip.view(-1, 1, 1, 1), flipped, out)
+
+
+def sample_crop(rng: np.random.Generator, height: int, width: int,
+                scale: tuple[float, float] = (0.8, 1.0),
+                ratio: tuple[float, float] = (3 / 4, 4 / 3)
+                ) -> tuple[int, int, int, int]:
+    """One random-resized-crop box ``(y, x, h, w)``, drawn with the JAX
+    package's draws in the same order (view_augment.py:38-65): 10 attempts,
+    aspect scaled by the sensor's w/h, a 50% side swap, else the full
+    view."""
+    area = width * height
+    for _ in range(10):
+        target_area = rng.uniform(scale[0], scale[1]) * area
+        aspect = rng.uniform(width / height * ratio[0],
+                             width / height * ratio[1])
+        crop_w = int(round(math.sqrt(target_area * aspect)))
+        crop_h = int(round(math.sqrt(target_area / aspect)))
+        if rng.integers(0, 10) < 5:
+            crop_w, crop_h = crop_h, crop_w
+        if crop_w < width and crop_h < height:
+            x0 = int(rng.integers(0, width - crop_w))
+            y0 = int(rng.integers(0, height - crop_h))
+            return y0, x0, crop_h, crop_w
+    return 0, 0, height, width
+
+
+def sample_view_params(rng: np.random.Generator, batch: int, height: int,
+                       width: int, scale_min: float = 0.8,
+                       hflip_prob: float = 0.5, tflip_prob: float = 0.5,
+                       device=None) -> ViewParams:
+    """A batch of view parameters drawn on the host from ``rng``
+    (view_augment.py:68-89: the same draws as JAX for the same seed)."""
+    boxes = np.array(
+        [sample_crop(rng, height, width, (scale_min, 1.0))
+         for _ in range(batch)],
+        np.int32,
+    ).reshape(batch, 4)
+    hflip = rng.random(batch) < hflip_prob
+    tflip = rng.random(batch) < tflip_prob
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ViewParams(crop_y=t(boxes[:, 0]), crop_x=t(boxes[:, 1]),
+                      crop_h=t(boxes[:, 2]), crop_w=t(boxes[:, 3]),
+                      hflip=t(hflip), tflip=t(tflip))
+
+
+def apply_frame_augment(frames: torch.Tensor, params: ViewParams,
+                        out_size: tuple[int, int],
+                        mode: str = "bicubic") -> torch.Tensor:
+    """Augment target frames coupled to an event view (view_augment.py:
+    230-253): the same crop and hflip; a time-flipped view flips the
+    temporal-difference frame's sign (no channel reversal)."""
+    out = apply_view_augment(frames, params._replace(
+        tflip=torch.zeros_like(params.tflip)), out_size, mode)
+    return torch.where(params.tflip.view(-1, 1, 1, 1), -out, out)

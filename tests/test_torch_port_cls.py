@@ -6,6 +6,8 @@ bins, 3 classes) is initialised in JAX, carried across with
 port's logits, preprocessing and served function are held against JAX.
 JAX runs its XLA composition on the CPU (the fused kernels are TPU-only
 there); the port runs f32, where its fused-kernel gates are closed too.
+The port's factories build on the card unless asked for the CPU, so every
+test passes ``device="cpu"``.
 """
 
 import io
@@ -62,7 +64,7 @@ def jax_tiny():
 
 @pytest.fixture(scope="module")
 def port_tiny(jax_tiny):
-    hub = cls_hub_vit_small(NUM_CLASSES, **TINY)
+    hub = cls_hub_vit_small(NUM_CLASSES, device="cpu", **TINY)
     load_jax_state_dict(hub, export_torch_state_dict(jax_tiny[1]["params"]))
     return hub.eval()
 
@@ -108,10 +110,12 @@ def test_weights_carry_across_strictly(jax_tiny, port_tiny):
     missing = dict(flat)
     missing.pop("backbone.norm_layer.bias")
     with pytest.raises(RuntimeError, match="Missing key"):
-        load_jax_state_dict(cls_hub_vit_small(NUM_CLASSES, **TINY), missing)
+        load_jax_state_dict(
+            cls_hub_vit_small(NUM_CLASSES, device="cpu", **TINY), missing)
     extra = dict(flat, **{"backbone.pos_embed": np.zeros((1, 16, 128))})
     with pytest.raises(RuntimeError, match="Unexpected key"):
-        load_jax_state_dict(cls_hub_vit_small(NUM_CLASSES, **TINY), extra)
+        load_jax_state_dict(
+            cls_hub_vit_small(NUM_CLASSES, device="cpu", **TINY), extra)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -170,8 +174,11 @@ def test_served_function_matches_jax(jax_tiny, port_tiny, seed):
 def test_bf16_hub_takes_fused_plain_versions(jax_tiny, port_tiny):
     """In bf16 the K1/K2 gates open; on the CPU the wrappers run their plain
     versions (no launch is counted) and stay near the f32 logits."""
-    hub16 = cls_hub_vit_small(NUM_CLASSES, dtype=torch.bfloat16, **TINY)
+    hub16 = cls_hub_vit_small(NUM_CLASSES, dtype=torch.bfloat16,
+                              device="cpu", **TINY)
     hub16.load_state_dict(port_tiny.state_dict())
+    # flax's split: f32 parameters, cast to the compute dtype at use
+    assert {p.dtype for p in hub16.parameters()} == {torch.float32}
     ev, counts, sensor = _raw_events(np.random.default_rng(5))
     want = make_cls_infer(port_tiny, canvas=CANVAS, input_size=64)(
         ev, counts, sensor)

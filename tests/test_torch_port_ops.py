@@ -242,6 +242,127 @@ def test_fused_ln_mlp_matches_jax_kernel(dtypes, b, l, c):
     _check(got, want, tdt)
 
 
+# Backward parity. f32: the same algorithm with sums in another order, held
+# at 1e-5 of each gradient's scale. bf16: both round at the same points
+# (do, p, ds, dq/dk/dv, dh_pre, dx and the weight gradients once), so a
+# rounded intermediate may land one ulp apart and move the sums over the
+# tokens by a few ulps: 2e-2 of each gradient's scale.
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_NAMES = ("dx", "dgamma", "dbeta", "dw_in", "db_in", "dw_out", "db_out")
+
+
+def _check_grads(got, want, tdt):
+    """``want`` in the JAX layout (kernels (in, out)); ``got`` torch."""
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        w = np.asarray(jnp.asarray(w, jnp.float32))
+        g = g.float().detach().numpy()
+        if name.startswith("dw"):
+            g = g.T
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        assert np.isfinite(g).all(), name
+        err = np.abs(g - w).max()
+        assert err <= BWD_REL[tdt] * np.abs(w).max(), (name, err,
+                                                       np.abs(w).max())
+
+
+def _torch_args(a, names, jdt, tdt):
+    """(jax args, torch args) for the sub-block inputs; weights transposed
+    into the torch layout, LayerNorm parameters f32."""
+    js, ts = [], []
+    for n in names:
+        if n in ("g", "beta"):
+            j, t = _as(a[n], jnp.float32, torch.float32)
+        else:
+            j, t = _as(a[n], jdt, tdt)
+            if n.startswith("w"):
+                t = t.t().contiguous()
+        js.append(j)
+        ts.append(t)
+    return js, ts
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,l,c,h", [(2, 16, 128, 4), (2, 24, 256, 8)])
+def test_fused_ln_attn_layer_bwd_matches_jax_vjp(dtypes, b, l, c, h):
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        fused_ln_attn_layer_bwd,
+    )
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(b * l + c)
+    a = _subblock(rng, b, l, c, 3 * c)
+    a["wo"] = rng.normal(size=(c, c)) * c ** -0.5
+    dy = rng.normal(size=(b, l, c))
+    scale = (c // h) ** -0.5
+    names = ("x", "g", "beta", "w1", "b1", "wo", "b2")
+    js, ts = _torch_args(a, names, jdt, tdt)
+    _, vjp = jax.vjp(
+        lambda *args: j_attn(*args, num_heads=h, scale=scale), *js)
+    dy_j, dy_t = _as(dy, jdt, tdt)
+    want = vjp(dy_j)
+    got = fused_ln_attn_layer_bwd(*ts, dy_t, num_heads=h, scale=scale)
+    assert got[0].dtype == tdt and got[1].dtype == torch.float32
+    _check_grads(got, want, tdt)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,l,c", [(2, 16, 128), (2, 12, 256), (1, 8, 768)],
+                         ids=["pallas128", "pallas256", "xla768"])
+def test_fused_ln_mlp_bwd_matches_jax_vjp(dtypes, b, l, c):
+    """C <= 512 is the Pallas backward, C = 768 the XLA one; the port's one
+    backward is held against both."""
+    from eventpretrain_tpu_torch.ops.fused_mlp import fused_ln_mlp_bwd
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(b + l + c)
+    a = _subblock(rng, b, l, c, 4 * c)
+    dy = rng.normal(size=(b, l, c))
+    names = ("x", "g", "beta", "w1", "b1", "w2", "b2")
+    js, ts = _torch_args(a, names, jdt, tdt)
+    _, vjp = jax.vjp(lambda *args: j_mlp(*args), *js)
+    dy_j, dy_t = _as(dy, jdt, tdt)
+    want = vjp(dy_j)
+    got = fused_ln_mlp_bwd(*ts, dy_t)
+    assert got[0].dtype == tdt and got[3].dtype == tdt
+    _check_grads(got, want, tdt)
+
+
+@pytest.mark.parametrize("which", ["attn", "mlp"])
+def test_autograd_function_takes_plain_backward_on_cpu(which):
+    """torch.autograd.grad through the wrapper equals the plain backward,
+    and no launch is counted on the CPU."""
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        fused_ln_attn_layer_bwd_reference,
+    )
+    from eventpretrain_tpu_torch.ops.fused_mlp import (
+        fused_ln_mlp_bwd_reference,
+    )
+
+    rng = np.random.default_rng(7)
+    b, l, c, h = 2, 16, 128, 4
+    hidden = 3 * c if which == "attn" else 4 * c
+    a = _subblock(rng, b, l, c, hidden)
+    if which == "attn":
+        a["w2"] = rng.normal(size=(c, c)) * c ** -0.5
+    names = ("x", "g", "beta", "w1", "b1", "w2", "b2")
+    _, ts = _torch_args(a, names, jnp.bfloat16, torch.bfloat16)
+    ts = [t.requires_grad_() for t in ts]
+    dy = torch.from_numpy(rng.normal(size=(b, l, c)).astype(np.float32)).to(
+        torch.bfloat16)
+    kw = dict(num_heads=h, scale=(c // h) ** -0.5) if which == "attn" else {}
+    fn = fused_ln_attn_layer if which == "attn" else fused_ln_mlp
+    y = fn(*ts, **kw)
+    got = torch.autograd.grad(y, ts, dy)
+    if which == "attn":
+        want = fused_ln_attn_layer_bwd_reference(*ts[:6], dy, **kw)
+    else:
+        want = fused_ln_mlp_bwd_reference(*ts[:6], dy)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert fn.launches == 0 and fn.launches_bwd == 0
+
+
 @pytest.mark.parametrize("l", [16, 49, 196, 256, 257])
 @pytest.mark.parametrize("c,h", [(128, 4), (384, 12), (768, 12), (512, 16),
                                  (96, 3), (200, 8)])
@@ -252,6 +373,31 @@ def test_gates_match_jax(l, c, h, dtypes):
         l, c, h, jdt)
     assert supports_fused_ln_mlp(l, c, 4 * c, tdt) == j_supports_mlp(
         l, c, 4 * c, jdt)
+
+
+@pytest.mark.parametrize("l,c,h", [(49, 384, 12), (49, 768, 12),
+                                   (196, 256, 8), (196, 512, 16),
+                                   (196, 384, 12), (196, 768, 12)])
+def test_backward_gate_open_at_every_rec_hub_width(l, c, h):
+    """Encoders (49 kept tokens) and decoders (196) of pretrain_hub_small
+    and _base, and the dense ViT-S/B: the attention backward's shared
+    memory fits, so training takes the kernels wherever serving does."""
+    assert supports_fused_attn_layer(l, c, h, torch.bfloat16, backward=True)
+
+
+def test_backward_gate_bound_closes_past_shared_memory():
+    """head_dim 128 at L=256: the forward fits a block (205 KB), the
+    backward's q, k, v, do do not (277 KB)."""
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        MAX_BLOCK_SMEM,
+        attention_bwd_smem_bytes,
+    )
+
+    assert supports_fused_attn_layer(256, 256, 2, torch.bfloat16)
+    assert not supports_fused_attn_layer(256, 256, 2, torch.bfloat16,
+                                         backward=True)
+    assert attention_bwd_smem_bytes(256, 128) > MAX_BLOCK_SMEM
+    assert attention_bwd_smem_bytes(196, 64) <= 115 * 1024
 
 
 def test_wrappers_never_fall_back_off_cpu():
@@ -276,6 +422,7 @@ def test_wrappers_never_fall_back_off_cpu():
         splat(y, y, torch.zeros((1, 2, 8), device="meta"), height=4, width=4)
     assert splat.launches == fused_ln_attn_layer.launches == 0
     assert fused_ln_mlp.launches == 0
+    assert fused_ln_attn_layer.launches_bwd == fused_ln_mlp.launches_bwd == 0
 
 
 @pytest.mark.parametrize("num_bins", [2, 3, 5])
