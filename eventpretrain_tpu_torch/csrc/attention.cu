@@ -1,5 +1,5 @@
-// The attention core of K1: per (sample, head), softmax(q k^T * scale) v
-// over packed qkv rows.
+// The attention core of K1 and K4: per (sample, head),
+// softmax(q k^T * scale) v over packed qkv rows.
 //
 // Replaces the per-head loop inside eventpretrain_tpu/ops/
 // fused_attn_layer.py::_attention_heads (:73-100), with its rounding points:

@@ -1,5 +1,6 @@
-// The attention core of K1's backward: per (sample, head), from the packed
-// qkv rows and the head outputs' gradient do, the gradients dq, dk, dv.
+// The attention core of K1's and K4's backward: per (sample, head), from
+// the packed qkv rows and the head outputs' gradient do, the gradients dq,
+// dk, dv.
 //
 // Replaces the per-head loop of eventpretrain_tpu/ops/fused_attn_layer.py::
 // _layer_bwd (:138-164), with its rounding points:

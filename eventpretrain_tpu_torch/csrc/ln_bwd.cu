@@ -1,5 +1,6 @@
-// Row and column reductions of the K1/K2 backward: the LayerNorm forward
-// recompute, the LayerNorm backward and the bias / LN-parameter gradients.
+// Row and column reductions of the K1/K2/K4/K5 backward: the LayerNorm
+// forward recompute, the LayerNorm backward (K1/K2) and the bias /
+// LN-parameter gradients.
 //
 // Replaces the LN tail of the TPU backward kernels
 // (eventpretrain_tpu/ops/fused_attn_layer.py::_ln_bwd_kernel :341-354 and

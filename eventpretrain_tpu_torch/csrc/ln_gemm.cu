@@ -1,5 +1,5 @@
-// The GEMM under the port's K1 and K2 sub-block kernels, forward and
-// backward:
+// The GEMM under the port's K1/K2 sub-block kernels and their bare K4/K5
+// twins (no LayerNorm prologue, no residual), forward and backward:
 //
 //     out[M, N] = epilogue(prologue(A)[M, K] . B[K, N] + bias[N])
 //
@@ -23,7 +23,8 @@
 //   the normalised row rounded to bf16 as it is staged into shared memory.
 // * Epilogue, in f32 on the accumulator (bias optional: a null pointer adds
 //   nothing):
-//     0  bias, rounded                 (qkv, do = dy.Wo, dW)
+//     0  bias, rounded                 (qkv, K4/K5's proj and fc2,
+//                                       do = dy.Wo, dW, K4/K5's dx)
 //     1  bias + GELU, rounded          (fc1, fused_mlp.py:262-264)
 //     2  bias + bf16 residual, rounded (proj / fc2 plus the skip)
 //     3  bias, f32 out, no rounding    (d_yln = dqkv.Wqkv, fused_attn_layer

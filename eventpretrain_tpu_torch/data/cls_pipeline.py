@@ -1,16 +1,44 @@
-"""Classification preprocessing on the device: raw padded events -> the
-normalised model input.
+"""Classification input pipeline: host windowing, stream augment, packing
+and encoding; device decode, rasterisation, view augment and
+normalisation.
 
-Counterpart of eventpretrain_tpu/data/cls_pipeline.py:95-132
-(``_device_preprocess``). Events arrive as float32 xytp; the compact u16/u32
-transfer codecs and EvRep (``build_representation`` raises for it) are not
-ported yet.
+Counterpart of eventpretrain_tpu/data/cls_pipeline.py: ``ClsDataConfig``,
+``_device_preprocess`` :95-132, ``ClsPipeline`` :135-363 (train and eval,
+the wrapped tail batch with ``num_valid``), ``NCarsSource`` :366-388 and
+``SyntheticClsSource`` :391-420. The host draws every random number with
+the JAX pipeline's ``numpy.random.Generator`` calls in the same order, so
+one seed gives the same windows, augmented streams and views. The stream
+augment runs the JAX pipeline's numpy fallback (cls_pipeline.py:276-286;
+the fused C++ augment comes with the infrastructure slice); the seeds the
+native augment would take are still drawn, so the stream of draws is the
+JAX pipeline's.
+
+Not ported yet: EvRep, the coordinate rescale of N-ImageNet and the DVS
+datasets (``rescale_to_input``), fixed-sensor sources and the other
+sources of data/cls_sources.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
 import torch
 
+from eventpretrain_tpu_torch.data.codec import (
+    decode_events_u16,
+    decode_events_u32,
+    encode_for_transfer,
+)
+from eventpretrain_tpu_torch.data.event_transforms import (
+    erase_and_add_events,
+    pack_event_batch,
+    random_window,
+)
 from eventpretrain_tpu_torch.data.representations import (
     build_representation,
     normalize_representation,
@@ -19,7 +47,24 @@ from eventpretrain_tpu_torch.ops.view_augment import (
     ViewParams,
     apply_view_augment,
     identity_view_params,
+    sample_crop,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClsDataConfig:
+    num_classes: int
+    num_bins: int = 5
+    input_size: int = 224
+    fix_events_num: int = 30000
+    val_fix_events_num: int = 30000
+    canvas_height: int = 128        # >= the dataset's largest sensor height
+    canvas_width: int = 128
+    resize_mode: str = "bilinear"
+    crop_min: float = 0.8
+    event_noise: bool = False       # robustness eval (--val_event_noise)
+    compact_transfer: bool = True   # the transfer codec (data/codec.py)
+    transfer_codec: str = "u32"     # "u32" (4 B/event) | "u16" (8 B/event)
 
 
 def eval_view_params(sensor_hw: torch.Tensor) -> ViewParams:
@@ -36,12 +81,17 @@ def eval_view_params(sensor_hw: torch.Tensor) -> ViewParams:
 def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
                        sensor_hw: torch.Tensor, params: ViewParams, *,
                        num_bins: int, height: int, width: int, out_size: int,
-                       mode: str) -> torch.Tensor:
-    """(B, E, 4) f32 events -> (B, out_size, out_size, C) f32 input."""
-    if events.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{events.dtype} events: the transfer codecs are not ported yet"
-        )
+                       mode: str,
+                       t_range: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, E, 4) f32 events, or their u16 (B, E, 4) / u32 (B, E) words with
+    ``t_range``, -> (B, out_size, out_size, C) f32 input."""
+    if events.dtype in (torch.int16, torch.uint16):
+        events = decode_events_u16(events, t_range)
+    elif events.dtype in (torch.int32, torch.uint32):
+        events = decode_events_u32(events, t_range)
+    elif events.dtype != torch.float32:
+        raise TypeError(f"events of {events.dtype}: expected f32 xytp or "
+                        "the u16/u32 transfer words")
     evg = build_representation(
         events, counts, num_bins=num_bins, height=height, width=width,
         sensor_hw=sensor_hw,
@@ -51,3 +101,210 @@ def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
         negate_on_tflip=num_bins in (5, 6),
     )
     return normalize_representation(evg, num_bins)
+
+
+class ClsPipeline:
+    """Iterates batches ``{'evg': (B, S, S, C) f32, 'label': (B,) int64,
+    'num_valid': int}`` on ``device``; a short tail batch is padded by
+    wrapping to the front of the epoch's order and ``num_valid`` counts its
+    real rows. ``host_seconds`` and ``batches`` add up the host time spent
+    building batches (loads, windows, augment, packing, encoding)."""
+
+    def __init__(self, source, cfg: ClsDataConfig, batch_size: int,
+                 train: bool, seed: int = 0, drop_last: Optional[bool] = None,
+                 num_workers: int = 8, device="cuda"):
+        self.source = source
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = train if drop_last is None else drop_last
+        self.num_workers = num_workers
+        self.device = torch.device(device)
+        self._pack_buffer = None
+        self._enc_buffer = None
+        self.host_seconds = 0.0
+        self.batches = 0
+
+    def __len__(self) -> int:
+        n = len(self.source)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _augmenting(self) -> bool:
+        return self.train or self.cfg.event_noise
+
+    def _load_sample(self, loaded):
+        """(f32 stream, (start, end) window, sensor (h, w), label)."""
+        cfg = self.cfg
+        events, label = loaded
+        events = np.ascontiguousarray(events, np.float32)
+        cap = cfg.fix_events_num if self.train else cfg.val_fix_events_num
+        start, end = random_window(self.rng, events.shape[0], cap)
+        # the N-Cars layout: the sensor box from the window's maxima
+        view = events[start:end]
+        sensor_h = min(int(view[:, 1].max()) + 1, cfg.canvas_height)
+        sensor_w = min(int(view[:, 0].max()) + 1, cfg.canvas_width)
+        return events, (start, end), (sensor_h, sensor_w), label
+
+    def _sample_view(self, sensor_hw: Sequence[tuple[int, int]]) -> ViewParams:
+        cfg = self.cfg
+        boxes, hflips, tflips = [], [], []
+        for h, w in sensor_hw:
+            if self.train:
+                boxes.append(sample_crop(self.rng, h, w, (cfg.crop_min, 1.0)))
+                hflips.append(self.rng.random() < 0.5)
+                tflips.append(self.rng.random() < 0.5)
+            else:
+                boxes.append((0, 0, h, w))
+                hflips.append(False)
+                tflips.append(False)
+        boxes = np.asarray(boxes, np.int32)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return ViewParams(crop_y=t(boxes[:, 0]), crop_x=t(boxes[:, 1]),
+                          crop_h=t(boxes[:, 2]), crop_w=t(boxes[:, 3]),
+                          hflip=t(np.asarray(hflips)),
+                          tflip=t(np.asarray(tflips)))
+
+    def _host_batch(self, loaded: list, cap: int):
+        """Windows, stream augment and packing of one batch, in the JAX
+        pipeline's order of draws: ``(packed, counts, hws, labels)``."""
+        samples = [self._load_sample(item) for item in loaded]
+        hws = [s[2] for s in samples]
+        labels = [s[3] for s in samples]
+        if self._augmenting():
+            # the seeds of the native augment (cls_pipeline.py:263): drawn
+            # though the numpy augment below does not read them
+            self.rng.integers(0, 2 ** 63, len(samples))
+            # the JAX pipeline erases and adds under --val_event_noise too
+            # (cls_pipeline.py:276-286); add_noise_events is not called
+            streams = [
+                erase_and_add_events(
+                    self.rng, ev[a:b].astype(np.float64), hw
+                ).astype(np.float32)
+                for ev, (a, b), hw, _ in samples
+            ]
+        else:
+            streams = [ev[a:b].astype(np.float64).astype(np.float32)
+                       for ev, (a, b), _, _ in samples]
+        packed, counts = pack_event_batch(streams, cap,
+                                          out=self._pack_buffer)
+        self._pack_buffer = packed
+        return packed, counts, hws, labels
+
+    def __iter__(self) -> Iterator[dict]:
+        cfg = self.cfg
+        cap = cfg.fix_events_num if self.train else cfg.val_fix_events_num
+        if self._augmenting():
+            # erase_and_add can grow a full window by up to int(0.01 * n)
+            # events: the packed capacity keeps that headroom
+            cap = cap + max(cap // 100, 1)
+        order = np.arange(len(self.source))
+        if self.train:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        pool = (ThreadPoolExecutor(self.num_workers)
+                if self.num_workers > 0 else None)
+        try:
+            for b in range(len(self)):
+                t0 = time.perf_counter()
+                idx = order[b * bs:(b + 1) * bs]
+                num_valid = len(idx)
+                if len(idx) < bs:
+                    idx = np.concatenate([idx, order[:bs - len(idx)]])
+                # loads draw no random numbers, so a pool keeps the stream
+                if pool is None:
+                    loaded = [self.source.load(int(i)) for i in idx]
+                else:
+                    loaded = list(pool.map(
+                        lambda i: self.source.load(int(i)), idx))
+                packed, counts, hws, labels = self._host_batch(loaded, cap)
+                params = self._sample_view(hws)
+                events, t_range, self._enc_buffer = encode_for_transfer(
+                    packed, counts, cfg.compact_transfer,
+                    out=self._enc_buffer, codec=cfg.transfer_codec,
+                )
+                self.host_seconds += time.perf_counter() - t0
+                self.batches += 1
+                dev = self.device
+                evg = _device_preprocess(
+                    torch.from_numpy(events).to(dev),
+                    torch.from_numpy(counts).to(dev),
+                    torch.from_numpy(np.asarray(hws, np.int32)).to(dev),
+                    params, num_bins=cfg.num_bins,
+                    height=cfg.canvas_height, width=cfg.canvas_width,
+                    out_size=cfg.input_size, mode=cfg.resize_mode,
+                    t_range=torch.from_numpy(t_range).to(dev),
+                )
+                yield {
+                    "evg": evg,
+                    "label": torch.from_numpy(
+                        np.asarray(labels, np.int64)).to(dev),
+                    "num_valid": num_valid,
+                }
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+
+class NCarsSource:
+    """The N-Cars layout: ``root/<class>/<class>_*.npy`` of xytp rows
+    (cls_pipeline.py:366-388)."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.classes = sorted(os.listdir(root))
+        self.files: list[tuple[str, int]] = []
+        for label, cls in enumerate(self.classes):
+            cls_dir = os.path.join(root, cls)
+            for name in sorted(os.listdir(cls_dir)):
+                self.files.append((os.path.join(cls_dir, name), label))
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def load(self, index: int) -> tuple[np.ndarray, int]:
+        path, label = self.files[index]
+        return np.load(path), label
+
+
+class SyntheticClsSource:
+    """Synthetic event streams with a flip-invariant class signature: class
+    k scatters events around a (k+1) x (k+1) grid of blobs, so a few
+    optimizer steps lift accuracy above chance (cls_pipeline.py:391-420,
+    draw for draw)."""
+
+    def __init__(self, num_classes: int = 2, samples_per_class: int = 32,
+                 num_events: int = 3000,
+                 sensor_hw: tuple[int, int] = (100, 120), seed: int = 0):
+        self.num_classes = num_classes
+        self.n = num_classes * samples_per_class
+        self.num_events = num_events
+        self.sensor_hw = sensor_hw
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load(self, index: int) -> tuple[np.ndarray, int]:
+        rng = np.random.default_rng(self.seed + index)
+        label = index % self.num_classes
+        h, w = self.sensor_hw
+        side = label + 1
+        centers_y = (np.arange(side) + 0.5) / side * h
+        centers_x = (np.arange(side) + 0.5) / side * w
+        cy = np.repeat(centers_y, side)
+        cx = np.tile(centers_x, side)
+        pick = rng.integers(0, side * side, self.num_events)
+        sigma = min(h, w) / (6.0 * side)
+        x = np.clip(cx[pick] + rng.normal(0, sigma, self.num_events), 0,
+                    w - 1)
+        y = np.clip(cy[pick] + rng.normal(0, sigma, self.num_events), 0,
+                    h - 1)
+        t = np.sort(rng.uniform(0, 1, self.num_events))
+        p = rng.integers(0, 2, self.num_events)
+        return np.stack([x, y, t, p], 1), label

@@ -1,7 +1,12 @@
 """Classification hub: ViT backbone -> mean pool -> linear head.
 
-Counterpart of eventpretrain_tpu/models/cls_hub.py:20-72 (the ViT hubs; the
-ConvViT, Swin, ECDP and MEM hubs wait for their backbones).
+Counterpart of eventpretrain_tpu/models/cls_hub.py:20-73 (the ViT hubs; the
+ConvViT, Swin, ECDP and MEM hubs wait for their backbones). The module's
+mode is flax's ``train`` flag: ``hub.train()`` activates dropout and
+stochastic depth (``drop_rate``, ``attn_drop_rate``, ``drop_path_rate``,
+passed to the factories), whose masks come from the
+:class:`~eventpretrain_tpu_torch.models.layers.DropPathSource` the train
+step sets; ``hub.eval()`` is deterministic.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ class FtClsHub(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
-        """``x (B, H, W, num_bins)`` -> ``(emb_h, logits, attn)``."""
+        """``x (B, H, W, num_bins)`` -> ``(emb_h, logits, attn)``; ``attn``
+        is the last block's (B, heads, L, L) attention with
+        ``return_attn``, else None."""
         _, _, emb_h, _, attn = self.backbone.encode_dense(
             x, return_attn=return_attn, return_pyramid=False
         )

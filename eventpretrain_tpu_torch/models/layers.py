@@ -18,12 +18,22 @@ dtype.
 under the JAX gates of layers.py:343-380: a 2-byte compute dtype, no active
 dropout or drop-path, no attention weights requested, shapes inside
 ``supports_*`` (K1's with the backward kernel's shared-memory bound while
-gradients are on). The JAX package enables them only on a TPU; here they
-are always eligible, and each wrapper runs its plain version on CPU
-tensors. ``use_fused_layer=False`` forces the
-unfused composition. The unfused paths' own kernels (K4 ``fused_attn_layer``,
-K5 ``fused_mlp``, K7 ``fused_mha``) are not ported: they run plain PyTorch.
-``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported yet.
+gradients are on). A block that cannot fuse runs the unfused composition,
+whose parts take their own kernels under the JAX conditions:
+``Attention`` takes K4 (``fused_attn_layer``, layers.py:249-276) when no
+attention weights are requested and ``attn_drop`` is 0, as in training
+with drop-path; ``Mlp`` takes K5 (``fused_mlp``, layers.py:155-176) in
+deterministic (eval) calls, as in the last block of an attention-map
+forward. The JAX package enables all of them only on a TPU; here they are
+always eligible, and each wrapper runs its plain version on CPU tensors.
+``ViTBlock(use_fused_layer=False)`` forces the plain composition for all
+four, as ``force_xla()`` does in JAX. K7 (``fused_mha``, opt-in in JAX) is
+not ported; ``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported yet.
+
+Stochastic depth draws its per-sample keep masks from a
+:class:`DropPathSource`: an explicit ``torch.Generator`` on the
+activations' device, or masks given to it in call order (the replay that
+holds the port against JAX and the kernel path against the plain path).
 """
 
 from __future__ import annotations
@@ -35,12 +45,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+    fused_attn_layer,
     fused_ln_attn_layer,
     supports_fused_attn_layer,
 )
 from eventpretrain_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp,
+    fused_mlp,
     supports_fused_ln_mlp,
+    supports_fused_mlp,
 )
 
 
@@ -82,48 +95,100 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     ).to(x.dtype)
 
 
+class DropPathSource:
+    """Where every ``DropPath`` of a model takes its per-sample keep masks,
+    in call order: the rows of ``keep`` (S, B) bool when given (a replay;
+    each call takes the next row), else ``torch.rand(B) < keep_prob`` drawn
+    from ``generator``, which must live on the activations' device. With
+    neither, a drawing call raises: nothing reads torch's global RNG."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 keep: Optional[torch.Tensor] = None):
+        self.generator = generator
+        self.keep = keep
+        self.used = 0
+
+    def draw(self, batch: int, keep_prob: float,
+             device: torch.device) -> torch.Tensor:
+        if self.keep is not None:
+            if self.used >= self.keep.shape[0]:
+                raise ValueError(
+                    f"DropPathSource: {self.keep.shape[0]} replayed keep "
+                    "masks, but the model asks for more")
+            mask = self.keep[self.used].to(device=device, dtype=torch.bool)
+            if mask.shape != (batch,):
+                raise ValueError(f"DropPathSource: keep mask {self.used} is "
+                                 f"{tuple(mask.shape)}, expected ({batch},)")
+            self.used += 1
+            return mask
+        if self.generator is None:
+            raise ValueError(
+                "DropPath is active (training, rate > 0) but has no "
+                "generator: call set_drop_path_source(model, "
+                "DropPathSource(generator)) first")
+        return torch.rand((batch,), generator=self.generator,
+                          device=device) < keep_prob
+
+
 def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stochastic depth: drop the whole residual branch per sample."""
+              source: DropPathSource) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample, kept
+    samples scaled by ``1 / keep_prob`` (layers.py:87-96)."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    keep = source.draw(x.shape[0], keep_prob, x.device)
+    keep = keep.view((x.shape[0],) + (1,) * (x.ndim - 1))
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth, active in training mode only.
+    """Per-sample stochastic depth, active in training mode only, drawing
+    from ``source`` (see :func:`set_drop_path_source`)."""
 
-    ``generator`` (optional) is the explicit random stream; it must live on
-    the activations' device.
-    """
-
-    def __init__(self, rate: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
-        self.generator = generator
+        self.source: Optional[DropPathSource] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        return drop_path(x, self.rate, self.generator)
+        return drop_path(x, self.rate, self.source or DropPathSource())
+
+
+def set_drop_path_source(module: nn.Module,
+                         source: Optional[DropPathSource]) -> None:
+    """Point every ``DropPath`` of ``module`` at ``source`` (one shared
+    source, so masks are drawn or replayed in the model's call order)."""
+    for m in module.modules():
+        if isinstance(m, DropPath):
+            m.source = source
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (layers.py:109-182)."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (layers.py:109-182).
+    Deterministic calls inside the K5 gate take ``fused_mlp``."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, *,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.compute_dtype = dtype
         self.fc1 = Linear(dim, hidden_dim, **kw)
         self.fc2 = Linear(hidden_dim, dim, **kw)
         self.drop = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+        dt = self.compute_dtype
+        if (fused and not self.training and x.ndim == 3
+                and supports_fused_mlp(x.shape[1], x.shape[2],
+                                       self.fc1.out_features, dt)):
+            return fused_mlp(
+                x.to(dt).contiguous(), self.fc1.weight.to(dt),
+                self.fc1.bias.to(dt), self.fc2.weight.to(dt),
+                self.fc2.bias.to(dt),
+            )
         x = F.gelu(self.fc1(x), approximate="none")
         x = self.drop(x)
         return self.drop(self.fc2(x))
@@ -131,13 +196,16 @@ class Mlp(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a packed qkv projection
-    (layers.py:185-307). The softmax runs in f32."""
+    (layers.py:185-307). The softmax runs in f32. Calls that need no
+    attention weights and no attention dropout, inside the K4 gate, take
+    ``fused_attn_layer``."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, *, dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.compute_dtype = dtype
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.attn_drop_rate = attn_drop
@@ -146,8 +214,28 @@ class Attention(nn.Module):
         self.attn_drop = nn.Dropout(attn_drop)
         self.proj_drop = nn.Dropout(proj_drop)
 
-    def forward(self, x: torch.Tensor, return_attn: bool = False):
+    def packed_qkv_bias(self) -> torch.Tensor:
+        """The qkv bias in the compute dtype, zeros when there is none."""
+        bias = self.qkv.bias
+        if bias is None:
+            bias = torch.zeros_like(self.qkv.weight[:, 0])
+        return bias.to(self.compute_dtype)
+
+    def forward(self, x: torch.Tensor, return_attn: bool = False,
+                fused: bool = True):
         b, n, c = x.shape
+        dt = self.compute_dtype
+        if (fused and not return_attn and self.attn_drop_rate == 0.0
+                and supports_fused_attn_layer(
+                    n, c, self.num_heads, dt,
+                    backward=torch.is_grad_enabled())):
+            out = fused_attn_layer(
+                x.to(dt).contiguous(), self.qkv.weight.to(dt),
+                self.packed_qkv_bias(), self.proj.weight.to(dt),
+                self.proj.bias.to(dt), num_heads=self.num_heads,
+                scale=self.scale,
+            )
+            return self.proj_drop(out), None
         qkv = self.qkv(x).view(b, n, 3, self.num_heads, c // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (b, h, n, d) each
         attn = torch.matmul(q, k.transpose(-1, -2)).float() * self.scale
@@ -201,12 +289,9 @@ class ViTBlock(nn.Module):
         if self._fuse_block(x, return_attn):
             dt = self.dtype
             x = x.to(dt).contiguous()
-            qkv_bias = self.attn.qkv.bias
-            if qkv_bias is None:
-                qkv_bias = torch.zeros_like(self.attn.qkv.weight[:, 0])
             x = fused_ln_attn_layer(
                 x, self.norm1.weight, self.norm1.bias,
-                self.attn.qkv.weight.to(dt), qkv_bias.to(dt),
+                self.attn.qkv.weight.to(dt), self.attn.packed_qkv_bias(),
                 self.attn.proj.weight.to(dt), self.attn.proj.bias.to(dt),
                 num_heads=self.num_heads, scale=self.attn.scale,
                 eps=self.layer_norm_eps,
@@ -221,9 +306,10 @@ class ViTBlock(nn.Module):
                 )
             return x + self.mlp(layer_norm(x, self.norm2))
 
-        y, attn = self.attn(layer_norm(x, self.norm1), return_attn)
+        fused = self.use_fused_layer is not False
+        y, attn = self.attn(layer_norm(x, self.norm1), return_attn, fused)
         x = x + self.drop_path(y)
-        x = x + self.drop_path(self.mlp(layer_norm(x, self.norm2)))
+        x = x + self.drop_path(self.mlp(layer_norm(x, self.norm2), fused))
         if return_attn:
             return x, attn
         return x

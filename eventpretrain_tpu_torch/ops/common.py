@@ -1,5 +1,5 @@
-"""Pieces shared by the fused sub-block kernels K1 (fused_attn_layer.py) and
-K2 (fused_mlp.py): the LayerNorm numerics, forward and backward, and the
+"""Pieces shared by the fused kernels K1/K4 (fused_attn_layer.py) and K2/K5
+(fused_mlp.py): the LayerNorm numerics, forward and backward, and the
 launchers of their GEMM (csrc/ln_gemm.cu) and row kernels (csrc/ln_bwd.cu).
 
 Counterpart of eventpretrain_tpu/ops/pallas_common.py. ``ln_forward`` keeps

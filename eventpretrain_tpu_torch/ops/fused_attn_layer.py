@@ -1,39 +1,47 @@
-"""K1 — the pre-norm attention sub-block ``y = x + AttnLayer(LayerNorm(x))``,
-forward and backward.
+"""K1 and K4 — the attention layer, forward and backward: K1 is the pre-norm
+sub-block ``y = x + AttnLayer(LayerNorm(x))``, K4 the bare layer
+``y = AttnLayer(x)`` with no LayerNorm and no residual.
 
-Replaces eventpretrain_tpu/ops/fused_attn_layer.py::fused_ln_attn_layer
+K1 replaces eventpretrain_tpu/ops/fused_attn_layer.py::fused_ln_attn_layer
 (forward ``_ln_fwd_kernel``, backward ``_ln_bwd_kernel`` through
-``_ln_bwd_call`` :386 and the custom VJP :436-468):
+``_ln_bwd_call`` :386 and the custom VJP :436-468); K4 replaces
+``fused_attn_layer`` :272 (forward ``_fwd_kernel`` through ``_fwd_call``
+:202, backward ``_bwd_kernel`` :183 through ``_bwd_call`` :220 and the
+custom VJP :245-269). Both compute, on ``u = LN(x)`` for K1 and ``u = x``
+for K4:
 
-    q|k|v = LN(x) . Wqkv^T + bqkv            (rounded to x.dtype)
+    q|k|v = u . Wqkv^T + bqkv                 (rounded to x.dtype)
     o_h   = softmax(q_h k_h^T * scale) v_h    (f32 softmax, p rounded, o_h rounded)
-    y     = x + concat_h(o_h) . Wo^T + bo     (f32, rounded once)
+    y     = [x +] concat_h(o_h) . Wo^T + bo   (f32, rounded once)
 
-and the backward with the Pallas kernel's rounding points: ``do = dy . Wo``
+and the backward with the Pallas kernels' rounding points: ``do = dy . Wo``
 rounded; per head the softmax recomputed in f32, ``dv = bf16(p)^T . do``,
 ``ds = bf16(p * (dp - rowsum(dp * p)) * scale)``, ``dq = ds . k`` and
-``dk = ds^T . q``, each rounded; ``d_yln = dqkv . Wqkv`` kept in f32; the
-LayerNorm backward in f32 with ``dx`` rounded once; every weight and bias
-gradient summed in f32 over all B*L tokens and rounded to the weight dtype
-once.
+``dk = ds^T . q``, each rounded; ``du = dqkv . Wqkv`` in f32. K1 keeps
+``du`` in f32 for the LayerNorm backward (f32, ``dx`` rounded once); K4
+rounds it once as its ``dx`` (fused_attn_layer.py:199). Every weight and
+bias gradient is summed in f32 over all B*L tokens and rounded to the
+weight dtype once.
 
 On the TPU each direction is one kernel with both weight matrices resident
 in VMEM. On Hopper they do not fit in shared memory (Wqkv alone is 884 KB
 at C=384, against 227 KB a block may use), so the CUDA path is a few
 launches of hand-written kernels:
 
-    forward   LN-prologue GEMM for qkv (csrc/ln_gemm.cu), the per-(sample,
-              head) attention kernel (csrc/attention.cu), the GEMM with the
-              residual epilogue for the out projection;
+    forward   the GEMM for qkv (csrc/ln_gemm.cu; K1 with its LayerNorm
+              prologue), the per-(sample, head) attention kernel
+              (csrc/attention.cu), the GEMM for the out projection (K1 with
+              the residual epilogue);
     backward  dWo = dy^T . o and do = dy . Wo (GEMM, weight-gradient and
               dgrad layouts), the attention backward (csrc/attention_bwd.cu),
-              dWqkv = dqkv^T . LN(x) and d_yln = dqkv . Wqkv (GEMM), the LN
-              rows, LN backward and bias sums (csrc/ln_bwd.cu).
+              dWqkv = dqkv^T . u and du = dqkv . Wqkv (GEMM; K4 rounds du in
+              the epilogue), and for K1 the LN rows and LN backward; the bias
+              sums (csrc/ln_bwd.cu).
 
 qkv and the head outputs round-trip device memory between launches. The
 CUDA forward saves them for the backward instead of recomputing them (the
-same values bit for bit; 4C bf16 per token), and the backward recomputes
-only LN(x). The attention kernels are bound by CUDA-core FMA throughput, the
+same values bit for bit; 4C bf16 per token); K1's backward recomputes only
+LN(x). The attention kernels are bound by CUDA-core FMA throughput, the
 GEMMs by a simple WMMA loop (see the sources).
 
 Weights are in the torch layout: ``wqkv`` (3C, C), ``wo`` (C, C).
@@ -80,12 +88,12 @@ def attention_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
 
 def supports_fused_attn_layer(seq_len: int, dim: int, num_heads: int,
                               dtype=None, backward: bool = False) -> bool:
-    """The JAX gate (fused_attn_layer.py:48-63), plus the shared-memory
-    bound of the attention kernel: q, k and v of one head must fit a block,
-    and with ``backward`` q, k, v and do of the backward kernel too. Every
-    ViT and decoder width of the repo fits both (the largest, L=196 at
-    head_dim 64, takes 112 KB in the backward); head_dim 256 at long
-    sequences does not."""
+    """The JAX gate of K1 and K4 (fused_attn_layer.py:48-63), plus the
+    shared-memory bound of the attention kernel: q, k and v of one head
+    must fit a block, and with ``backward`` q, k, v and do of the backward
+    kernel too. Every ViT and decoder width of the repo fits both (the
+    largest, L=196 at head_dim 64, takes 112 KB in the backward); head_dim
+    256 at long sequences does not."""
     if dtype is not None and torch.empty((), dtype=dtype).element_size() > 2:
         return False
     if dim % num_heads != 0:
@@ -113,32 +121,23 @@ def _heads_softmax(qkv, b, l, num_heads, scale):
     return q, k, v, p / p.sum(-1, keepdim=True)
 
 
-def fused_ln_attn_layer_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
-                                  *, num_heads: int, scale: float,
-                                  eps: float = 1e-6) -> torch.Tensor:
-    """Plain PyTorch version of K1's forward, with the kernel's rounding
-    points."""
-    b, l, c = x.shape
-    yln = ln_forward(x, ln_weight, ln_bias, eps)
-    qkv = (mm_f32(yln, wqkv.t()) + bqkv.float()).to(x.dtype)
+def _layer_reference(u, wqkv, bqkv, wo, bo, num_heads, scale):
+    """The attention layer on ``u`` (b, l, c), f32 result before the
+    output rounding (``_layer_fwd``, fused_attn_layer.py:103)."""
+    b, l, c = u.shape
+    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(u.dtype)
     _, _, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
-    o = mm_f32(p.to(x.dtype), v).to(x.dtype)  # (b, h, l, d)
+    o = mm_f32(p.to(u.dtype), v).to(u.dtype)  # (b, h, l, d)
     o = o.transpose(1, 2).reshape(b, l, c)
-    y = mm_f32(o, wo.t()) + bo.float()
-    return (x.float() + y).to(x.dtype)
+    return mm_f32(o, wo.t()) + bo.float()
 
 
-def fused_ln_attn_layer_bwd_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo,
-                                      dy, *, num_heads: int, scale: float,
-                                      eps: float = 1e-6):
-    """Plain PyTorch version of K1's backward (``_ln_bwd_kernel``), with the
-    kernel's rounding points: ``(dx, dgamma, dbeta, dwqkv, dbqkv, dwo,
-    dbo)``, LN gradients f32, the rest in the dtypes of x and the weights.
-    """
-    dt = x.dtype
-    b, l, c = x.shape
-    yln = ln_forward(x, ln_weight, ln_bias, eps)
-    qkv = (mm_f32(yln, wqkv.t()) + bqkv.float()).to(dt)
+def _layer_bwd_reference(u, wqkv, bqkv, wo, dy, num_heads, scale):
+    """Backward of :func:`_layer_reference` (``_layer_bwd``,
+    fused_attn_layer.py:115): ``(du f32, dwqkv, dbqkv, dwo, dbo)``."""
+    dt = u.dtype
+    b, l, c = u.shape
+    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(dt)
     q, k, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
     o = mm_f32(p.to(dt), v).to(dt).transpose(1, 2).reshape(b * l, c)
     dy2 = dy.reshape(b * l, c)
@@ -154,11 +153,52 @@ def fused_ln_attn_layer_bwd_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo,
     # (3, b, h, l, d) -> (b, l, 3, h, d): the packing of qkv
     dqkv = torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4)
     dqkv = dqkv.reshape(b * l, 3 * c)
-    dwqkv = mm_f32(dqkv.t(), yln.reshape(b * l, c)).to(wqkv.dtype)
+    dwqkv = mm_f32(dqkv.t(), u.reshape(b * l, c)).to(wqkv.dtype)
     dbqkv = dqkv.float().sum(0).to(wqkv.dtype)
-    d_yln = mm_f32(dqkv, wqkv).view(b, l, c)
+    du = mm_f32(dqkv, wqkv).view(b, l, c)
+    return du, dwqkv, dbqkv, dwo, dbo
+
+
+def fused_ln_attn_layer_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
+                                  *, num_heads: int, scale: float,
+                                  eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of K1's forward, with the kernel's rounding
+    points."""
+    yln = ln_forward(x, ln_weight, ln_bias, eps)
+    y = _layer_reference(yln, wqkv, bqkv, wo, bo, num_heads, scale)
+    return (x.float() + y).to(x.dtype)
+
+
+def fused_ln_attn_layer_bwd_reference(x, ln_weight, ln_bias, wqkv, bqkv, wo,
+                                      dy, *, num_heads: int, scale: float,
+                                      eps: float = 1e-6):
+    """Plain PyTorch version of K1's backward (``_ln_bwd_kernel``), with the
+    kernel's rounding points: ``(dx, dgamma, dbeta, dwqkv, dbqkv, dwo,
+    dbo)``, LN gradients f32, the rest in the dtypes of x and the weights.
+    """
+    yln = ln_forward(x, ln_weight, ln_bias, eps)
+    d_yln, dwqkv, dbqkv, dwo, dbo = _layer_bwd_reference(
+        yln, wqkv, bqkv, wo, dy, num_heads, scale)
     dx, dg, dbeta = ln_backward_reference(x, ln_weight, eps, dy, d_yln)
     return dx, dg, dbeta, dwqkv, dbqkv, dwo, dbo
+
+
+def fused_attn_layer_reference(x, wqkv, bqkv, wo, bo, *, num_heads: int,
+                               scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K4's forward (``_fwd_kernel``), with the
+    kernel's rounding points."""
+    return _layer_reference(x, wqkv, bqkv, wo, bo, num_heads,
+                            scale).to(x.dtype)
+
+
+def fused_attn_layer_bwd_reference(x, wqkv, bqkv, wo, dy, *, num_heads: int,
+                                   scale: float):
+    """Plain PyTorch version of K4's backward (``_bwd_kernel``): ``(dx,
+    dwqkv, dbqkv, dwo, dbo)`` in the dtypes of x and the weights, dx
+    rounded once."""
+    du, *grads = _layer_bwd_reference(x, wqkv, bqkv, wo, dy, num_heads,
+                                      scale)
+    return (du.to(x.dtype), *grads)
 
 
 def _attention(qkv: torch.Tensor, b: int, l: int, num_heads: int,
@@ -190,57 +230,75 @@ def _attention_bwd(qkv: torch.Tensor, do: torch.Tensor, b: int, l: int,
     return dqkv
 
 
-def _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
-                backward):
+def _check_cuda(fn, x, wqkv, bqkv, wo, bo, num_heads, backward, ln=None):
     if x.ndim != 3:
-        raise ValueError(f"fused_ln_attn_layer: x must be (B, L, C), "
-                         f"got {tuple(x.shape)}")
+        raise ValueError(f"{fn}: x must be (B, L, C), got {tuple(x.shape)}")
     b, l, c = x.shape
     if not supports_fused_attn_layer(l, c, num_heads, x.dtype, backward):
         raise ValueError(
-            f"fused_ln_attn_layer: L={l} C={c} heads={num_heads} "
-            f"{x.dtype} is outside the kernel's gate"
+            f"{fn}: L={l} C={c} heads={num_heads} {x.dtype} is outside the "
+            "kernel's gate"
         )
     if wqkv.shape != (3 * c, c) or wo.shape != (c, c):
-        raise ValueError("fused_ln_attn_layer: weights must be (3C, C), (C, C)")
-    check_cuda_operands("fused_ln_attn_layer", torch.bfloat16, x=x,
-                        wqkv=wqkv, bqkv=bqkv, wo=wo, bo=bo)
-    check_cuda_operands("fused_ln_attn_layer", torch.float32,
-                        ln_weight=ln_weight, ln_bias=ln_bias)
-    if ln_weight.device != x.device:
-        raise ValueError("fused_ln_attn_layer: operands on several devices")
+        raise ValueError(f"{fn}: weights must be (3C, C), (C, C)")
+    check_cuda_operands(fn, torch.bfloat16, x=x, wqkv=wqkv, bqkv=bqkv, wo=wo,
+                        bo=bo)
+    if ln is not None:
+        check_cuda_operands(fn, torch.float32, ln_weight=ln[0],
+                            ln_bias=ln[1])
+        if ln[0].device != x.device:
+            raise ValueError(f"{fn}: operands on several devices")
 
 
-def _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
-                  scale, eps):
+def _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale, ln=None):
     """(y, qkv, o): the output and the two intermediates the backward
-    takes."""
+    takes. ``ln = (gamma, beta, eps)`` makes it K1 (LN prologue, residual
+    epilogue), None K4."""
     b, l, c = x.shape
     x2 = x.view(b * l, c)
-    qkv = ln_gemm(x2, wqkv, bqkv, epilogue=EPI_BIAS,
-                  ln=(ln_weight, ln_bias, eps))
+    qkv = ln_gemm(x2, wqkv, bqkv, epilogue=EPI_BIAS, ln=ln)
     o = _attention(qkv, b, l, num_heads, scale)
-    y = ln_gemm(o, wo, bo, epilogue=EPI_BIAS_RESIDUAL, residual=x2)
+    if ln is None:
+        y = ln_gemm(o, wo, bo, epilogue=EPI_BIAS)
+    else:
+        y = ln_gemm(o, wo, bo, epilogue=EPI_BIAS_RESIDUAL, residual=x2)
     return y.view(b, l, c), qkv, o
 
 
-def _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o, dy, num_heads,
-                   scale, eps):
-    b, l, c = x.shape
-    x2 = x.view(b * l, c)
-    check_cuda_operands("fused_ln_attn_layer backward", torch.bfloat16,
-                        dy=dy, qkv=qkv, o=o)
-    dy2 = dy.view(b * l, c)
+def _layer_bwd_cuda(u2, wqkv, wo, qkv, o, dy2, b, l, num_heads, scale,
+                    du_epilogue):
+    """(du, dwqkv, dbqkv, dwo, dbo) for the layer input ``u2`` (B*L, C);
+    ``du`` f32 (``EPI_F32``) or rounded (``EPI_BIAS``)."""
+    check_cuda_operands("attention layer backward", torch.bfloat16, dy=dy2,
+                        qkv=qkv, o=o)
     dwo = gemm_wgrad(dy2, o)
     dbo = colsum(dy2)
     do = gemm_dgrad(dy2, wo)
     dqkv = _attention_bwd(qkv, do, b, l, num_heads, scale)
-    yln = ln_rows(x2, ln_weight, ln_bias, eps)
-    dwqkv = gemm_wgrad(dqkv, yln)
+    dwqkv = gemm_wgrad(dqkv, u2)
     dbqkv = colsum(dqkv)
-    d_yln = gemm_dgrad(dqkv, wqkv, epilogue=EPI_F32)
+    du = gemm_dgrad(dqkv, wqkv, epilogue=du_epilogue)
+    return du, dwqkv, dbqkv, dwo, dbo
+
+
+def _ln_backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o, dy, num_heads,
+                      scale, eps):
+    b, l, c = x.shape
+    x2 = x.view(b * l, c)
+    dy2 = dy.view(b * l, c)
+    yln = ln_rows(x2, ln_weight, ln_bias, eps)
+    d_yln, dwqkv, dbqkv, dwo, dbo = _layer_bwd_cuda(
+        yln, wqkv, wo, qkv, o, dy2, b, l, num_heads, scale, EPI_F32)
     dx, dg, dbeta = ln_backward(x2, ln_weight, eps, dy2, d_yln)
     return dx.view(b, l, c), dg, dbeta, dwqkv, dbqkv, dwo, dbo
+
+
+def _backward_cuda(x, wqkv, wo, qkv, o, dy, num_heads, scale):
+    b, l, c = x.shape
+    dx, *grads = _layer_bwd_cuda(x.view(b * l, c), wqkv, wo, qkv, o,
+                                 dy.view(b * l, c), b, l, num_heads, scale,
+                                 EPI_BIAS)
+    return (dx.view(b, l, c), *grads)
 
 
 class _FusedLnAttnLayer(torch.autograd.Function):
@@ -257,8 +315,8 @@ class _FusedLnAttnLayer(torch.autograd.Function):
                 x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
                 num_heads=num_heads, scale=scale, eps=eps,
             )
-        y, qkv, o = _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
-                                  num_heads, scale, eps)
+        y, qkv, o = _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale,
+                                ln=(ln_weight, ln_bias, eps))
         fused_ln_attn_layer.launches += 1
         ctx.save_for_backward(x, ln_weight, ln_bias, wqkv, bqkv, wo, qkv, o)
         return y
@@ -276,8 +334,8 @@ class _FusedLnAttnLayer(torch.autograd.Function):
             )
         else:
             qkv, o = saved[6:]
-            grads = _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o,
-                                   dy, num_heads, scale, eps)
+            grads = _ln_backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv,
+                                      o, dy, num_heads, scale, eps)
             fused_ln_attn_layer.launches_bwd += 1
         return (*grads, None, None, None)
 
@@ -298,8 +356,8 @@ def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
     forward and backward calls.
     """
     if x.device.type != "cpu":
-        _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads,
-                    torch.is_grad_enabled())
+        _check_cuda("fused_ln_attn_layer", x, wqkv, bqkv, wo, bo, num_heads,
+                    torch.is_grad_enabled(), ln=(ln_weight, ln_bias))
     return _FusedLnAttnLayer.apply(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
                                    int(num_heads), float(scale), float(eps))
 
@@ -318,12 +376,86 @@ def fused_ln_attn_layer_bwd(x: torch.Tensor, ln_weight: torch.Tensor,
             x, ln_weight, ln_bias, wqkv, bqkv, wo, dy,
             num_heads=num_heads, scale=scale, eps=eps,
         )
-    _check_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo, num_heads, True)
-    _, qkv, o = _forward_cuda(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
-                              num_heads, scale, eps)
-    return _backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o,
-                          dy.contiguous(), num_heads, scale, eps)
+    _check_cuda("fused_ln_attn_layer", x, wqkv, bqkv, wo, bo, num_heads,
+                True, ln=(ln_weight, ln_bias))
+    _, qkv, o = _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale,
+                            ln=(ln_weight, ln_bias, eps))
+    return _ln_backward_cuda(x, ln_weight, ln_bias, wqkv, wo, qkv, o,
+                             dy.contiguous(), num_heads, scale, eps)
+
+
+class _FusedAttnLayer(torch.autograd.Function):
+    """K4 with its backward: the plain versions for CPU tensors, the CUDA
+    kernels for CUDA tensors (never autograd of the plain forward)."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wo, bo, num_heads, scale):
+        ctx.cfg = (num_heads, scale)
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, wqkv, bqkv, wo)
+            return fused_attn_layer_reference(x, wqkv, bqkv, wo, bo,
+                                              num_heads=num_heads,
+                                              scale=scale)
+        y, qkv, o = _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale)
+        fused_attn_layer.launches += 1
+        ctx.save_for_backward(x, wqkv, bqkv, wo, qkv, o)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        num_heads, scale = ctx.cfg
+        dy = dy.contiguous()
+        saved = ctx.saved_tensors
+        x, wqkv, bqkv, wo = saved[:4]
+        if x.device.type == "cpu":
+            grads = fused_attn_layer_bwd_reference(
+                x, wqkv, bqkv, wo, dy, num_heads=num_heads, scale=scale)
+        else:
+            qkv, o = saved[4:]
+            grads = _backward_cuda(x, wqkv, wo, qkv, o, dy, num_heads, scale)
+            fused_attn_layer.launches_bwd += 1
+        return (*grads, None, None)
+
+
+def fused_attn_layer(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                     wo: torch.Tensor, bo: torch.Tensor, *, num_heads: int,
+                     scale: float) -> torch.Tensor:
+    """``AttnLayer(x)`` (qkv projection, multi-head attention, out
+    projection) over (B, L, C) tokens, differentiable.
+
+    CPU tensors take :func:`fused_attn_layer_reference` and, under
+    autograd, :func:`fused_attn_layer_bwd_reference`. CUDA tensors launch
+    the kernels or raise: every operand bf16 and contiguous, shapes inside
+    :func:`supports_fused_attn_layer` (with the backward's bound when
+    gradients are on). ``launches`` and ``launches_bwd`` count the CUDA
+    forward and backward calls.
+    """
+    if x.device.type != "cpu":
+        _check_cuda("fused_attn_layer", x, wqkv, bqkv, wo, bo, num_heads,
+                    torch.is_grad_enabled())
+    return _FusedAttnLayer.apply(x, wqkv, bqkv, wo, bo, int(num_heads),
+                                 float(scale))
+
+
+def fused_attn_layer_bwd(x: torch.Tensor, wqkv: torch.Tensor,
+                         bqkv: torch.Tensor, wo: torch.Tensor,
+                         bo: torch.Tensor, dy: torch.Tensor, *,
+                         num_heads: int, scale: float):
+    """K4's backward alone for a given ``dy`` (the gradients of
+    :func:`fused_attn_layer_bwd_reference`). On CUDA it runs the forward
+    kernels for qkv and o, then the backward kernels; neither counter
+    moves."""
+    if x.device.type == "cpu":
+        return fused_attn_layer_bwd_reference(x, wqkv, bqkv, wo, dy,
+                                              num_heads=num_heads,
+                                              scale=scale)
+    _check_cuda("fused_attn_layer", x, wqkv, bqkv, wo, bo, num_heads, True)
+    _, qkv, o = _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale)
+    return _backward_cuda(x, wqkv, wo, qkv, o, dy.contiguous(), num_heads,
+                          scale)
 
 
 fused_ln_attn_layer.launches = 0
 fused_ln_attn_layer.launches_bwd = 0
+fused_attn_layer.launches = 0
+fused_attn_layer.launches_bwd = 0

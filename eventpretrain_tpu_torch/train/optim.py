@@ -13,10 +13,15 @@ lr scale) pair is its own param group and each group's ``lr`` is set to
 that). optax reads the step count before it increments it, so update ``i``
 (from 0) uses ``schedule(i)`` and the first update of a warmup has lr 0.
 The weight-decay mask is ``ndim >= 2``, so the decoder's ``(1, 1, C)``
-``mask_token`` is decayed, as in JAX. Layer ids and masks are computed on
-the port's parameter names, the exporter's torch key space
-(``backbone.vit_block.3.attn.qkv.weight``). MultiSteps accumulation and
-the stage-2 freeze mask come with their slices.
+``mask_token`` is decayed, as in JAX. The optional global-norm clip before
+Adam runs in :class:`TrainState` (``clip_grad``), on the gradients before
+the update. Frozen parameters (``requires_grad=False``: ``--linprob``'s
+backbone, JAX's ``trainable_mask``) get no gradient, so AdamW leaves them,
+their moments and their weight decay alone, as optax's zeroed updates do.
+Layer ids and masks are computed on the port's parameter names, the
+exporter's torch key space (``backbone.vit_block.3.attn.qkv.weight``).
+MultiSteps accumulation and the stage-2 freeze mask come with their
+slices.
 """
 
 from __future__ import annotations

@@ -70,3 +70,13 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SIGNATURES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
+
+
+@pytest.mark.parametrize("module", [
+    "data.codec", "data.event_transforms", "data.cls_pipeline",
+    "objectives.cls", "eval.metrics", "cli.finetune_cls",
+])
+def test_finetune_slice_modules_are_covered(module):
+    """The cls-finetune slice's modules are among those the import check
+    above loads with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()

@@ -454,3 +454,209 @@ def test_unported_representations_raise(kw):
     ev = torch.zeros((1, 4, 4))
     with pytest.raises(NotImplementedError):
         build_representation(ev, torch.tensor([4]), height=8, width=8, **kw)
+
+
+# ------------------------------------------------ K4 fused_attn_layer, K5
+
+
+def _k4_inputs(rng, b, l, c):
+    return dict(x=rng.normal(size=(b, l, c)),
+                wqkv=rng.normal(size=(c, 3 * c)) * c ** -0.5,
+                bqkv=rng.normal(size=(3 * c,)) * 0.1,
+                wo=rng.normal(size=(c, c)) * c ** -0.5,
+                bo=rng.normal(size=(c,)) * 0.1)
+
+
+def _k5_inputs(rng, b, l, c):
+    return dict(x=rng.normal(size=(b, l, c)),
+                w1=rng.normal(size=(c, 4 * c)) * c ** -0.5,
+                b1=rng.normal(size=(4 * c,)) * 0.1,
+                w2=rng.normal(size=(4 * c, c)) * (4 * c) ** -0.5,
+                b2=rng.normal(size=(c,)) * 0.1)
+
+
+# f32: the same algorithm, sums in another order: 1e-5 of the output's and
+# of each gradient's scale. bf16: both round at the same points, so a
+# rounded intermediate may land one ulp apart: 2e-2 of the scale.
+BARE_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+K4_GRADS = ("dx", "dwqkv", "dbqkv", "dwo", "dbo")
+K5_GRADS = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+def _rel_check(got, want, tdt, name=""):
+    got = got.float().detach().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    assert np.isfinite(got).all(), name
+    err = np.abs(got - want).max()
+    assert err <= BARE_REL[tdt] * np.abs(want).max(), (name, err,
+                                                       np.abs(want).max())
+
+
+def _bare_args(a, jdt, tdt):
+    """(jax args, torch args): every operand in the compute dtype, weights
+    transposed into the torch layout."""
+    js, ts = [], []
+    for n, v in a.items():
+        j, t = _as(v, jdt, tdt)
+        if n.startswith("w"):
+            t = t.t().contiguous()
+        js.append(j)
+        ts.append(t)
+    return js, ts
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("l,c", [(20, 128), (64, 256)])
+def test_fused_attn_layer_matches_jax_kernel(dtypes, l, c):
+    """K4 forward against the Pallas kernel in interpret mode, 4 heads."""
+    from eventpretrain_tpu.ops.fused_attn_layer import fused_attn_layer as j4
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import fused_attn_layer
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(3 * l + c)
+    js, ts = _bare_args(_k4_inputs(rng, 2, l, c), jdt, tdt)
+    scale = (c // 4) ** -0.5
+    want = j4(*js, num_heads=4, scale=scale, interpret=True)
+    got = fused_attn_layer(*ts, num_heads=4, scale=scale)
+    assert got.dtype == tdt and got.shape == (2, l, c)
+    _rel_check(got, want, tdt)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("l,c", [(16, 128), (64, 256)])
+def test_fused_attn_layer_bwd_matches_jax_vjp(dtypes, l, c):
+    """K4 backward against ``jax.vjp`` of the Pallas kernel's custom VJP
+    (``_bwd_kernel``, interpret mode): dx rounded once, every weight and
+    bias gradient in the weights' dtype."""
+    from eventpretrain_tpu.ops.fused_attn_layer import fused_attn_layer as j4
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        fused_attn_layer_bwd,
+    )
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(5 * l + c)
+    js, ts = _bare_args(_k4_inputs(rng, 2, l, c), jdt, tdt)
+    dy_j, dy_t = _as(rng.normal(size=(2, l, c)), jdt, tdt)
+    scale = (c // 4) ** -0.5
+    _, vjp = jax.vjp(lambda *a: j4(*a, num_heads=4, scale=scale,
+                                   interpret=True), *js)
+    want = vjp(dy_j)
+    got = fused_attn_layer_bwd(*ts, dy_t, num_heads=4, scale=scale)
+    for name, g, w in zip(K4_GRADS, got, want):
+        assert g.dtype == tdt, name
+        _rel_check(g.t() if name.startswith("dw") else g, w, tdt, name)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("l,c", [(20, 128), (64, 256)])
+def test_fused_mlp_matches_jax_kernel(dtypes, l, c):
+    """K5 forward against the Pallas kernel in interpret mode."""
+    from eventpretrain_tpu.ops.fused_mlp import fused_mlp as j5
+    from eventpretrain_tpu_torch.ops.fused_mlp import fused_mlp
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(7 * l + c)
+    js, ts = _bare_args(_k5_inputs(rng, 2, l, c), jdt, tdt)
+    want = j5(*js, interpret=True)
+    got = fused_mlp(*ts)
+    assert got.dtype == tdt and got.shape == (2, l, c)
+    _rel_check(got, want, tdt)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("l,c", [(16, 128), (64, 256)])
+def test_fused_mlp_bwd_matches_jax_vjp(dtypes, l, c):
+    """K5 backward against ``jax.vjp`` of the Pallas kernel's custom VJP
+    (``_bwd_kernel``, interpret mode)."""
+    from eventpretrain_tpu.ops.fused_mlp import fused_mlp as j5
+    from eventpretrain_tpu_torch.ops.fused_mlp import fused_mlp_bwd
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(11 * l + c)
+    js, ts = _bare_args(_k5_inputs(rng, 2, l, c), jdt, tdt)
+    dy_j, dy_t = _as(rng.normal(size=(2, l, c)), jdt, tdt)
+    _, vjp = jax.vjp(lambda *a: j5(*a, interpret=True), *js)
+    want = vjp(dy_j)
+    got = fused_mlp_bwd(*ts, dy_t)
+    for name, g, w in zip(K5_GRADS, got, want):
+        assert g.dtype == tdt, name
+        _rel_check(g.t() if name.startswith("dw") else g, w, tdt, name)
+
+
+@pytest.mark.parametrize("which", ["k4", "k5"])
+def test_bare_autograd_function_takes_plain_backward_on_cpu(which):
+    """torch.autograd.grad through the K4/K5 wrapper equals the plain
+    backward bit for bit, and no launch is counted on the CPU."""
+    from eventpretrain_tpu_torch.ops import fused_attn_layer as k4
+    from eventpretrain_tpu_torch.ops import fused_mlp as k5
+
+    rng = np.random.default_rng(13)
+    make = _k4_inputs if which == "k4" else _k5_inputs
+    _, ts = _bare_args(make(rng, 2, 16, 128), jnp.bfloat16, torch.bfloat16)
+    ts = [t.requires_grad_() for t in ts]
+    dy = torch.from_numpy(rng.normal(size=(2, 16, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    if which == "k4":
+        kw = dict(num_heads=4, scale=32 ** -0.5)
+        fn = k4.fused_attn_layer
+        want = k4.fused_attn_layer_bwd_reference(*ts[:4], dy, **kw)
+    else:
+        kw = {}
+        fn = k5.fused_mlp
+        want = k5.fused_mlp_bwd_reference(*ts[:4], dy)
+    got = torch.autograd.grad(fn(*ts, **kw), ts, dy)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert fn.launches == 0 and fn.launches_bwd == 0
+
+
+# every ViT, hub and decoder width of the repo, and widths on each side of
+# the gates' bounds
+_WIDTHS = [(128, 4), (256, 8), (384, 12), (512, 16), (768, 12), (96, 3),
+           (200, 8), (640, 10), (1024, 16)]
+
+
+@pytest.mark.parametrize("l", [16, 49, 196, 256, 257])
+@pytest.mark.parametrize("c,h", _WIDTHS)
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+def test_k4_k5_gates_match_jax(l, c, h, dtypes):
+    """K4 shares K1's gate function; K5 has its own (C <= 512)."""
+    from eventpretrain_tpu.ops.fused_attn_layer import (
+        supports_fused_attn_layer as j4_gate,
+    )
+    from eventpretrain_tpu.ops.fused_mlp import supports_fused_mlp as j5_gate
+    from eventpretrain_tpu_torch.ops.fused_mlp import supports_fused_mlp
+
+    jdt, tdt = dtypes
+    for backward in (False, True):
+        assert supports_fused_attn_layer(l, c, h, tdt, backward) == j4_gate(
+            l, c, h, jdt)
+    for hidden in (4 * c, 3 * c):
+        assert supports_fused_mlp(l, c, hidden, tdt) == j5_gate(l, c, hidden,
+                                                                jdt)
+
+
+def test_bare_wrappers_never_fall_back_off_cpu():
+    """K4 and K5 on a tensor that is not on the CPU launch or raise; a
+    'meta' tensor cannot launch, so each raises; a shape outside the gate
+    raises before anything else."""
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import fused_attn_layer
+    from eventpretrain_tpu_torch.ops.fused_mlp import fused_mlp
+
+    c = 128
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device="meta")
+
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_attn_layer(z(1, 16, c), z(3 * c, c), z(3 * c), z(c, c), z(c),
+                         num_heads=4, scale=0.1)
+    with pytest.raises(ValueError, match="expected cuda"):
+        fused_mlp(z(1, 16, c), z(4 * c, c), z(4 * c), z(c, 4 * c), z(c))
+    with pytest.raises(ValueError, match="gate"):
+        fused_mlp(z(1, 16, 768), z(3072, 768), z(3072), z(768, 3072),
+                  z(768))
+    assert fused_attn_layer.launches == fused_mlp.launches == 0
+    assert fused_attn_layer.launches_bwd == fused_mlp.launches_bwd == 0
