@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
    at once).
 2. Kernel parity on the card, each kernel against its plain PyTorch version
-   on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the LN
+   on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the
+   tiled splat (K6) at B=2 of DSEC's shape, both entry points, with and
+   without bin ranges, on bucketed events with hand-placed strays; the LN
    attention (K1) and LN MLP (K2) sub-blocks in bf16 at (8, 196, 384) and
    (8, 196, 768), 12 heads; the bare attention layer (K4) at (8, 196, 384)
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
@@ -44,13 +46,25 @@ Phases (any failure exits non-zero; nothing is caught):
    plain bf16 path and an f32 run;
    ``cli.finetune_cls.main`` for one epoch of ViT-S, and of ViT-B with
    ``--finetune`` from phase 5's rec checkpoint.
+5c. Slice 3, dense semantic segmentation at DSEC's shape:
+   ``dense_hub_vit_small`` at full width (11 classes, ignore label 255,
+   drop-path 0.1, the heads' dropout 0.1), bf16, seed 0;
+   ``SyntheticDenseSource`` streams (sensor 440x640, 200000 events, labels
+   at 440x640) through ``DensePipeline(train=True)`` at B=16 with the u32
+   codec and ``tiled_raster="auto"`` (host tile bucketing, K6); 10
+   ``make_semseg_train_step`` steps on the kernel path (pipeline and steps
+   in one counted run: per step K6 1, K3 0, K1/K2 1+1, K4 11+11) and 10 on
+   the plain path (unfused blocks, K6's plain version on the same wire
+   data) with the same replayed drop-path and dropout masks; one
+   ``make_semseg_eval_step`` (K6 1, K1/K2 12) and its confusion counts
+   against the plain path's; ``cli.finetune_semseg.main`` for one epoch.
 6. Timing (CUDA events, median of 20 after warm-up; plain, kernel, kernel,
    plain): each kernel, first held against its plain version at the main
    path's batch (B=64) as in phase 2, then timed beside it with its bound
    (and, for K4, one ``F.multi_head_attention_forward`` call); the served
    function's samples/s at B=64, the rec and cls train steps' ms,
-   samples/s and peak memory on both paths, the cls pipeline's host time
-   per batch; then a
+   samples/s and peak memory on both paths (and the semseg step's at
+   B=16), the cls and dense pipelines' host time per batch; then a
    ``torch.profiler`` window over each kernel path for its device time by
    kernel and busy share.
 
@@ -88,6 +102,11 @@ TRAIN_BATCH = 64
 TRAIN_INPUT = 224
 TRAIN_STEPS = 10
 TRAIN_BLOCKS = 12 + 8
+# slice 3: the dense hub at DSEC's shape (sensor, events per sample, the
+# semseg CLI's batch)
+DSEC_HW = (440, 640)
+DSEC_EVENTS = 200_000
+DENSE_BATCH = 16
 # the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
 # cores and device-memory bandwidth
 PEAK_FLOPS = 989e12
@@ -234,6 +253,117 @@ def splat_args(rng, batch, dev):
     return y, x, wb.contiguous()
 
 
+def dsec_tiled_inputs(rng, batch: int, dev) -> dict:
+    """Bucketed events of DSEC's shape as the dense pipeline ships them (the
+    numpy bucketer's u32 words, decoded on the card), with strays placed by
+    hand: rows 440-511 (inside the last tile row, past H), columns past W,
+    negative columns (the codec's sentinel), and in each sample's first
+    chunk, which belongs to tile 0, coordinates of another tile. None of
+    them may add anything. Also random weights ``w`` for every slot, pads
+    included, for the splat entry."""
+    from eventpretrain_tpu_torch.data.codec import decode_events_u32
+    from eventpretrain_tpu_torch.native import (
+        TILE_CHUNK,
+        bucket_pack_event_batch_u32,
+    )
+
+    h, w = DSEC_HW
+    cap = DSEC_EVENTS + DSEC_EVENTS // 100
+    ev = np.zeros((batch, cap, 4), np.float32)
+    counts = rng.integers(cap // 2, cap + 1, batch).astype(np.int32)
+    counts[0] = cap
+    for b in range(batch):
+        n = counts[b]
+        ev[b, :n, 0] = rng.integers(0, w, n)
+        ev[b, :n, 1] = rng.integers(0, h, n)
+        ev[b, :n, 2] = np.sort(rng.uniform(0.0, 0.05, n))
+        ev[b, :n, 3] = rng.integers(0, 2, n)
+        k = n // 100
+        ev[b, :k, 1] = rng.integers(h, 512, k)
+        ev[b, k:2 * k, 0] = rng.integers(w, w + 64, k)
+        ev[b, 2 * k:3 * k, 0] = rng.integers(-8, 0, k)
+    enc, table, t_range, chunk_tr = bucket_pack_event_batch_u32(
+        ev, counts, height=h, width=w)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    events = decode_events_u32(t(enc.view(np.int32)), t(t_range))
+    events[:, :TILE_CHUNK, 0] = w - 1
+    events[:, :TILE_CHUNK, 1] = h - 1
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    return dict(
+        events=events, table=t(table), t_range=t(t_range),
+        chunk_trange=t(chunk_tr),
+        y=events[..., 1].to(torch.int32).contiguous(),
+        x=events[..., 0].to(torch.int32).contiguous(),
+        w=torch.randn((batch, NUM_BINS, events.shape[1]),
+                      generator=gen).to(dev),
+    )
+
+
+class plain_tiled_splat:
+    """Within the block, ``voxelize_batch_tiled`` (and so the dense
+    pipeline) calls K6's plain version on card tensors, and counts no
+    launch: the plain path of the dense slice."""
+
+    def __enter__(self):
+        from eventpretrain_tpu_torch.ops import splat_tiled as st
+
+        self.mod, self.kernel = st, st.splat_tiled
+        st.splat_tiled = st.splat_tiled_reference
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.splat_tiled = self.kernel
+
+
+def k6_cases(inp) -> list:
+    """(name, kernel call, plain call) for both entry points of K6, with
+    and without bin ranges, on ``dsec_tiled_inputs``."""
+    from eventpretrain_tpu_torch.ops.splat_tiled import (
+        chunk_bin_range,
+        splat_tiled,
+        splat_tiled_reference,
+        voxelize_batch_tiled,
+    )
+
+    hw = dict(height=DSEC_HW[0], width=DSEC_HW[1])
+    br = chunk_bin_range(inp["t_range"], inp["chunk_trange"], NUM_BINS)
+    cases = []
+    for name, bins in (("splat_tiled", None), ("splat_tiled+bins", br)):
+        args = (inp["y"], inp["x"], inp["w"], inp["table"], bins)
+        cases.append((name, lambda a=args: splat_tiled(*a, **hw),
+                      lambda a=args: splat_tiled_reference(*a, **hw)))
+    for name, ctr in (("voxelize_batch_tiled", None),
+                      ("voxelize_batch_tiled+bins", inp["chunk_trange"])):
+        args = (inp["events"], inp["table"], inp["t_range"], ctr)
+
+        def plain(a=args):
+            with plain_tiled_splat():
+                return voxelize_batch_tiled(*a, num_bins=NUM_BINS, **hw)
+
+        cases.append((name, lambda a=args: voxelize_batch_tiled(
+            *a, num_bins=NUM_BINS, **hw), plain))
+    return cases
+
+
+def phase_k6_parity(dev) -> tuple[float, float]:
+    """K6 against its plain version at B=2 of DSEC's shape."""
+    inp = dsec_tiled_inputs(np.random.default_rng(9), 2, dev)
+    worst = 0.0
+    for name, fn, plain in k6_cases(inp):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        log(f"{name} (2, {NUM_BINS}, {inp['y'].shape[1]}) -> "
+            f"{tuple(got.shape)}: max_abs_err {err:.3g} (tol {SPLAT_ATOL}), "
+            f"sum {got.sum().item():.6g} vs {ref.sum().item():.6g}")
+        require(err <= SPLAT_ATOL, f"{name} disagrees with its plain version")
+        worst = max(worst, err)
+    return worst, SPLAT_ATOL
+
+
 # bf16 sub-blocks: the kernel and the plain version round at the same
 # points, but their f32 sums run in other orders, so a bf16 rounding of qkv,
 # p, o or h can land one ulp apart and the output (|y| <~ 5, ulp 2^-6..2^-5)
@@ -311,6 +441,7 @@ def phase_kernel_parity(dev) -> dict:
         f"sum {got.sum().item():.6g} vs {ref.sum().item():.6g}")
     require(err <= SPLAT_ATOL, "splat disagrees with splat_reference")
     errs["splat"] = (err, SPLAT_ATOL)
+    errs["splat_tiled"] = phase_k6_parity(dev)
 
     gen = torch.Generator().manual_seed(2)
     for c in (384, 768):
@@ -437,9 +568,11 @@ def counters() -> dict:
             fused_mlp,
         )
         from eventpretrain_tpu_torch.ops.splat import splat
+        from eventpretrain_tpu_torch.ops.splat_tiled import splat_tiled
 
         COUNTED.update({
             "splat": (splat, "launches"),
+            "splat_tiled": (splat_tiled, "launches"),
             "fused_ln_attn_layer": (fused_ln_attn_layer, "launches"),
             "fused_ln_attn_layer_bwd": (fused_ln_attn_layer, "launches_bwd"),
             "fused_ln_mlp": (fused_ln_mlp, "launches"),
@@ -917,6 +1050,259 @@ def phase_finetune_cli(dev) -> None:
                     "the finetuned backbone's keys are not the rec one's")
 
 
+# --------------------------------------------------------------- phase 5c
+#
+# slice 3: semantic segmentation at DSEC's shape. Drop-path 0.1 as in the
+# cls finetune (block 0 fuses into K1/K2, blocks 1-11 take K4); the heads'
+# dropout 0.1; labels at the sensor's 440x640.
+
+DENSE_CLASSES = 11
+DENSE_IGNORE = 255
+DENSE_STEPS = 10
+DENSE_DROP = 0.1
+# the heads' channel dropout: the decode head's 384 channels, the
+# auxiliary head's 256, in call order
+DENSE_DROPOUT_CHANNELS = (384, 256)
+# bf16 logits of the two paths differ by ~1e-2 (the cls phase), so pixels
+# whose top two classes lie closer than that may change class
+CONFUSION_MOVED_TOL = 5e-2
+
+
+def build_dense_hub(dev):
+    from eventpretrain_tpu_torch.models.dense_hub import dense_hub_vit_small
+
+    return dense_hub_vit_small(
+        DENSE_CLASSES, NUM_BINS, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(0),
+        drop_path_rate=DENSE_DROP, decode_dropout=DENSE_DROP,
+    )
+
+
+def dense_pipeline(dev, train: bool, batches: int):
+    """DSEC-shape synthetic streams (sensor 440x640, 200000 events, labels
+    at 440x640) through the dense pipeline at B=16, u32 codec, tiling on
+    "auto" (on: 440 * 640 > 65536)."""
+    from eventpretrain_tpu_torch.data.dense_pipeline import (
+        DenseDataConfig,
+        DensePipeline,
+        SyntheticDenseSource,
+    )
+
+    source = SyntheticDenseSource(
+        "semseg", n=DENSE_BATCH * batches, num_classes=DENSE_CLASSES,
+        sensor_hw=DSEC_HW, num_events=DSEC_EVENTS, seed=0 if train else 1000)
+    cfg = DenseDataConfig(
+        task="semseg", num_bins=NUM_BINS, input_size=TRAIN_INPUT,
+        fix_events_num=DSEC_EVENTS, val_fix_events_num=DSEC_EVENTS,
+        sensor_height=DSEC_HW[0], sensor_width=DSEC_HW[1],
+        label_size=DSEC_HW, tiled_raster="auto")
+    pipe = DensePipeline(source, cfg, DENSE_BATCH, train=train, seed=0,
+                         device=dev)
+    require(pipe.tiled, "the DSEC-shape pipeline does not tile")
+    return pipe
+
+
+class record_wire:
+    """Within the block, every call of the dense pipeline's device half is
+    recorded (its wire tensors and options), so the plain path can rebuild
+    the same batch from the same data."""
+
+    def __enter__(self):
+        from eventpretrain_tpu_torch.data import dense_pipeline as dp
+
+        self.mod, self.fn, self.calls = dp, dp._device_preprocess, []
+
+        def recorded(*args, **kwargs):
+            self.calls.append((args, kwargs))
+            return self.fn(*args, **kwargs)
+
+        dp._device_preprocess = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._device_preprocess = self.fn
+
+    def rebuild_plain(self, i: int) -> dict:
+        """Call ``i`` again with K6's plain version."""
+        args, kwargs = self.calls[i]
+        with plain_tiled_splat():
+            return self.fn(*args, **kwargs)
+
+
+def make_dense_trainer(hub, dev, steps_per_epoch: int):
+    """The semseg CLI's optimizer and step (cli/finetune_semseg.py) with its
+    defaults: lr 1e-3 * 16 / 256, wd 0.05, betas (0.9, 0.999), no clip,
+    loss weights 1 and 0.4, bilinear resizes; the warmup is one epoch of
+    the 10 steps here, so the steps do move the weights."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import make_semseg_train_step
+
+    schedule = cosine_warmup_schedule(1e-3 * DENSE_BATCH / 256, 1e-6, 1, 50,
+                                      steps_per_epoch)
+    optimizer = build_optimizer(hub, weight_decay=0.05, betas=(0.9, 0.999))
+    state = TrainState(hub, optimizer, schedule)
+    step = make_semseg_train_step(
+        hub, num_classes=DENSE_CLASSES, ignore_index=DENSE_IGNORE,
+        generator=torch.Generator(dev).manual_seed(0))
+    return state, step
+
+
+def phase_dense_training(dev):
+    """10 semseg train steps on the kernel path, each batch built by the
+    pipeline inside the counted run (so K6 counts too), then 10 on the
+    plain path from the same init: the same wire data through K6's plain
+    version, the unfused blocks, the same replayed masks."""
+    hub = build_dense_hub(dev)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    state, step = make_dense_trainer(hub, dev, DENSE_STEPS)
+    pstate, pstep = make_dense_trainer(plain_hub, dev, DENSE_STEPS)
+    rng = np.random.default_rng(11)
+    sites = np.repeat(np.linspace(0, DENSE_DROP, DEPTH)[1:], 2)
+    pipe = dense_pipeline(dev, True, DENSE_STEPS)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    batches, kern = [], []
+    with record_wire() as wire:
+        for batch in pipe:
+            batch["drop_path_keep"] = torch.from_numpy(
+                rng.random((len(sites), DENSE_BATCH)) < (1.0 - sites)[:, None]
+            ).to(dev)
+            batch["dropout_keep"] = [
+                torch.from_numpy(rng.random((DENSE_BATCH, c))
+                                 < 1.0 - DENSE_DROP).to(dev)
+                for c in DENSE_DROPOUT_CHANNELS]
+            batches.append(batch)
+            kern.append(step(state, batch))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    kern = [{k: float(v) for k, v in m.items()} for m in kern]
+    pbatches, evg_err = [], 0.0
+    for i, batch in enumerate(batches):
+        rebuilt = wire.rebuild_plain(i)
+        require(torch.equal(rebuilt["label"], batch["label"]),
+                "the plain path's labels differ")
+        evg_err = max(evg_err,
+                      (rebuilt["evg"] - batch["evg"]).abs().max().item())
+        pbatches.append({**batch, **rebuilt})
+    plain = run_steps(pstep, pstate, pbatches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    host_ms = pipe.host_seconds / pipe.batches * 1e3
+    log(f"semseg batches: {len(batches)} x evg "
+        f"{tuple(batches[0]['evg'].shape)}, label "
+        f"{tuple(batches[0]['label'].shape)}; host build {host_ms:.1f} ms "
+        f"per batch (erase-and-add, packing, tile bucketing, u32 encode); "
+        f"pipeline + {DENSE_STEPS} kernel-path steps {wall:.1f} s; evg of "
+        f"K6 vs its plain version: max_abs_err {evg_err:.3g}")
+    require(evg_err <= SPLAT_ATOL, "the K6 input differs from the plain one")
+    lk = [m["loss"] for m in kern]
+    lp = [m["loss"] for m in plain]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log("semseg loss, kernel path: " + " ".join(f"{v:.5f}" for v in lk))
+    log("semseg loss, plain path:  " + " ".join(f"{v:.5f}" for v in lp))
+    log("decode CE, kernel path: "
+        + " ".join(f"{m['decode_ce']:.4f}" for m in kern))
+    log("grad norm, kernel path: "
+        + " ".join(f"{m['grad_norm']:.4g}" for m in kern))
+    log(f"largest semseg loss gap {gap:.3g} of the plain loss (bound "
+        f"{LOSS_GAP_REL}); launches over {DENSE_STEPS} steps {launches}")
+    require(all(np.isfinite([*lk, *lp])), "non-finite semseg loss")
+    require(all(np.isfinite([m["grad_norm"] for m in kern])),
+            "non-finite semseg grad norm")
+    require(gap <= LOSS_GAP_REL, "semseg kernel path loss leaves the plain "
+                                 "path's")
+    per_step = {"splat_tiled": 1, "splat": 0,
+                "fused_ln_attn_layer": 1, "fused_ln_attn_layer_bwd": 1,
+                "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1,
+                "fused_attn_layer": CLS_K4_BLOCKS,
+                "fused_attn_layer_bwd": CLS_K4_BLOCKS,
+                "fused_mlp": 0, "fused_mlp_bwd": 0}
+    for name, want in per_step.items():
+        require(launches[name] == want * DENSE_STEPS,
+                f"{name}: {launches[name]} launches over {DENSE_STEPS} "
+                f"semseg steps, expected {want} per step")
+    return dict(hub=hub, plain_hub=plain_hub, state=state, step=step,
+                pstate=pstate, pstep=pstep, batches=batches,
+                wire=wire.calls, launches=launches, loss_gap=gap,
+                losses=lk, plain_losses=lp, host_ms=host_ms)
+
+
+def phase_dense_eval(dev, dense) -> dict:
+    """One ``make_semseg_eval_step`` on a validation batch built by the
+    pipeline, counted on its own, and its confusion counts against the
+    plain path's (the same trained weights unfused, K6's plain version on
+    the same wire data)."""
+    from eventpretrain_tpu_torch.eval.metrics import miou_from_confusion
+    from eventpretrain_tpu_torch.train.steps import make_semseg_eval_step
+
+    hub = dense["hub"]
+    kw = dict(num_classes=DENSE_CLASSES, ignore_label=DENSE_IGNORE)
+    reset_counts()
+    with record_wire() as wire:
+        val = next(iter(dense_pipeline(dev, False, 1)))
+        conf = make_semseg_eval_step(hub, **kw)(val)
+    torch.cuda.synchronize()
+    ev = read_counts()
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    pval = {**val, **wire.rebuild_plain(0)}
+    pconf = make_semseg_eval_step(plain_hub, **kw)(pval)
+    total = int(conf.sum())
+    labelled = int((val["label"] != DENSE_IGNORE).sum())
+    moved = int((conf - pconf).abs().sum()) / 2 / max(total, 1)
+    miou, pmiou = (float(miou_from_confusion(c)) for c in (conf, pconf))
+    log(f"semseg eval step B={DENSE_BATCH}: {total} pixels counted, mIoU "
+        f"{miou:.3f} (plain path {pmiou:.3f}); pixels whose class moved "
+        f"between the paths {moved:.3g} (tol {CONFUSION_MOVED_TOL}); "
+        f"launches {ev}")
+    require(total == labelled == int(pconf.sum()),
+            "the eval step did not count every labelled pixel once")
+    require(moved <= CONFUSION_MOVED_TOL,
+            "the eval step's confusion leaves the plain path's")
+    for name, want in (("splat_tiled", 1), ("fused_ln_attn_layer", DEPTH),
+                       ("fused_ln_mlp", DEPTH)):
+        require(ev[name] == want, f"semseg eval: {name} launched {ev[name]} "
+                                  f"times, expected {want}")
+    require(sum(ev.values()) == 1 + 2 * DEPTH,
+            "the semseg eval launched another kernel")
+    del plain_hub
+    return {"semseg_eval": ev}
+
+
+def phase_semseg_cli(dev) -> None:
+    """``cli.finetune_semseg.main`` for one epoch of ``--backbone vit
+    --dataset synthetic`` (JAX's smoke source: 5 classes, a 64x64 sensor,
+    so the untiled splat K3)."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.finetune_semseg import main as semseg
+
+    out = os.path.join("build", "chip_smoke_semseg")
+    t0 = time.perf_counter()
+    reset_counts()
+    res = semseg(["--backbone", "vit", "--dataset", "synthetic",
+                  "--batch_size", str(DENSE_BATCH), "--epochs", "1",
+                  "--output_dir", out, "--print_freq", "1",
+                  "--device", str(dev)])
+    launches = read_counts()
+    state = res["state"]
+    log(f"cli.finetune_semseg --backbone vit: {state.step} steps, mIoU "
+        f"{res['miou']:.3f} in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    require(state.step == 2, f"the CLI ran {state.step} steps, expected 2")
+    require(np.isfinite(res["miou"]), "non-finite mIoU")
+    require(launches["fused_attn_layer_bwd"] == 2 * CLS_K4_BLOCKS,
+            "the CLI's train steps did not take K4")
+    sd = load_torch_checkpoint(os.path.join(out, "checkpoint.pth"))
+    require(set(sd) == set(state.module.state_dict()),
+            "the checkpoint's keys are not the hub's")
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -959,7 +1345,9 @@ def device_profile(fn, calls: int) -> dict:
     kernel (the 10 largest), device time and host-clock wall time per call,
     and the device's busy share of the wall time (kernels and copies run on
     one stream, so their times add; the profiler's own host cost lengthens
-    the wall time, so the share is a lower bound)."""
+    the wall time, so the share is a lower bound); and the host's self CPU
+    time per op (the 8 largest), which says where a host-bound step
+    spends its time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -971,7 +1359,10 @@ def device_profile(fn, calls: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     per: dict[str, float] = {}
+    host: dict[str, float] = {}
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
         # device work only: user-annotated ranges (Optimizer.step#..., with
         # a '#' where the flag is missing) carry the device time of the
         # kernels inside them, which are counted on their own
@@ -984,10 +1375,13 @@ def device_profile(fn, calls: int) -> dict:
         per[e.key] = per.get(e.key, 0.0) + us / 1e3
     busy = sum(per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"calls": calls, "wall_ms": wall / calls,
             "device_ms": busy / calls,
             "busy_share": busy / wall if busy else None,
-            "top_ms": [[k[:90], v / calls] for k, v in top]}
+            "top_ms": [[k[:90], v / calls] for k, v in top],
+            "host_ms": sum(host.values()) / calls,
+            "top_host_ms": [[k[:90], v / calls] for k, v in top_host]}
 
 
 def log_profile(what: str, prof: dict) -> None:
@@ -997,6 +1391,10 @@ def log_profile(what: str, prof: dict) -> None:
     log(f"profile {what}: {prof['device_ms']:.4g} ms of device time in "
         f"{prof['wall_ms']:.4g} ms per call (busy {prof['busy_share']:.1%})")
     for name, ms in prof["top_ms"]:
+        log(f"  {ms:9.4f} ms  {name}")
+    log(f"  host: {prof['host_ms']:.4g} ms of self CPU time per call in "
+        "the profiled ops; the largest:")
+    for name, ms in prof["top_host_ms"]:
         log(f"  {ms:9.4f} ms  {name}")
 
 
@@ -1043,8 +1441,106 @@ def step_record(runs: dict, peak: dict, batch: int) -> dict:
     return out
 
 
+def k6_row(dense, errs, total, launches, smi) -> dict:
+    """K6 on the main path's own inputs (the first semseg batch's wire
+    data, B=16): held against its plain version, then timed beside it, one
+    ``index_put_`` of the whole batch, and its bound. The bound counts the
+    bytes this data needs: the coordinates of every slot, the weights of
+    the channels inside each chunk's bin range, the table and the ranges,
+    and the grid written once."""
+    from eventpretrain_tpu_torch.data.codec import decode_events_u32
+    from eventpretrain_tpu_torch.native import TILE_CHUNK
+    from eventpretrain_tpu_torch.ops.events import (
+        bilinear_bin_weights_windowed,
+    )
+    from eventpretrain_tpu_torch.ops.splat_tiled import (
+        chunk_bin_range,
+        splat_tiled,
+        splat_tiled_reference,
+    )
+
+    args, kw = dense["wire"][0]
+    t_range, table = kw["t_range"], kw["tile_table"].contiguous()
+    events = decode_events_u32(args[0], t_range)
+    h, w = DSEC_HW
+    x = events[..., 0].to(torch.int32).contiguous()
+    y = events[..., 1].to(torch.int32).contiguous()
+    valid = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    wb = bilinear_bin_weights_windowed(events, valid, t_range[:, 0],
+                                       t_range[:, 1], NUM_BINS)
+    wb = wb.transpose(1, 2).contiguous()
+    br = chunk_bin_range(t_range, kw["tile_chunk_trange"], NUM_BINS)
+    hw = dict(height=h, width=w)
+    b, c, e = wb.shape
+    row = {"name": "splat_tiled", "route": "cuda",
+           "source": "eventpretrain_tpu_torch/csrc/splat_tiled.cu",
+           "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:403",
+           "launches": total["splat_tiled"],
+           "launches_by_path": {p: launches[p]["splat_tiled"]
+                                for p in launches},
+           "max_abs_err": errs["splat_tiled"][0],
+           "tol": errs["splat_tiled"][1],
+           "library": "index_put_(accumulate=True)", "shapes": []}
+    for bins in (br, None):
+        def fn(bins=bins):
+            return splat_tiled(y, x, wb, table, bins, **hw)
+
+        def plain(bins=bins):
+            return splat_tiled_reference(y, x, wb, table, bins, **hw)
+
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        require(err <= SPLAT_ATOL, f"splat_tiled at B={b} disagrees with its "
+                                   "plain version")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        del got, ref
+        ms, plain_ms = time_pair(fn, plain)
+        if bins is None:
+            in_range = b * c * e
+        else:
+            ch = torch.arange(c, device=br.device)[None, None]
+            in_range = int(((ch >= br[..., :1]) & (ch <= br[..., 1:]))
+                           .sum()) * TILE_CHUNK
+        nbytes = (8 * b * e + 4 * in_range + 4 * table.numel()
+                  + (0 if bins is None else 4 * br.numel()) + 4 * b * h * w * c)
+        bms, bby = bound(in_range, nbytes)
+        entry = {"shape": [b, c, e], "bin_range": bins is not None,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": bby, "flops": in_range,
+                 "bytes": nbytes}
+        if bins is not None:
+            # the library call: index_put_(accumulate=True) of the whole
+            # batch, on the cells and weights the plain version selects
+            tiles_x = -(-w // 128)
+            tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
+            ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
+            yl, xl = y.long(), x.long()
+            ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
+                  & (xl < tx0 + 128) & (yl < h) & (xl < w))
+            cell = ((torch.arange(b, device=y.device)[:, None] * h + yl) * w
+                    + xl)[ok]
+            vals = wb.transpose(1, 2)[ok]
+            acc = torch.zeros((b * h * w, c), device=y.device)
+            entry["library_ms"] = cuda_ms(
+                lambda: acc.index_put_((cell,), vals, accumulate=True))
+            del tile, ty0, tx0, ok, cell, vals, acc
+            row.update({k: entry[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape", "flops", "bytes")})
+        else:
+            entry["library_ms"] = None
+            row["shapes"].append(entry)
+        log(f"time splat_tiled B={b} bin_range={bins is not None}: kernel "
+            f"{ms:.4g} ms, plain {plain_ms:.4g} ms"
+            + (f", index_put_ {entry['library_ms']:.4g} ms"
+               if entry["library_ms"] is not None else "")
+            + f", bound {bms:.4g} ms ({bby}) ({smi})")
+    return row
+
+
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 smi) -> None:
+                 dense, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -1206,6 +1702,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     })
     log(f"time splat B={b}: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, "
         f"index_put_ {lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
+    kernels.append(k6_row(dense, errs, total, launches, smi))
     for (name, source, also, replaces, shapes, backward, case, work,
          library) in rows:
         ln = name.startswith("fused_ln")
@@ -1278,30 +1775,36 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
 
     # the rec and cls train steps, B=64, host clock around synchronised
     # steps, each on both paths in turns
-    for key, run, model in (("rec_train", train, "pretrain_hub_base"),
-                            ("cls_train", cls, "cls_hub_vit_small")):
+    for key, run, model, batch in (
+            ("rec_train", train, "pretrain_hub_base", TRAIN_BATCH),
+            ("cls_train", cls, "cls_hub_vit_small", TRAIN_BATCH),
+            ("semseg_train", dense, "dense_hub_vit_small", DENSE_BATCH)):
         paths = {True: (run["step"], run["state"]),
                  False: (run["pstep"], run["pstate"])}
         step_runs, peak = timed_steps(paths, run["batches"])
-        e2e[key] = {"model": model, "batch": TRAIN_BATCH, "reps": REPS,
+        e2e[key] = {"model": model, "batch": batch, "reps": REPS,
                     "card": smi, "loss_gap": run["loss_gap"],
                     "resident_gib": torch.cuda.memory_allocated() / 2**30,
-                    **step_record(step_runs, peak, TRAIN_BATCH)}
-        log(f"{key} step B={TRAIN_BATCH}: kernel "
+                    **step_record(step_runs, peak, batch)}
+        log(f"{key} step B={batch}: kernel "
             f"{e2e[key]['step_ms']:.4g} ms, plain "
             f"{e2e[key]['plain_step_ms']:.4g} ms ({smi})")
     e2e["cls_train"]["host_batch_ms"] = cls["host_ms"]
     e2e["cls_train"]["drop_path_rate"] = CLS_DROP_PATH
+    e2e["semseg_train"]["host_batch_ms"] = dense["host_ms"]
+    e2e["semseg_train"]["drop_path_rate"] = DENSE_DROP
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
     log_profile("serve B=64", e2e["serve"]["profile"])
-    for key, run, calls in (("rec_train", train, 3), ("cls_train", cls, 5)):
+    for key, run, calls in (("rec_train", train, 3), ("cls_train", cls, 5),
+                            ("semseg_train", dense, 5)):
         step, state = run["step"], run["state"]
         batch = run["batches"][0]
         e2e[key]["profile"] = device_profile(lambda: step(state, batch),
                                              calls)
-        log_profile(f"{key} step B={TRAIN_BATCH}", e2e[key]["profile"])
+        log_profile(f"{key} step B={e2e[key]['batch']}",
+                    e2e[key]["profile"])
     log(smi)
     log(json.dumps({"e2e": e2e}))
     log(json.dumps({"kernels": kernels}))
@@ -1313,8 +1816,14 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.0f} s] {what} done")
+
     smi = phase_environment()
     errs = phase_kernel_parity(dev)
+    mark("kernel parity")
 
     from eventpretrain_tpu_torch.cli.serve import make_cls_infer
 
@@ -1325,15 +1834,24 @@ def main() -> int:
     launches = {"serve": phase_main_path(dev, hub, infer,
                                          tuple(a[:8] for a in big_inputs))}
     phase_serving(infer, big_inputs)
+    mark("serving")
     train = phase_training(dev)
     launches["rec_train"] = train["launches"]
     phase_cli(dev)
+    mark("rec training")
     cls = phase_cls_training(dev)
     launches["cls_train"] = cls["launches"]
     launches.update(phase_cls_eval(dev, cls))
     phase_finetune_cli(dev)
+    mark("cls finetuning")
+    dense = phase_dense_training(dev)
+    launches["semseg_train"] = dense["launches"]
+    launches.update(phase_dense_eval(dev, dense))
+    phase_semseg_cli(dev)
+    mark("semseg finetuning")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 smi)
+                 dense, smi)
+    mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -32,6 +32,10 @@ _F = ctypes.c_float
 # Every exported launcher, with its C argument types (all return int).
 SIGNATURES: dict[str, dict[str, list]] = {
     "splat": {"splat_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "splat_tiled": {
+        "splat_tiled_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
+    },
     "ln_gemm": {
         "gemm_bf16": [_P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _P],

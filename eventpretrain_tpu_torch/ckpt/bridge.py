@@ -5,7 +5,11 @@ reference PyTorch key space and layout (``export_torch_state_dict``) and
 writes it as a ``.pth`` (``save_torch_checkpoint``: ``{"model": ...,
 "epoch": ...}``). The port's modules use that key space, so loading is a
 strict ``load_state_dict``: a missing or unexpected key raises. Buffers the
-exporter omits (``pos_embed``) are non-persistent here.
+exporter omits (``pos_embed``) are non-persistent here. BatchNorm running
+statistics (``running_mean``, ``running_var``, flax's ``batch_stats``) are
+buffers of the port's dense heads and load with the parameters; only
+``num_batches_tracked``, which the port's flax-style BatchNorm does not
+keep, is skipped when a file carries it.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ def load_torch_checkpoint(path: str) -> dict:
 
 def load_jax_state_dict(module: nn.Module, flat: Mapping) -> nn.Module:
     """Load ``{torch key: np.ndarray | torch.Tensor}`` into ``module``
-    strictly; each value is cast to its parameter's dtype and device."""
+    strictly (``num_batches_tracked`` aside); each value is cast to its
+    parameter's or buffer's dtype and device."""
     sd = {
         k: v if isinstance(v, torch.Tensor)
         else torch.from_numpy(np.array(v))
-        for k, v in flat.items()
+        for k, v in flat.items() if not k.endswith("num_batches_tracked")
     }
     module.load_state_dict(sd, strict=True)
     return module

@@ -62,7 +62,7 @@ BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp", "vit_mem",
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
 _NOT_PORTED = {
-    "accum_iter": (int, 1, "slice 3 (optax.MultiSteps accumulation)"),
+    "accum_iter": (int, 1, "slice 4 (optax.MultiSteps accumulation)"),
     "resume": (str, None, "slice 6 (checkpoint resume)"),
     "auto_resume": (bool, False, "slice 6 (checkpoint resume)"),
     "visualize": (bool, False, "slice 6 (viz/panels.py, needs matplotlib)"),

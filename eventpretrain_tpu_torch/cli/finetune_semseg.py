@@ -1,0 +1,278 @@
+"""Semantic-segmentation finetune entry point: raw events to a trained
+segmentation hub.
+
+Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
+vit`` on the synthetic source, with the JAX CLI's flags and defaults for
+the data, the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
+no gradient clip unless asked), the loss weights (decode 1.0, auxiliary
+0.4), ``--sample_mode`` and the regularizers (drop-path 0.1, the heads'
+dropout 0.1). ``--device`` picks the card (default) or the CPU; on
+``cuda`` the hub computes in bf16 (``--bf16``, the default).
+
+    python -m eventpretrain_tpu_torch.cli.finetune_semseg --backbone vit \\
+        --dataset synthetic --epochs 2 --batch_size 4
+
+As in JAX, the synthetic source has 5 classes and no ignore label (64x64
+sensor, 4000 events per sample). ``--finetune`` loads a ``checkpoint.pth``
+that a port CLI wrote: its ``backbone.*`` tensors strictly, and, when it
+holds them, the heads' tensors too, BatchNorm running statistics
+included. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
+writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
+"epoch": ...}``. Flags of the JAX CLI that the port does not have yet
+raise an error naming the slice that brings them; DSEC and DDD17 wait for
+their data and for ``h5py``/``PIL`` on the machine that runs the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+from eventpretrain_tpu_torch.data.dense_pipeline import (
+    DenseDataConfig,
+    DensePipeline,
+    SyntheticDenseSource,
+)
+from eventpretrain_tpu_torch.eval.metrics import (
+    macc_from_confusion,
+    miou_from_confusion,
+)
+from eventpretrain_tpu_torch.models.dense_hub import (
+    dense_hub_vit_base,
+    dense_hub_vit_small,
+)
+from eventpretrain_tpu_torch.train.loop import train_one_epoch
+from eventpretrain_tpu_torch.train.optim import (
+    build_optimizer,
+    cosine_warmup_schedule,
+)
+from eventpretrain_tpu_torch.train.state import TrainState
+from eventpretrain_tpu_torch.train.steps import (
+    make_semseg_eval_step,
+    make_semseg_train_step,
+)
+
+BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp",
+             "vit_mem", "swin_ecddp"]
+
+# flags of the JAX CLI that the port does not have yet: (type, default,
+# the slice that brings them); any other value is refused
+_NOT_PORTED = {
+    "data_root": (str, None, "a later slice (the DSEC/DDD17 readers; they "
+                            "need the data, h5py and PIL)"),
+    "use_checkpoint": (bool, False, "slice 6 (activation recompute)"),
+    "feed_batches": (str, None, "slice 6 (batch replay)"),
+    "lenient_import": (bool, False, "slice 6 (the torch import dialects)"),
+    "export_torch": (str, None, "slice 6 (export artifacts)"),
+    "export_serving": (str, None, "slice 6 (export artifacts)"),
+    "serving_native": (bool, False, "slice 6 (export artifacts)"),
+    "serving_batch_sizes": (str, "1,8", "slice 6 (export artifacts)"),
+    "resume": (str, None, "slice 6 (checkpoint resume)"),
+    "auto_resume": (bool, False, "slice 6 (checkpoint resume)"),
+    "tensorboard": (bool, False, "slice 6 (utils/logging.py)"),
+    "visualize": (bool, False, "slice 6 (viz/panels.py, needs matplotlib)"),
+    "forward_only": (bool, False, "slice 6 (forward-only steps)"),
+    "profile_dir": (str, None, "slice 6 (utils/profiling.py)"),
+    "data_parallel": (bool, False, "slice 6 (torch.distributed)"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("finetune_semseg")
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["synthetic", "dsec", "ddd17"])
+    p.add_argument("--num_classes", type=int, default=11)
+    p.add_argument("--ignore_label", type=int, default=255)
+    p.add_argument("--backbone", default="convvit", choices=BACKBONES)
+    p.add_argument("--model_size", default="small", choices=["small", "base"])
+    p.add_argument("--num_bins", type=int, default=5)
+    p.add_argument("--input_size", type=int, default=224)
+    p.add_argument("--fix_events_num", type=int, default=200_000)
+    p.add_argument("--val_fix_events_num", type=int, default=200_000)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--warmup_epochs", type=float, default=2)
+    p.add_argument("--blr", type=float, default=1e-3)
+    p.add_argument("--min_lr", type=float, default=1e-6)
+    p.add_argument("--weight_decay", type=float, default=0.05)
+    p.add_argument("--layer_decay", type=float, default=0.75)
+    p.add_argument("--use_layer_decay", action="store_true")
+    # the reference semseg trainer never clips (finetune_semseg.py:104-109)
+    p.add_argument("--clip_grad", type=float, default=None)
+    p.add_argument("--w_decode_loss", type=float, default=1.0)
+    p.add_argument("--w_auxiliary_loss", type=float, default=0.4)
+    p.add_argument("--drop_path_rate", type=float, default=0.1)
+    p.add_argument("--decode_dropout", type=float, default=0.1)
+    p.add_argument("--drop_rate", type=float, default=0.0)
+    p.add_argument("--attn_drop_rate", type=float, default=0.0)
+    p.add_argument("--crop_min", type=float, default=0.8)
+    p.add_argument("--sample_mode", default="bilinear",
+                   choices=["nearest", "bilinear", "bicubic"],
+                   help="the heads' and the predictions' resize")
+    p.add_argument("--lr", type=float, default=None,
+                   help="absolute lr; overrides --blr * batch / 256")
+    p.add_argument("--finetune", default=None,
+                   help="checkpoint.pth of a port CLI whose backbone (and "
+                        "heads, when it has them) initialise the hub")
+    p.add_argument("--output_dir", default="./results/finetune_semseg")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--print_freq", type=int, default=20)
+    p.add_argument("--device", default="cuda",
+                   help="the port's device: cuda (the card) or cpu")
+    for name, (typ, default, _) in _NOT_PORTED.items():
+        if typ is bool:
+            p.add_argument(f"--{name}", action="store_true")
+        else:
+            p.add_argument(f"--{name}", type=typ, default=default)
+    return p
+
+
+def _refuse_unported(args) -> None:
+    for name, (_, default, slice_) in _NOT_PORTED.items():
+        if getattr(args, name) != default:
+            raise SystemExit(f"finetune_semseg: --{name} is not ported yet; "
+                             f"it comes with {slice_}")
+    if args.backbone != "vit":
+        raise SystemExit(f"finetune_semseg: --backbone {args.backbone} is "
+                         "not ported yet; it comes with slice 5 (the other "
+                         "backbones)")
+    if args.dataset != "synthetic":
+        raise SystemExit(f"finetune_semseg: --dataset {args.dataset} is not "
+                         "ported yet; it comes with a later slice (the "
+                         "DSEC/DDD17 readers; they need the data, h5py and "
+                         "PIL)")
+    if args.num_bins in (2, 3):
+        raise SystemExit(f"finetune_semseg: --num_bins {args.num_bins} (the "
+                         "ECDP/MEM count image) is not ported yet; it comes "
+                         "with slice 5 (the ECDP and MEM baselines)")
+
+
+def make_sources(args):
+    """(train, val, sensor (h, w)); the synthetic sources are JAX's smoke
+    data: 5 classes, no ignore label (finetune_semseg.py:181-203)."""
+    args.num_classes = 5
+    args.ignore_label = None
+    train = SyntheticDenseSource("semseg", n=32, num_classes=5,
+                                 seed=args.seed)
+    val = SyntheticDenseSource("semseg", n=8, num_classes=5,
+                               seed=args.seed + 100)
+    return train, val, train.sensor_hw
+
+
+def load_finetune(hub, path: str) -> None:
+    """Initialise ``hub`` from a ``{"model": state_dict}`` checkpoint: the
+    ``backbone.*`` tensors strictly, and the heads' tensors (BatchNorm
+    running statistics included) when the file holds any, strictly too."""
+    sd = load_torch_checkpoint(path)
+    parts = {}
+    for name in ("backbone", "decode_head", "auxiliary_head"):
+        prefix = f"{name}."
+        parts[name] = {k[len(prefix):]: v for k, v in sd.items()
+                       if k.startswith(prefix)
+                       and not k.endswith("num_batches_tracked")}
+    if not parts["backbone"]:
+        raise ValueError(f"{path}: no backbone.* tensors")
+    for name, tensors in parts.items():
+        if tensors:
+            getattr(hub, name).load_state_dict(tensors, strict=True)
+
+
+def main(argv=None) -> dict:
+    """Run the finetune; returns ``{"state", "best_miou", "miou",
+    "macc"}`` (the train state, the best and the last epoch's mIoU and
+    mAcc in percent)."""
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+
+    train_src, val_src, sensor_hw = make_sources(args)
+    cfg = DenseDataConfig(
+        task="semseg", num_bins=args.num_bins, input_size=args.input_size,
+        fix_events_num=args.fix_events_num,
+        val_fix_events_num=args.val_fix_events_num,
+        sensor_height=sensor_hw[0], sensor_width=sensor_hw[1],
+        crop_min=args.crop_min, label_size=sensor_hw,
+    )
+    factory = {"small": dense_hub_vit_small, "base": dense_hub_vit_base}
+    hub = factory[args.model_size](
+        args.num_classes, args.num_bins, dtype=dtype, device=device,
+        generator=torch.Generator().manual_seed(args.seed),
+        sample_mode=args.sample_mode, decode_dropout=args.decode_dropout,
+        input_size=args.input_size, drop_path_rate=args.drop_path_rate,
+        drop_rate=args.drop_rate, attn_drop_rate=args.attn_drop_rate,
+    )
+    if args.finetune:
+        load_finetune(hub, args.finetune)
+        print(f"initialised from {args.finetune}")
+    n_params = sum(p.numel() for p in hub.parameters())
+    print(f"model params: {n_params / 1e6:.2f}M ({dtype} compute, "
+          f"f32 parameters, {device})")
+
+    steps_per_epoch = max(len(train_src) // args.batch_size, 1)
+    lr = args.lr if args.lr is not None else args.blr * args.batch_size / 256
+    schedule = cosine_warmup_schedule(lr, args.min_lr, args.warmup_epochs,
+                                      args.epochs, steps_per_epoch)
+    optimizer = build_optimizer(
+        hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
+        layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
+        num_layers=12,
+    )
+    state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)
+    train_step = make_semseg_train_step(
+        hub, num_classes=args.num_classes, ignore_index=args.ignore_label,
+        w_decode=args.w_decode_loss, w_aux=args.w_auxiliary_loss,
+        sample_mode=args.sample_mode,
+        generator=torch.Generator(device).manual_seed(args.seed),
+    )
+    eval_step = make_semseg_eval_step(
+        hub, num_classes=args.num_classes, ignore_label=args.ignore_label,
+        sample_mode=args.sample_mode,
+    )
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    path = os.path.join(args.output_dir, "checkpoint.pth")
+    best_miou = miou = macc = 0.0
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        pipe = DensePipeline(train_src, cfg, args.batch_size, train=True,
+                             seed=args.seed + epoch, device=device)
+        state, train_metrics = train_one_epoch(
+            train_step, state, pipe, epoch=epoch, print_freq=args.print_freq)
+        val_pipe = DensePipeline(val_src, cfg, args.batch_size, train=False,
+                                 seed=args.seed, device=device)
+        tv = time.time()
+        conf = 0
+        n_val = 0
+        for batch in val_pipe:
+            conf = conf + eval_step(batch)
+            n_val += 1
+        miou = float(miou_from_confusion(conf))
+        macc = float(macc_from_confusion(conf))
+        # mean inference time per batch (ft_semseg_trainer.py:269)
+        infer_ms = 1000 * (time.time() - tv) / max(n_val, 1)
+        print(f"epoch {epoch}: mIoU {miou:.2f} mAcc {macc:.2f} "
+              f"(inference {infer_ms:.1f} ms/batch)", flush=True)
+        record = {"epoch": epoch, "miou": miou, "macc": macc,
+                  "val_infer_ms": round(infer_ms, 2),
+                  **{f"train_{k}": v for k, v in train_metrics.items()},
+                  "epoch_time_s": round(time.time() - t0, 2)}
+        with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
+            f.write(json.dumps(record) + "\n")
+        sd = {k: v.detach().cpu() for k, v in hub.state_dict().items()}
+        torch.save({"model": sd, "epoch": epoch}, path)
+        best_miou = max(best_miou, miou)
+    print(f"best mIoU: {best_miou:.2f}")
+    return {"state": state, "best_miou": best_miou, "miou": miou,
+            "macc": macc}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,306 @@
+"""Dense-task input pipeline, semantic segmentation: host stream augment,
+packing, tile bucketing and encoding; device decode, rasterisation, view
+and label augments, normalisation.
+
+Counterpart of eventpretrain_tpu/data/dense_pipeline.py:
+``DenseDataConfig`` :48-71, ``_device_preprocess`` :73-141 (its semseg
+branch), ``DensePipeline`` :144-333 (semseg) and ``SyntheticDenseSource``
+:521-568. The host draws every random number with the JAX pipeline's
+``numpy.random.Generator`` calls in the same order, so one seed gives the
+same order, augmented streams and views. The stream augment runs the JAX
+pipeline's numpy fallback (dense_pipeline.py:220-250; the fused C++ augment
+comes with the infrastructure slice); the seeds the native augment would
+take are still drawn, so the stream of draws is the JAX pipeline's. The
+tile bucketing is the numpy specification of the JAX C++ bucketer
+(``eventpretrain_tpu_torch.native``).
+
+``tiled_raster="auto"`` routes every sensor grid over 65536 cells (DSEC's
+440x640) through host tile bucketing and the tiled splat (K6), on every
+device; JAX does so on a TPU only (dense_pipeline.py:156-166), and
+elsewhere runs the exact scatter, which computes the same grid.
+
+JAX's ``stream_augment``, ``resize_mode`` and ``transfer_codec`` fields,
+which no caller sets, are constants here: the training stream augment is
+on, the event grid resizes bilinearly (the reference dense datasets
+hardcode it), and the untiled route takes the u32 codec.
+
+Not ported yet: the flow task (``resize_flow``, the flow label augments
+and ``MvsecSource`` come with slice 3b (flow)), and the DSEC and DDD17
+readers (they need ``h5py`` and ``PIL``; ``DsecSource``/``Ddd17Source``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from eventpretrain_tpu_torch.data.codec import (
+    decode_events_u16,
+    decode_events_u32,
+    encode_for_transfer,
+)
+from eventpretrain_tpu_torch.data.event_transforms import (
+    erase_and_add_events,
+    pack_event_batch,
+)
+from eventpretrain_tpu_torch.data.representations import (
+    build_representation,
+    normalize_representation,
+)
+from eventpretrain_tpu_torch.native import (
+    bucket_pack_event_batch,
+    bucket_pack_event_batch_u32,
+)
+from eventpretrain_tpu_torch.ops.view_augment import (
+    ViewParams,
+    apply_semseg_label_augment,
+    apply_view_augment,
+    identity_view_params,
+    sample_view_params,
+)
+
+# the largest grid the untiled splat takes in JAX (pallas_voxel.py:170-175)
+MAX_UNTILED_CELLS = 256 * 256
+
+_FLOW = "the flow task is not ported yet; it comes with slice 3b (flow)"
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseDataConfig:
+    task: str                      # 'semseg' ('flow': slice 3b (flow))
+    num_bins: int = 5
+    input_size: int = 224
+    fix_events_num: int = 200_000
+    val_fix_events_num: int = 200_000
+    sensor_height: int = 440
+    sensor_width: int = 640
+    crop_min: float = 0.8
+    label_size: Optional[tuple[int, int]] = None  # None = input_size
+    compact_transfer: bool = True   # u32 words (data/codec.py), or f32
+    tiled_raster: str = "auto"      # "auto" | "on" | "off"
+
+
+def uses_tiled_raster(cfg: DenseDataConfig) -> bool:
+    """Whether ``cfg`` rasterises through host tile bucketing and K6:
+    "on", or "auto" and a sensor grid over 65536 cells."""
+    if cfg.tiled_raster == "auto":
+        return cfg.sensor_height * cfg.sensor_width > MAX_UNTILED_CELLS
+    if cfg.tiled_raster not in ("on", "off"):
+        raise ValueError(f"tiled_raster={cfg.tiled_raster!r}: expected "
+                         "'auto', 'on' or 'off'")
+    return cfg.tiled_raster == "on"
+
+
+def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
+                       labels: torch.Tensor, params: ViewParams, *,
+                       num_bins: int, height: int, width: int, out_size: int,
+                       task: str, label_h: int, label_w: int,
+                       t_range: Optional[torch.Tensor] = None,
+                       tile_table: Optional[torch.Tensor] = None,
+                       tile_chunk_trange: Optional[torch.Tensor] = None,
+                       ) -> dict:
+    """f32 events (B, E, 4), or their u16 (B, E, 4) / u32 (B, E) words with
+    ``t_range``, and ``(B, H, W)`` label maps -> ``{'evg': (B, S, S, C) f32,
+    'label': (B, label_h, label_w) int64}``. ``tile_table`` marks a
+    tile-bucketed layout, rasterised by K6."""
+    if task != "semseg":
+        raise NotImplementedError(_FLOW)
+    if events.dtype in (torch.int16, torch.uint16):
+        events = decode_events_u16(events, t_range)
+    elif events.dtype in (torch.int32, torch.uint32):
+        events = decode_events_u32(events, t_range)
+    elif events.dtype != torch.float32:
+        raise TypeError(f"events of {events.dtype}: expected f32 xytp or "
+                        "the u16/u32 transfer words")
+    evg = build_representation(
+        events, counts, num_bins=num_bins, height=height, width=width,
+        tile_table=tile_table, t_range=t_range,
+        chunk_trange=tile_chunk_trange,
+    )
+    evg = apply_view_augment(evg, params, (out_size, out_size), "bilinear",
+                             negate_on_tflip=num_bins in (5, 6))
+    # the ECDP/MEM normalisation follows the view augment, as in the
+    # reference dense datasets
+    evg = normalize_representation(evg, num_bins)
+    # labels travel as uint8 and widen on the device
+    label = apply_semseg_label_augment(labels.to(torch.int32), params,
+                                       (label_h, label_w))
+    return {"evg": evg, "label": label.long()}
+
+
+class DensePipeline:
+    """Iterates batches ``{'evg', 'label', 'num_valid'}`` on ``device``; a
+    short tail batch is padded by wrapping to the front of the epoch's order
+    and ``num_valid`` counts its real rows. ``host_seconds`` and
+    ``batches`` add up the host time spent building batches (loads,
+    erase-and-add, packing, bucketing and encoding)."""
+
+    def __init__(self, source, cfg: DenseDataConfig, batch_size: int,
+                 train: bool, seed: int = 0, device="cuda"):
+        if cfg.task != "semseg":
+            raise NotImplementedError(_FLOW)
+        self.source = source
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+        self.device = torch.device(device)
+        self.tiled = uses_tiled_raster(cfg)
+        self._pack_buffer = None
+        self._enc_buffer = None
+        self.host_seconds = 0.0
+        self.batches = 0
+
+    def __len__(self) -> int:
+        return max(len(self.source) // self.batch_size, 1)
+
+    def _host_batch(self, idx: np.ndarray, cap: int):
+        """Loads, stream augment and packing, in the JAX pipeline's order
+        of draws: ``(packed, counts, labels)``."""
+        cfg = self.cfg
+        streams, labels = [], []
+        for i in idx:
+            item = self.source.load(int(i))
+            streams.append(np.asarray(item["events"]))
+            # class ids and the 255 ignore label fit in uint8, the wire
+            # dtype; wider maps travel as int32 (dense_pipeline.py:196-207)
+            lab = np.asarray(item["label"])
+            labels.append(
+                lab if lab.dtype == np.uint8 else
+                lab.astype(np.uint8) if (lab.min() >= 0 and lab.max() <= 255)
+                else lab.astype(np.int32))
+        if self.train:
+            # the seeds of the native augment (dense_pipeline.py:230):
+            # drawn though the numpy augment below does not read them
+            self.rng.integers(0, 2 ** 63, len(idx))
+            streams = [
+                erase_and_add_events(
+                    self.rng, s.astype(np.float64),
+                    (cfg.sensor_height, cfg.sensor_width),
+                ).astype(np.float32) if s.shape[0] > 0 else
+                s.astype(np.float32)
+                for s in streams
+            ]
+        packed, counts = pack_event_batch(streams, cap,
+                                          out=self._pack_buffer)
+        self._pack_buffer = packed
+        return packed, counts, np.stack(labels)
+
+    def _encode(self, packed: np.ndarray, counts: np.ndarray) -> dict:
+        """The transfer layout: bucketed (u32 words, or f32 with
+        ``compact_transfer=False``) with its table and time spans, or the
+        prefix layout of ``encode_for_transfer``."""
+        cfg = self.cfg
+        if not self.tiled:
+            events, t_range, self._enc_buffer = encode_for_transfer(
+                packed, counts, cfg.compact_transfer, out=self._enc_buffer,
+                codec="u32")
+            return {"events": events, "t_range": t_range}
+        hw = dict(height=cfg.sensor_height, width=cfg.sensor_width)
+        if cfg.compact_transfer:
+            # a bucketed layout always takes the u32 codec, whose sentinels
+            # and explicit-window encoder the tiled contract needs
+            enc, table, t_range, chunk_tr = bucket_pack_event_batch_u32(
+                packed, counts, out=self._enc_buffer, **hw)
+            self._enc_buffer = enc
+            events = enc.view(np.int32)
+        else:
+            events, table, t_range, chunk_tr = bucket_pack_event_batch(
+                packed, counts, **hw)
+        return {"events": events, "t_range": t_range, "tile_table": table,
+                "tile_chunk_trange": chunk_tr}
+
+    def __iter__(self) -> Iterator[dict]:
+        cfg = self.cfg
+        order = np.arange(len(self.source))
+        if self.train:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        cap = cfg.fix_events_num if self.train else cfg.val_fix_events_num
+        if self.train:
+            # erase_and_add can grow a stream by up to int(0.01 * n) events
+            cap = cap + max(cap // 100, 1)
+        label_h, label_w = cfg.label_size or (cfg.input_size, cfg.input_size)
+        dev = self.device
+        for b in range(len(self)):
+            t0 = time.perf_counter()
+            idx = order[b * bs:(b + 1) * bs]
+            num_valid = len(idx)
+            if len(idx) < bs:
+                idx = np.concatenate([idx, order[:bs - len(idx)]])
+            packed, counts, labels = self._host_batch(idx, cap)
+            if self.train:
+                params = sample_view_params(
+                    self.rng, len(idx), cfg.sensor_height, cfg.sensor_width,
+                    scale_min=cfg.crop_min, device=dev)
+            else:
+                params = identity_view_params(
+                    len(idx), cfg.sensor_height, cfg.sensor_width, dev)
+            wire = self._encode(packed, counts)
+            self.host_seconds += time.perf_counter() - t0
+            self.batches += 1
+            # copied even to the CPU: the host buffers are reused
+            t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                dev, copy=True) for k, v in wire.items()}
+            batch = _device_preprocess(
+                t.pop("events"), torch.from_numpy(counts).to(dev),
+                torch.from_numpy(labels).to(dev), params,
+                num_bins=cfg.num_bins, height=cfg.sensor_height,
+                width=cfg.sensor_width, out_size=cfg.input_size,
+                task=cfg.task, label_h=label_h, label_w=label_w, **t,
+            )
+            batch["num_valid"] = num_valid
+            yield batch
+
+
+class SyntheticDenseSource:
+    """Synthetic events and labels for smoke training (dense_pipeline.py:
+    521-568, draw for draw): the events fill one quadrant of the sensor,
+    and the label marks that quadrant (semseg: class 1-4 there, 0
+    elsewhere; flow: a unit vector per quadrant)."""
+
+    def __init__(self, task: str, n: int = 16, num_classes: int = 6,
+                 sensor_hw: tuple[int, int] = (64, 64),
+                 num_events: int = 4000, seed: int = 0,
+                 cache: bool = False):
+        self.task = task
+        self.n = n
+        self.num_classes = num_classes
+        self.sensor_hw = sensor_hw
+        self.num_events = num_events
+        self.seed = seed
+        self._cache: Optional[dict[int, dict]] = {} if cache else None
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load(self, index: int) -> dict:
+        if self._cache is not None:
+            if index not in self._cache:
+                self._cache[index] = self._generate(index)
+            return self._cache[index]
+        return self._generate(index)
+
+    def _generate(self, index: int) -> dict:
+        rng = np.random.default_rng(self.seed + index)
+        h, w = self.sensor_hw
+        qy, qx = rng.integers(0, 2), rng.integers(0, 2)
+        y = rng.uniform(qy * h / 2, (qy + 1) * h / 2, self.num_events)
+        x = rng.uniform(qx * w / 2, (qx + 1) * w / 2, self.num_events)
+        t = np.sort(rng.uniform(0, 1, self.num_events))
+        p = rng.integers(0, 2, self.num_events)
+        events = np.stack([x, y, t, p], 1)
+        yy, xx = np.mgrid[0:h, 0:w]
+        region = ((yy >= qy * h / 2) & (yy < (qy + 1) * h / 2)
+                  & (xx >= qx * w / 2) & (xx < (qx + 1) * w / 2))
+        if self.task == "semseg":
+            label = np.where(region, (qy * 2 + qx) + 1, 0).astype(np.int32)
+            return {"events": events, "label": label}
+        flow = np.zeros((h, w, 2), np.float32)
+        flow[region] = [qx * 2 - 1, qy * 2 - 1]
+        return {"events": events, "flow": flow,
+                "valid": np.ones((h, w), np.float32)}

@@ -8,7 +8,7 @@ a thread pool whose loads draw no random numbers) and samples one
 applies the coupled augments to the whole batch: the grid nearest
 (negated on time-flip for 5/6-bin signed grids) and the sub-frame bicubic
 (sign-flipped on time-flip). The contrastive phases' CLIP embeddings come
-with slice 3.
+with slice 4.
 """
 
 from __future__ import annotations

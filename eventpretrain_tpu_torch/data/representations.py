@@ -2,9 +2,11 @@
 normalisation.
 
 Counterpart of eventpretrain_tpu/data/representations.py:33-133. The port
-has the temporal-bilinear voxel grid (``num_bins`` not in {2, 3}); the ECDP
-(2) and MEM (3) count images, EvRep and the tile-bucketed path raise
-``NotImplementedError`` until they are ported.
+has the temporal-bilinear voxel grid (``num_bins`` not in {2, 3}), and over
+a tile-bucketed layout (``tile_table``, :67-100) the voxel grid and the
+2-bin count image through the tiled splat (K6). The MEM (3) image needs
+``remove_hot_pixels``, and the untiled count images and EvRep are not
+ported either: they raise ``NotImplementedError`` naming slice 5.
 """
 
 from __future__ import annotations
@@ -13,7 +15,14 @@ from typing import Optional
 
 import torch
 
-from eventpretrain_tpu_torch.ops.events import events_to_voxel_grid_batch
+from eventpretrain_tpu_torch.ops.events import (
+    events_to_voxel_grid_batch,
+    polarity_weights_coordvalid,
+)
+from eventpretrain_tpu_torch.ops.splat_tiled import (
+    splat_tiled,
+    voxelize_batch_tiled,
+)
 
 
 def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
@@ -21,17 +30,38 @@ def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
                          sensor_hw: Optional[torch.Tensor] = None,
                          use_evrep: bool = False,
                          tile_table: Optional[torch.Tensor] = None,
+                         t_range: Optional[torch.Tensor] = None,
+                         chunk_trange: Optional[torch.Tensor] = None,
                          ) -> torch.Tensor:
-    """(B, E, 4) padded events -> (B, height, width, C) representation."""
+    """(B, E, 4) padded events -> (B, height, width, C) representation.
+
+    With ``tile_table`` the events are tile-bucketed
+    (``native.bucket_pack_event_batch``): validity comes from the
+    coordinates, ``t_range`` is the time window and ``chunk_trange`` each
+    chunk's time span, and the grid goes through the tiled splat (K6)."""
     del sensor_hw  # used by the MEM hot-pixel removal, not by voxel grids
     if use_evrep:
-        raise NotImplementedError("EvRep is not ported yet")
-    if tile_table is not None:
-        raise NotImplementedError("the tile-bucketed splat is not ported yet")
-    if num_bins in (2, 3):
         raise NotImplementedError(
-            f"the num_bins={num_bins} count image is not ported yet"
-        )
+            "EvRep is not ported yet; it comes with slice 5")
+    if num_bins == 3:
+        raise NotImplementedError(
+            "the num_bins=3 MEM count image needs remove_hot_pixels, which "
+            "is not ported yet; it comes with slice 5")
+    if tile_table is not None:
+        if num_bins == 2:
+            return splat_tiled(
+                events[..., 1].to(torch.int32).contiguous(),
+                events[..., 0].to(torch.int32).contiguous(),
+                polarity_weights_coordvalid(events, height, width),
+                tile_table.to(torch.int32).contiguous(), height=height,
+                width=width)
+        return voxelize_batch_tiled(
+            events, tile_table, t_range, chunk_trange, num_bins=num_bins,
+            height=height, width=width)
+    if num_bins == 2:
+        raise NotImplementedError(
+            "the untiled num_bins=2 ECDP count image is not ported yet; it "
+            "comes with slice 5")
     return events_to_voxel_grid_batch(
         events, counts, num_bins=num_bins, height=height, width=width
     )

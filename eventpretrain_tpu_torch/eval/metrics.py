@@ -1,7 +1,8 @@
 """Task metrics.
 
-Counterpart of eventpretrain_tpu/eval/metrics.py:21-39 (``topk_accuracy``);
-the semseg and flow metrics come with the dense slice.
+Counterpart of eventpretrain_tpu/eval/metrics.py:21-99
+(``topk_accuracy``, ``confusion_matrix``, ``miou_from_confusion``,
+``macc_from_confusion``); ``flow_error`` comes with slice 3b (flow).
 """
 
 from __future__ import annotations
@@ -32,3 +33,47 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor,
             out[f"acc{k}"] = (hit * w).sum() / torch.clamp_min(w.sum(),
                                                                1.0) * 100.0
     return out
+
+
+def confusion_matrix(predict: torch.Tensor, target: torch.Tensor,
+                     num_classes: int, ignore_label: Optional[int] = None,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(num_classes, num_classes)`` int64 counts, rows the prediction and
+    columns the target (metrics.py:42-79, semseg_metric.py:4-18): pixels
+    predicted as ``ignore_label`` are dropped, and so are pixels whose
+    target lies outside the classes (the 255 ignore label); ``valid``, a
+    bool mask broadcastable to ``predict``, drops more (a tail batch's
+    pads). The counts are exact integers."""
+    if valid is not None:
+        valid = torch.broadcast_to(valid, predict.shape).reshape(-1)
+    predict = predict.reshape(-1).long()
+    target = target.reshape(-1).long()
+    keep = ((target >= 0) & (target < num_classes)
+            & (predict >= 0) & (predict < num_classes))
+    if ignore_label is not None:
+        keep &= predict != ignore_label
+    if valid is not None:
+        keep &= valid
+    # dropped pixels count into a spare last bin; an integer index_add
+    # needs no device synchronisation, unlike a boolean gather
+    cells = num_classes * num_classes
+    flat = torch.where(keep, predict * num_classes + target, cells)
+    counts = torch.zeros(cells + 1, dtype=torch.int64, device=flat.device)
+    counts.index_add_(0, flat, torch.ones_like(flat))
+    return counts[:cells].view(num_classes, num_classes)
+
+
+def miou_from_confusion(confusion: torch.Tensor) -> torch.Tensor:
+    """Mean IoU in percent, in f64 (metrics.py:85-91)."""
+    confusion = confusion.double()
+    diag = torch.diagonal(confusion)
+    denom = confusion.sum(dim=1) + confusion.sum(dim=0) - diag
+    return (100.0 * diag / torch.clamp_min(denom, 1e-12)).mean()
+
+
+def macc_from_confusion(confusion: torch.Tensor) -> torch.Tensor:
+    """Mean class accuracy in percent, in f64 (metrics.py:94-99)."""
+    confusion = confusion.double()
+    diag = torch.diagonal(confusion)
+    return (100.0 * diag / torch.clamp_min(confusion.sum(dim=1),
+                                           1e-12)).mean()

@@ -1,0 +1,99 @@
+"""Dense-task hub: the ViT backbone's pyramid -> UPerHead + FCNHead.
+
+Counterpart of eventpretrain_tpu/models/dense_hub.py:20-89 (``FtDenseHub``,
+``dense_hub_vit_small``, ``dense_hub_vit_base``); the ConvViT, Swin, ECDP
+and MEM hubs wait for their backbones. The module's mode is flax's
+``train`` flag: ``hub.train()`` activates drop-path, the heads' channel
+dropout and the BatchNorm statistics of the batch (updating the running
+ones); ``hub.eval()`` is deterministic and uses the running statistics.
+Drop-path and dropout masks come from the
+:class:`~eventpretrain_tpu_torch.models.layers.DropPathSource` the train
+step sets.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from eventpretrain_tpu_torch.models.dense_heads import FCNHead, UPerHead
+from eventpretrain_tpu_torch.models.layers import init_weights
+from eventpretrain_tpu_torch.models.vit import (
+    ViT,
+    vit_base_patch16,
+    vit_small_patch16,
+)
+
+
+# the heads' widths and the auxiliary head's pyramid level, which every
+# hub of the repo leaves at JAX's defaults (dense_hub.py:23-26)
+DECODE_CHANNELS = 384
+AUX_CHANNELS = 256
+AUX_IN_INDEX = 2
+
+
+class FtDenseHub(nn.Module):
+    def __init__(self, backbone: ViT, num_classes: int,
+                 decode_in_channels: Sequence[int],
+                 sample_mode: str = "bilinear", decode_dropout: float = 0.1):
+        super().__init__()
+        kw = dict(dtype=backbone.dtype,
+                  device=backbone.patch_embed.proj.weight.device)
+        self.backbone = backbone
+        self.num_classes = num_classes
+        self.decode_head = UPerHead(
+            decode_in_channels, DECODE_CHANNELS, num_classes,
+            dropout_ratio=decode_dropout, sample_mode=sample_mode, **kw)
+        self.auxiliary_head = FCNHead(
+            decode_in_channels[AUX_IN_INDEX], AUX_CHANNELS, num_classes,
+            in_index=AUX_IN_INDEX, dropout_ratio=decode_dropout, **kw)
+
+    def forward(self, x: torch.Tensor):
+        """``x (B, H, W, num_bins)`` -> ``(emb_h, out_embs, decode, aux)``:
+        the normed last tokens, the pyramid, and both heads' logits
+        ``(B, h, w, num_classes)`` at the pyramid's finest resolution."""
+        _, _, emb_h, out_embs, _ = self.backbone.encode_dense(
+            x, return_attn=False, return_pyramid=True)
+        return (emb_h, out_embs, self.decode_head(out_embs),
+                self.auxiliary_head(out_embs))
+
+
+def _hub(make_backbone, width: int, num_classes: int, num_bins: int, dtype,
+         device, generator: Optional[torch.Generator], sample_mode: str,
+         decode_dropout: float, **bk) -> FtDenseHub:
+    hub = FtDenseHub(
+        make_backbone(num_bins=num_bins, dtype=dtype, device=device, **bk),
+        num_classes, decode_in_channels=(width,) * 4,
+        sample_mode=sample_mode, decode_dropout=decode_dropout,
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_weights(hub, generator)
+    return hub
+
+
+def dense_hub_vit_small(num_classes: int, num_bins: int = 5, *,
+                        dtype=torch.float32, device="cuda",
+                        generator: Optional[torch.Generator] = None,
+                        sample_mode: str = "bilinear",
+                        decode_dropout: float = 0.1, **bk) -> FtDenseHub:
+    """ViT-S/16: four 14^2 maps at C=384 into the heads, on ``device`` (the
+    card unless the caller asks for the CPU), f32 parameters computed in
+    ``dtype``, randomly initialised from ``generator`` (a CPU generator;
+    seed 0 when None)."""
+    return _hub(vit_small_patch16, bk.get("embed_dim", 384), num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_vit_base(num_classes: int, num_bins: int = 5, *,
+                       dtype=torch.float32, device="cuda",
+                       generator: Optional[torch.Generator] = None,
+                       sample_mode: str = "bilinear",
+                       decode_dropout: float = 0.1, **bk) -> FtDenseHub:
+    """ViT-B/16: four 14^2 maps at C=768 into the heads."""
+    return _hub(vit_base_patch16, bk.get("embed_dim", 768), num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)

@@ -76,9 +76,10 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with f32 parameters, computed in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, *, dtype=torch.float32, device=None):
+                 stride: int, padding: int = 0, *, dtype=torch.float32,
+                 device=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         device=device, dtype=torch.float32)
+                         padding, device=device, dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -96,29 +97,32 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 
 
 class DropPathSource:
-    """Where every ``DropPath`` of a model takes its per-sample keep masks,
-    in call order: the rows of ``keep`` (S, B) bool when given (a replay;
-    each call takes the next row), else ``torch.rand(B) < keep_prob`` drawn
-    from ``generator``, which must live on the activations' device. With
-    neither, a drawing call raises: nothing reads torch's global RNG."""
+    """Where every ``DropPath`` of a model (and every ``ChannelDropout`` of
+    the dense heads) takes its keep masks, in call order: the entries of
+    ``keep`` when given (a replay: a (S, B) bool tensor, or a sequence of
+    masks of each call's shape; each call takes the next), else
+    ``torch.rand(shape) < keep_prob`` drawn from ``generator``, which must
+    live on the activations' device. With neither, a drawing call raises:
+    nothing reads torch's global RNG."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
-                 keep: Optional[torch.Tensor] = None):
+                 keep=None):
         self.generator = generator
         self.keep = keep
         self.used = 0
 
-    def draw(self, batch: int, keep_prob: float,
+    def draw(self, shape, keep_prob: float,
              device: torch.device) -> torch.Tensor:
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
         if self.keep is not None:
-            if self.used >= self.keep.shape[0]:
+            if self.used >= len(self.keep):
                 raise ValueError(
-                    f"DropPathSource: {self.keep.shape[0]} replayed keep "
+                    f"DropPathSource: {len(self.keep)} replayed keep "
                     "masks, but the model asks for more")
             mask = self.keep[self.used].to(device=device, dtype=torch.bool)
-            if mask.shape != (batch,):
+            if tuple(mask.shape) != shape:
                 raise ValueError(f"DropPathSource: keep mask {self.used} is "
-                                 f"{tuple(mask.shape)}, expected ({batch},)")
+                                 f"{tuple(mask.shape)}, expected {shape}")
             self.used += 1
             return mask
         if self.generator is None:
@@ -126,7 +130,7 @@ class DropPathSource:
                 "DropPath is active (training, rate > 0) but has no "
                 "generator: call set_drop_path_source(model, "
                 "DropPathSource(generator)) first")
-        return torch.rand((batch,), generator=self.generator,
+        return torch.rand(shape, generator=self.generator,
                           device=device) < keep_prob
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of eventpretrain_tpu/models/pretrain_hub.py:33-115, 156-187
 (``PrHub.forward_rec`` and the ViT factories). The projector heads and
-``forward_con`` (stages 2/3) come with slice 3; so the hub's keys are those
+``forward_con`` (stages 2/3) come with slice 4; so the hub's keys are those
 of a ``forward_rec``-initialised JAX tree, and its export loads strictly.
 """
 

@@ -1,7 +1,8 @@
-"""Event-stream rasterisation: temporal-bilinear voxel grids.
+"""Event-stream rasterisation: temporal-bilinear voxel grids and the
+per-event weights of the splats.
 
-Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323), with its
-conventions:
+Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323, and
+``polarity_weights_coordvalid`` :336), with its conventions:
 
 * ``events``: float32 ``(B, E, 4)`` with columns ``[x, y, t, p]``,
   time-sorted, valid rows leading; ``counts``: int ``(B,)`` valid rows.
@@ -52,6 +53,21 @@ def bilinear_bin_weights_windowed(events: torch.Tensor, valid: torch.Tensor,
         w_left[..., None] * (tis_i[..., None] == bins)
         + w_right[..., None] * (tis_i[..., None] + 1 == bins)
     )
+
+
+def polarity_weights_coordvalid(events: torch.Tensor, height: int,
+                                width: int) -> torch.Tensor:
+    """``(B, 2, E)`` f32 [positive, negative] counts of each event, with
+    validity from the coordinates (in frame) rather than a leading prefix:
+    the weights of the 2-bin count image over a tile-bucketed layout, whose
+    pads carry out-of-frame sentinels."""
+    x = events[..., 0].to(torch.int32)
+    y = events[..., 1].to(torch.int32)
+    valid = ((x >= 0) & (x < width) & (y >= 0) & (y < height)).float()
+    p = events[..., 3]
+    pos = (p > 0).float() * valid
+    neg = (p <= 0).float() * valid
+    return torch.stack([pos, neg], dim=1)
 
 
 def events_to_voxel_grid_batch(events: torch.Tensor, counts: torch.Tensor, *,

@@ -1,7 +1,8 @@
 """Batched view augmentation (crop -> resize -> hflip -> time-flip), plain
 PyTorch.
 
-Counterpart of eventpretrain_tpu/ops/view_augment.py:27-253. Parameters
+Counterpart of eventpretrain_tpu/ops/view_augment.py:27-274 (the flow
+label augments come with slice 3b (flow)). Parameters
 are drawn on the host with numpy, draw for draw as in JAX
 (``sample_view_params``), and held as per-sample tensors; crop and resize
 of a whole batch are two dense contractions with per-sample ``(out,
@@ -184,3 +185,15 @@ def apply_frame_augment(frames: torch.Tensor, params: ViewParams,
     out = apply_view_augment(frames, params._replace(
         tflip=torch.zeros_like(params.tflip)), out_size, mode)
     return torch.where(params.tflip.view(-1, 1, 1, 1), -out, out)
+
+
+def apply_semseg_label_augment(labels: torch.Tensor, params: ViewParams,
+                               out_size: tuple[int, int]) -> torch.Tensor:
+    """Augment integer label maps ``(B, H, W)`` coupled to an event view
+    (view_augment.py:256-274): the same crop, a nearest resize and the
+    same hflip; a time flip leaves labels alone."""
+    out = apply_view_augment(
+        labels[..., None], params._replace(
+            tflip=torch.zeros_like(params.tflip)),
+        out_size, "nearest", negate_on_tflip=False)
+    return out[..., 0]

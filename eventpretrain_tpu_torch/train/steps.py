@@ -1,9 +1,12 @@
-"""The stage-1 train step and the classification finetune steps.
+"""The stage-1 train step, the classification finetune steps and the
+semantic-segmentation finetune steps.
 
 Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
-:101-160, ``make_cls_train_step`` :298-345 and ``make_cls_eval_step``
-:348-385 with ``_valid_row_mask`` :29-42. The contrastive and joint steps
-come with slice 3.
+:101-160, ``make_cls_train_step`` :298-345, ``make_cls_eval_step``
+:348-385, ``make_semseg_train_step`` :607-648 and
+``make_semseg_eval_step`` :651-675, with ``_valid_row_mask`` :29-42. The
+contrastive and joint steps come with slice 4, the flow steps with the
+flow slice.
 """
 
 from __future__ import annotations
@@ -12,7 +15,11 @@ from typing import Callable, Optional
 
 import torch
 
-from eventpretrain_tpu_torch.eval.metrics import topk_accuracy
+from eventpretrain_tpu_torch.eval.metrics import (
+    confusion_matrix,
+    topk_accuracy,
+)
+from eventpretrain_tpu_torch.models.dense_heads import set_dropout_source
 from eventpretrain_tpu_torch.models.layers import (
     DropPathSource,
     set_drop_path_source,
@@ -22,10 +29,12 @@ from eventpretrain_tpu_torch.objectives.cls import (
     per_sample_cls_loss,
 )
 from eventpretrain_tpu_torch.objectives.rec import reconstruct_loss
+from eventpretrain_tpu_torch.objectives.semseg import semseg_loss
 from eventpretrain_tpu_torch.ops.masking import (
     make_mask_from_noise,
     masking_noise,
 )
+from eventpretrain_tpu_torch.ops.reshape import resize
 from eventpretrain_tpu_torch.train.state import TrainState
 
 
@@ -83,6 +92,14 @@ def _valid_row_mask(batch: dict, n: int, device) -> Optional[torch.Tensor]:
     return None
 
 
+def _check_replayed(source: DropPathSource, what: str) -> None:
+    """Raise unless a replay (``source.keep``) held exactly the masks the
+    model asked for."""
+    if source.keep is not None and source.used != len(source.keep):
+        raise ValueError(f"{what} holds {len(source.keep)} masks, the model "
+                         f"used {source.used}")
+
+
 def _topk(num_classes: int) -> tuple[int, ...]:
     return (1,) if num_classes < 5 else (1, 5)
 
@@ -111,10 +128,7 @@ def make_cls_train_step(hub, *, smoothing: float = 0.0,
         source = DropPathSource(generator, batch.get("drop_path_keep"))
         set_drop_path_source(hub, source)
         _, logits, _ = hub(batch["evg"])
-        if source.keep is not None and source.used != source.keep.shape[0]:
-            raise ValueError(
-                f"drop_path_keep holds {source.keep.shape[0]} masks, the "
-                f"model used {source.used}")
+        _check_replayed(source, "drop_path_keep")
         loss = cls_loss(logits, batch["label"], smoothing)
         loss.backward()
         grad_norm = state.apply_gradients()
@@ -151,5 +165,79 @@ def make_cls_eval_step(hub) -> Callable:
                             weights=w),
             "_n": n,
         }
+
+    return step
+
+
+def make_semseg_train_step(hub, *, num_classes: int,
+                           ignore_index: Optional[int] = None,
+                           w_decode: float = 1.0, w_aux: float = 0.4,
+                           sample_mode: str = "bilinear",
+                           generator: Optional[torch.Generator] = None
+                           ) -> Callable:
+    """``step(state, batch) -> metrics``: the semantic-segmentation
+    finetune step (steps.py:607-648). The hub runs in training mode
+    (drop-path, the heads' channel dropout, BatchNorm on the batch's
+    statistics, whose running averages move in place); both heads' logits
+    are resized to the label resolution, the loss is ``w_decode * (CE +
+    Dice)`` of the decode head plus ``w_aux * (CE + Dice)`` of the
+    auxiliary head, and :class:`TrainState` applies one AdamW update.
+
+    ``batch = {'evg': (B, H, W, C), 'label': (B, Hl, Wl) int}``. Drop-path
+    and dropout masks are drawn from ``generator`` (on the batch's
+    device); a batch that holds ``drop_path_keep`` (S, B) bool replays the
+    drop-path masks and ``dropout_keep`` (the decode head's (B, C) mask,
+    then the auxiliary head's) the dropout masks, each exactly as many as
+    the model asks for. ``metrics`` holds ``loss``, ``decode_ce``,
+    ``decode_dice`` and ``grad_norm`` as device tensors: no step
+    synchronises.
+    """
+
+    def step(state: TrainState, batch: dict) -> dict:
+        hub.train()
+        paths = DropPathSource(generator, batch.get("drop_path_keep"))
+        drops = DropPathSource(generator, batch.get("dropout_keep"))
+        set_drop_path_source(hub, paths)
+        set_dropout_source(hub, drops)
+        _, _, decode, aux = hub(batch["evg"])
+        _check_replayed(paths, "drop_path_keep")
+        _check_replayed(drops, "dropout_keep")
+        label = batch["label"]
+        size = tuple(label.shape[1:3])
+        d_ce, d_dice = semseg_loss(resize(decode, size, sample_mode), label,
+                                   num_classes, ignore_index)
+        a_ce, a_dice = semseg_loss(resize(aux, size, sample_mode), label,
+                                   num_classes, ignore_index)
+        loss = w_decode * (d_ce + d_dice) + w_aux * (a_ce + a_dice)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "decode_ce": d_ce.detach(),
+                "decode_dice": d_dice.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def make_semseg_eval_step(hub, *, num_classes: int,
+                          ignore_label: Optional[int] = None,
+                          sample_mode: str = "bilinear") -> Callable:
+    """``step(batch) -> (num_classes, num_classes)`` int64 confusion counts
+    of the batch (steps.py:651-675): eval mode (the BatchNorm running
+    statistics), no gradients, the decode head's logits resized to the
+    label resolution and their argmax against the labels; pad rows of a
+    wrapped tail batch are left out. Sum the counts over batches and
+    reduce them with ``miou_from_confusion``."""
+
+    @torch.no_grad()
+    def step(batch: dict) -> torch.Tensor:
+        hub.eval()
+        _, _, decode, _ = hub(batch["evg"])
+        label = batch["label"]
+        pred = resize(decode, tuple(label.shape[1:3]),
+                      sample_mode).argmax(dim=-1)
+        valid = _valid_row_mask(batch, pred.shape[0], pred.device)
+        if valid is not None:
+            valid = valid[:, None, None]
+        return confusion_matrix(pred, label, num_classes, ignore_label,
+                                valid=valid)
 
     return step

@@ -80,3 +80,13 @@ def test_finetune_slice_modules_are_covered(module):
     """The cls-finetune slice's modules are among those the import check
     above loads with jax blocked."""
     assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("module", [
+    "native", "ops.splat_tiled", "data.dense_pipeline", "models.dense_heads",
+    "models.dense_hub", "objectives.semseg", "cli.finetune_semseg",
+])
+def test_dense_slice_modules_are_covered(module):
+    """The dense slice's modules are among those the import check above
+    loads with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()

@@ -445,7 +445,7 @@ def test_normalize_representation_matches_jax(num_bins):
 
 @pytest.mark.parametrize("kw", [dict(num_bins=2), dict(num_bins=3),
                                 dict(num_bins=5, use_evrep=True),
-                                dict(num_bins=5, tile_table=torch.zeros(1))])
+                                dict(num_bins=3, tile_table=torch.zeros(1))])
 def test_unported_representations_raise(kw):
     from eventpretrain_tpu_torch.data.representations import (
         build_representation,

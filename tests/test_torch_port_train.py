@@ -130,6 +130,9 @@ def _rel_err(got, want):
     "models.cls_hub.cls_hub_vit_base", "models.decoder.RecDecoder",
     "models.pretrain_hub.pretrain_hub_small",
     "models.pretrain_hub.pretrain_hub_base", "cli.serve.build_hub",
+    "models.dense_hub.dense_hub_vit_small",
+    "models.dense_hub.dense_hub_vit_base",
+    "data.dense_pipeline.DensePipeline",
 ])
 def test_factories_default_to_the_card(factory):
     import importlib
@@ -142,6 +145,12 @@ def test_factories_default_to_the_card(factory):
 
 def test_cli_defaults_to_the_card():
     from eventpretrain_tpu_torch.cli.pretrain import build_parser
+
+    assert build_parser().parse_args([]).device == "cuda"
+
+
+def test_semseg_cli_defaults_to_the_card():
+    from eventpretrain_tpu_torch.cli.finetune_semseg import build_parser
 
     assert build_parser().parse_args([]).device == "cuda"
 
