@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
    (8, 196, 512); their backward kernels with the same ``dy`` at K1
    (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12, K2 C=768,
-   512, 384, K4 C=384, 768 and K5 C=384, 512.
+   512, 384, K4 C=384, 768 and K5 C=384, 512; K7 (``fused_mha``) forward
+   and backward, bf16, at (8, 196, H16, D32), (8, 196, H12, D32),
+   (8, 49, H12, D64), (2, 1024, H4, D256), (4, 100, H3, D24) and
+   (2, 77, H3, D20); K8 (``voxelize_batch_scatter``) at B=8, E=30000,
+   128x128x5 with strays, negative fractions and counts 0 and 1, against
+   its plain version and K3's ``voxelize_batch``.
 3. Slice 1, serving: the ViT-S/16 classification hub (2 classes, N-Cars),
    full width, random weights from seed 0, bf16 on the card, fed synthetic
    raw N-Cars-shaped events (sensor 100x120 on a 128x128 canvas, E=30000,
@@ -58,13 +63,26 @@ Phases (any failure exits non-zero; nothing is caught):
    data) with the same replayed drop-path and dropout masks; one
    ``make_semseg_eval_step`` (K6 1, K1/K2 12) and its confusion counts
    against the plain path's; ``cli.finetune_semseg.main`` for one epoch.
+5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
+   ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
+   and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1, K4 0),
+   output and gradients against the plain product;
+   ``voxelize_batch_scatter`` on a DSEC-shape batch (B=16, 200000 events,
+   440x640x5; K8 1) against its plain version and K3. Then one epoch of
+   the cls loop (B=64, 6 batches) and of the semseg loop (B=16, 4 batches)
+   through ``train_one_epoch`` and its prefetcher, counted, beside the same
+   loop in the training thread: delivered samples/s of both.
 6. Timing (CUDA events, median of 20 after warm-up; plain, kernel, kernel,
    plain): each kernel, first held against its plain version at the main
    path's batch (B=64) as in phase 2, then timed beside it with its bound
    (and, for K4, one ``F.multi_head_attention_forward`` call); the served
-   function's samples/s at B=64, the rec and cls train steps' ms,
+   function's samples/s at B=64; K7 at the decoder's, ViT-S's and the
+   ViT-B encoder's attention shapes at B=64 beside
+   ``F.scaled_dot_product_attention``; K8 at DSEC's and N-Cars' shapes
+   beside K3's ``voxelize_batch``; the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
-   B=16), the cls and dense pipelines' host time per batch; then a
+   B=16), the cls and dense pipelines' host time per batch and phase 5d's
+   delivered samples/s; then a
    ``torch.profiler`` window over each kernel path for its device time by
    kernel and busy share.
 
@@ -473,6 +491,8 @@ def phase_kernel_parity(dev) -> dict:
             prev = errs.get(name, (0.0, 0.0))
             errs[name] = (max(prev[0], err), max(prev[1], tol))
     errs.update(phase_backward_parity(dev))
+    errs.update(phase_k7_parity(dev))
+    errs["voxelize_batch_scatter"] = phase_k8_parity(dev)
     return errs
 
 
@@ -534,6 +554,107 @@ def phase_backward_parity(dev) -> dict:
     return errs
 
 
+# K7 at the MAE decoder's heads (decoder.py:101), ViT-S, the ViT-B
+# encoder's kept tokens, the gate's corner, a ragged L with a head_dim that
+# is not a multiple of 16, and one whose rows the kernel cannot read 16
+# bytes at a time (D % 8 != 0): (B, L, H, D)
+K7_PARITY_SHAPES = ((8, 196, 16, 32), (8, 196, 12, 32), (8, 49, 12, 64),
+                    (2, 1024, 4, 256), (4, 100, 3, 24), (2, 77, 3, 20))
+K7_GRAD_NAMES = ("dq", "dk", "dv")
+
+
+def k7_args(gen, b, l, h, d, dev):
+    """q, k, v as the strided slices of one packed (B, L, 3, H, D) bf16
+    tensor, as ``Attention`` hands them over, and a ``dy``."""
+    qkv = torch.randn((b, l, 3, h, d), generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn((b, l, h, d), generator=gen).to(dev, torch.bfloat16)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dy
+
+
+def phase_k7_parity(dev) -> dict:
+    """K7 forward and backward (the same ``dy``) against their plain
+    versions in bf16. Both round p, o, ds, dq, dk and dv at the same points;
+    their f32 sums run in other orders (and the kernel's row sum of exp is
+    taken online), so a rounded value may land one bf16 ulp apart: each
+    output within 2% of its scale, as K1/K4."""
+    from eventpretrain_tpu_torch.ops.fused_mha import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    gen = torch.Generator().manual_seed(6)
+    fwd, bwd = (0.0, 0.0), (0.0, SUBBLOCK_REL_TOL, 0.0)
+    for b, l, h, d in K7_PARITY_SHAPES:
+        q, k, v, dy = k7_args(gen, b, l, h, d, dev)
+        kw = dict(scale=d ** -0.5)
+        err, _, tol = hold("fused_mha", [b, l, h, d],
+                           fused_mha(q, k, v, **kw),
+                           fused_mha_reference(q, k, v, **kw))
+        fwd = (max(fwd[0], err), max(fwd[1], tol))
+        err, rel, _ = hold("fused_mha_bwd", [b, l, h, d],
+                           fused_mha_bwd(q, k, v, dy, **kw),
+                           fused_mha_bwd_reference(q, k, v, dy, **kw),
+                           K7_GRAD_NAMES)
+        bwd = (max(bwd[0], err), SUBBLOCK_REL_TOL, max(bwd[2], rel))
+    return {"fused_mha": fwd, "fused_mha_bwd": bwd}
+
+
+def k8_events(rng, batch: int, capacity: int, sensor_hw):
+    """Raw events for K8: fractional coordinates from 2 before to 2 past the
+    sensor (out-of-frame strays, and negative fractions that truncate into
+    row or column 0), sorted t, polarity in {0, 1}, every row filled (rows
+    past a count must add nothing); ragged counts, with a 0 and a 1."""
+    h, w = sensor_hw
+    ev = np.empty((batch, capacity, 4), np.float32)
+    ev[..., 0] = rng.uniform(-2.0, w + 2.0, (batch, capacity))
+    ev[..., 1] = rng.uniform(-2.0, h + 2.0, (batch, capacity))
+    ev[..., 2] = np.sort(rng.uniform(0.0, 0.1, (batch, capacity)), axis=1)
+    ev[..., 3] = rng.integers(0, 2, (batch, capacity))
+    counts = rng.integers(capacity // 2, capacity + 1, batch).astype(np.int32)
+    counts[0] = capacity
+    if batch >= 3:
+        counts[1], counts[2] = 0, 1
+    return ev, counts
+
+
+def k8_inputs(rng, batch, capacity, grid_hw, dev):
+    ev, counts = k8_events(rng, batch, capacity, grid_hw)
+    return (torch.from_numpy(ev).to(dev), torch.from_numpy(counts).to(dev),
+            dict(num_bins=NUM_BINS, height=grid_hw[0], width=grid_hw[1]))
+
+
+def phase_k8_parity(dev) -> tuple[float, float]:
+    """K8 against its plain version and against K3's ``voxelize_batch`` (the
+    same function through PyTorch bin weights and the splat) at B=8,
+    E=30000 on a 128x128x5 grid."""
+    from eventpretrain_tpu_torch.ops.splat import (
+        voxelize_batch,
+        voxelize_batch_scatter,
+        voxelize_batch_scatter_reference,
+    )
+
+    ev, counts, kw = k8_inputs(np.random.default_rng(8), 8, EVENTS, CANVAS,
+                               dev)
+    got = voxelize_batch_scatter(ev, counts, **kw)
+    ref = voxelize_batch_scatter_reference(ev, counts, **kw)
+    k3 = voxelize_batch(ev, counts, **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    err_k3 = (got - k3).abs().max().item()
+    log(f"voxelize_batch_scatter (8, {EVENTS}, 4) -> {tuple(got.shape)}: "
+        f"max_abs_err {err:.3g} vs its plain version, {err_k3:.3g} vs K3's "
+        f"voxelize_batch (tol {SPLAT_ATOL}); sum {got.sum().item():.6g} vs "
+        f"{ref.sum().item():.6g}; empty sample {got[1].abs().max().item()}")
+    require(err <= SPLAT_ATOL,
+            "voxelize_batch_scatter disagrees with its plain version")
+    require(err_k3 <= SPLAT_ATOL,
+            "voxelize_batch_scatter disagrees with K3's voxelize_batch")
+    require(got[1].abs().max().item() == 0.0, "a count of 0 added events")
+    return max(err, err_k3), SPLAT_ATOL
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -567,7 +688,11 @@ def counters() -> dict:
             fused_ln_mlp,
             fused_mlp,
         )
-        from eventpretrain_tpu_torch.ops.splat import splat
+        from eventpretrain_tpu_torch.ops.fused_mha import fused_mha
+        from eventpretrain_tpu_torch.ops.splat import (
+            splat,
+            voxelize_batch_scatter,
+        )
         from eventpretrain_tpu_torch.ops.splat_tiled import splat_tiled
 
         COUNTED.update({
@@ -581,6 +706,9 @@ def counters() -> dict:
             "fused_attn_layer_bwd": (fused_attn_layer, "launches_bwd"),
             "fused_mlp": (fused_mlp, "launches"),
             "fused_mlp_bwd": (fused_mlp, "launches_bwd"),
+            "fused_mha": (fused_mha, "launches"),
+            "fused_mha_bwd": (fused_mha, "launches_bwd"),
+            "voxelize_batch_scatter": (voxelize_batch_scatter, "launches"),
         })
     return COUNTED
 
@@ -1303,6 +1431,161 @@ def phase_semseg_cli(dev) -> None:
             "the checkpoint's keys are not the hub's")
 
 
+# --------------------------------------------------------------- phase 5d
+#
+# slice 3c: the two kernels no CLI reaches, each through its one entry
+# point, and the training loops' prefetcher on the card.
+
+# the MAE decoder's width and heads at the rec batch (decoder.py:101)
+K7_PATH_SHAPE = (64, 196, 512)
+K7_PATH_HEADS = 16
+
+
+def phase_k7_path(dev) -> dict:
+    """``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, called
+    with ``fused=False`` (JAX's ``use_fused_layer=False``), forward and
+    backward on a (64, 196, 512) input: counted on its own (K7 1 + 1, K4
+    0), then its output and every input and parameter gradient held against
+    the same module with ``use_fused_kernel=False`` (the plain product)."""
+    from eventpretrain_tpu_torch.models.layers import Attention, init_weights
+
+    b, l, c = K7_PATH_SHAPE
+    attn = Attention(c, K7_PATH_HEADS, use_fused_kernel=True,
+                     dtype=torch.bfloat16, device=dev)
+    init_weights(attn, torch.Generator().manual_seed(0))
+    plain = copy.deepcopy(attn)
+    plain.use_fused_kernel = False
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn((b, l, c), generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn((b, l, c), generator=gen).to(dev, torch.bfloat16)
+
+    def run(module):
+        xi = x.clone().requires_grad_()
+        y, _ = module(xi, fused=False)
+        y.backward(dy)
+        return (y.detach(), xi.grad,
+                *(p.grad for _, p in module.named_parameters()))
+
+    reset_counts()
+    got = run(attn)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = run(plain)
+    require(read_counts() == launches, "the plain product launched a kernel")
+    names = ("y", "dx", *(n for n, _ in attn.named_parameters()))
+    hold("Attention(use_fused_kernel=True)", [b, l, c, K7_PATH_HEADS], got,
+         want, names)
+    log(f"K7 path: Attention({c}, {K7_PATH_HEADS}, use_fused_kernel=True) "
+        f"forward and backward on {(b, l, c)} bf16; launches {launches}")
+    require(launches["fused_mha"] == 1 and launches["fused_mha_bwd"] == 1,
+            "the K7 path did not launch K7 once forward and once backward")
+    require(sum(launches.values()) == 2,
+            "the K7 path launched another kernel (K4 must stay off)")
+    return {"k7_attention": launches}
+
+
+# K8 at DSEC's shape: 200000 events per sample on the 440x640x5 grid
+# (1,408,000 cells, a multiple of 128), the semseg batch
+K8_PATH_EVENTS = DSEC_EVENTS
+
+
+def phase_k8_path(dev) -> dict:
+    """``voxelize_batch_scatter`` on a DSEC-shape batch (B=16, 200000
+    events, 440x640x5), counted on its own (K8 1), then held against its
+    plain version and against K3's ``voxelize_batch``."""
+    from eventpretrain_tpu_torch.ops.splat import (
+        voxelize_batch,
+        voxelize_batch_scatter,
+        voxelize_batch_scatter_reference,
+    )
+
+    ev, counts, kw = k8_inputs(np.random.default_rng(12), DENSE_BATCH,
+                               K8_PATH_EVENTS, DSEC_HW, dev)
+    reset_counts()
+    got = voxelize_batch_scatter(ev, counts, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    err = (got - voxelize_batch_scatter_reference(ev, counts, **kw)
+           ).abs().max().item()
+    err_k3 = (got - voxelize_batch(ev, counts, **kw)).abs().max().item()
+    log(f"K8 path: voxelize_batch_scatter {tuple(ev.shape)} -> "
+        f"{tuple(got.shape)}: max_abs_err {err:.3g} vs its plain version, "
+        f"{err_k3:.3g} vs K3's voxelize_batch (tol {SPLAT_ATOL}); launches "
+        f"{launches}")
+    require(bool(torch.isfinite(got).all()), "non-finite voxel grid")
+    require(err <= SPLAT_ATOL and err_k3 <= SPLAT_ATOL,
+            "the K8 path's grids disagree with the plain ones")
+    require(launches["voxelize_batch_scatter"] == 1
+            and sum(launches.values()) == 1,
+            "the K8 path did not launch K8 alone, once")
+    return {"k8_voxelize": launches}
+
+
+CLS_LOOP_BATCHES = 6
+DENSE_LOOP_BATCHES = 4
+
+
+def phase_prefetch_loops(dev) -> tuple[dict, dict]:
+    """One epoch of the cls loop (B=64) and of the semseg loop (B=16), each
+    first iterated in the training thread, then through ``train_one_epoch``
+    and its prefetcher (counted: the pipeline's K3/K6 launches come from the
+    producer thread): delivered samples/s of both, and the host build ms
+    per batch. Returns (``{loop: record}``, ``{loop: launches}``)."""
+    from eventpretrain_tpu_torch.train.loop import train_one_epoch
+
+    per_step = {"fused_ln_attn_layer": 1, "fused_ln_attn_layer_bwd": 1,
+                "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1,
+                "fused_attn_layer": CLS_K4_BLOCKS,
+                "fused_attn_layer_bwd": CLS_K4_BLOCKS}
+    records, launches = {}, {}
+    for key, build, trainer, pipeline, batch, n, raster in (
+            ("cls_loop", build_cls_train_hub, make_cls_trainer, cls_pipeline,
+             TRAIN_BATCH, CLS_LOOP_BATCHES, "splat"),
+            ("semseg_loop", build_dense_hub, make_dense_trainer,
+             dense_pipeline, DENSE_BATCH, DENSE_LOOP_BATCHES,
+             "splat_tiled")):
+        hub = build(dev)
+        state, step = trainer(hub, dev, n)
+        pipe = pipeline(dev, True, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in pipe:
+            step(state, b)
+        torch.cuda.synchronize()
+        serial = time.perf_counter() - t0
+        host_ms = pipe.host_seconds / pipe.batches * 1e3
+        pipe = pipeline(dev, True, n)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, metrics = train_one_epoch(step, state, pipe, print_freq=n,
+                                     header=key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        rec = {"batch": batch, "batches": n,
+               "delivered_samples_per_s": n * batch / wall,
+               "delivered_samples_per_s_no_prefetch": n * batch / serial,
+               "host_batch_ms": host_ms,
+               "host_batch_ms_prefetched": (pipe.host_seconds / pipe.batches
+                                            * 1e3)}
+        log(f"{key}: {n} batches of {batch} through train_one_epoch with the "
+            f"prefetcher {rec['delivered_samples_per_s']:.1f} samples/s, "
+            f"in the training thread {rec['delivered_samples_per_s_no_prefetch']:.1f}"
+            f" samples/s; host build {host_ms:.1f} ms per batch "
+            f"({rec['host_batch_ms_prefetched']:.1f} ms beside the steps); "
+            f"loss {metrics['loss']:.4f}; launches {counts}")
+        require(np.isfinite(metrics["loss"]), f"{key}: non-finite loss")
+        for name, want in {**per_step, raster: 1}.items():
+            require(counts[name] == want * n,
+                    f"{key}: {name} launched {counts[name]} times over {n} "
+                    f"steps, expected {want} per step")
+        require(sum(counts.values()) == n * (1 + sum(per_step.values())),
+                f"{key}: another kernel ran")
+        records[key], launches[key] = rec, counts
+        del hub, state, step, pipe
+    return records, launches
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -1509,38 +1792,192 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bms, "bound_by": bby, "flops": in_range,
                  "bytes": nbytes}
+        # the library call: index_put_(accumulate=True) of the whole batch,
+        # on the cells and weights the plain version selects (the bin
+        # ranges skip only zero weights: the same function either way)
+        tiles_x = -(-w // 128)
+        tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
+        ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
+        yl, xl = y.long(), x.long()
+        ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
+              & (xl < tx0 + 128) & (yl < h) & (xl < w))
+        cell = ((torch.arange(b, device=y.device)[:, None] * h + yl) * w
+                + xl)[ok]
+        vals = wb.transpose(1, 2)[ok]
+        acc = torch.zeros((b * h * w, c), device=y.device)
+        entry["library_ms"] = cuda_ms(
+            lambda: acc.index_put_((cell,), vals, accumulate=True))
+        del tile, ty0, tx0, ok, cell, vals, acc
         if bins is not None:
-            # the library call: index_put_(accumulate=True) of the whole
-            # batch, on the cells and weights the plain version selects
-            tiles_x = -(-w // 128)
-            tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
-            ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
-            yl, xl = y.long(), x.long()
-            ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
-                  & (xl < tx0 + 128) & (yl < h) & (xl < w))
-            cell = ((torch.arange(b, device=y.device)[:, None] * h + yl) * w
-                    + xl)[ok]
-            vals = wb.transpose(1, 2)[ok]
-            acc = torch.zeros((b * h * w, c), device=y.device)
-            entry["library_ms"] = cuda_ms(
-                lambda: acc.index_put_((cell,), vals, accumulate=True))
-            del tile, ty0, tx0, ok, cell, vals, acc
             row.update({k: entry[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "shape", "flops", "bytes")})
         else:
-            entry["library_ms"] = None
             row["shapes"].append(entry)
         log(f"time splat_tiled B={b} bin_range={bins is not None}: kernel "
-            f"{ms:.4g} ms, plain {plain_ms:.4g} ms"
-            + (f", index_put_ {entry['library_ms']:.4g} ms"
-               if entry["library_ms"] is not None else "")
-            + f", bound {bms:.4g} ms ({bby}) ({smi})")
+            f"{ms:.4g} ms, plain {plain_ms:.4g} ms, index_put_ "
+            f"{entry['library_ms']:.4g} ms, bound {bms:.4g} ms ({bby}) "
+            f"({smi})")
+    return row
+
+
+K7_TIME_SHAPES = ((64, 196, 16, 32), (64, 196, 12, 32), (64, 49, 12, 64))
+
+
+def k7_work(b, l, h, d, backward=False) -> tuple[float, float]:
+    """(FLOPs, bytes) of K7: forward q.k and p.v, q, k, v in and o out;
+    backward s recomputed, dp, dv, dq, dk, and q, k, v, o, do in, dq, dk,
+    dv out."""
+    if backward:
+        return 10 * b * h * l * l * d, 14 * b * h * l * d
+    return 4 * b * h * l * l * d, 8 * b * h * l * d
+
+
+def k7_rows(dev, errs, total, launches, smi) -> list:
+    """K7 forward and backward at the MAE decoder's, ViT-S's and the ViT-B
+    encoder's attention shapes at B=64: each held against its plain version
+    on its inputs, then timed beside it, beside
+    ``F.scaled_dot_product_attention`` on the same values in its own
+    (B, H, L, D) layout (forward; forward-graph backward), with its
+    bound."""
+    import torch.nn.functional as F
+
+    from eventpretrain_tpu_torch.ops import fused_mha as km
+
+    gen = torch.Generator().manual_seed(13)
+    rows = []
+    for name, backward, replaces in (
+            ("fused_mha", False, "eventpretrain_tpu/ops/pallas_attention.py:91"),
+            ("fused_mha_bwd", True,
+             "eventpretrain_tpu/ops/pallas_attention.py:104")):
+        per_shape = []
+        for b, l, h, d in K7_TIME_SHAPES:
+            q, k, v, dy = k7_args(gen, b, l, h, d, dev)
+            kw = dict(scale=d ** -0.5)
+            if backward:
+                _, stats = km._forward_cuda(q, k, v, kw["scale"])
+
+                def fn():
+                    return km._backward_cuda(q, k, v, stats, dy,
+                                             kw["scale"])
+
+                def plain():
+                    return km.fused_mha_bwd_reference(q, k, v, dy, **kw)
+            else:
+                def fn():
+                    return km.fused_mha(q, k, v, **kw)
+
+                def plain():
+                    return km.fused_mha_reference(q, k, v, **kw)
+            shape = [b, l, h, d]
+            err, rel, tol = hold(name, shape, fn(), plain(),
+                                 K7_GRAD_NAMES if backward else ("y",))
+            prev = errs[name]
+            errs[name] = ((max(prev[0], err), SUBBLOCK_REL_TOL,
+                           max(prev[2], rel)) if backward
+                          else (max(prev[0], err), max(prev[1], tol)))
+            ms, plain_ms = time_pair(fn, plain)
+            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(
+                backward) for t in (q, k, v))
+            if backward:
+                out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+                doh = dy.transpose(1, 2).contiguous()
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qh, kh, vh), doh, retain_graph=True))
+            else:
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, **kw))
+            flops, nbytes = k7_work(b, l, h, d, backward)
+            bms, bby = bound(flops, nbytes)
+            per_shape.append({
+                "shape": shape, "max_abs_err": err, "max_rel_err": rel,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "flops": flops, "bytes": nbytes,
+                "library_ms": lib_ms})
+            log(f"time {name} {shape}: kernel {ms:.4g} ms, plain "
+                f"{plain_ms:.4g} ms, sdpa {lib_ms:.4g} ms, bound {bms:.4g} "
+                f"ms ({bby}) ({smi})")
+        err, tol = errs[name][:2]
+        head = per_shape[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "eventpretrain_tpu_torch/csrc/mha.cu", "also": [],
+            "replaces": replaces, "launches": total[name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": err, "tol": tol,
+            **({"max_rel_err": errs[name][2],
+                "tol_is": "max_rel_err, of each gradient's scale"}
+               if backward else {}),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape", "flops",
+                                    "bytes")},
+            "library": "F.scaled_dot_product_attention"
+                       + (" + autograd.grad" if backward else ""),
+            "shapes": per_shape[1:],
+        })
+    return rows
+
+
+def k8_row(dev, errs, total, launches, smi) -> dict:
+    """K8 at DSEC's shape (B=16, 200000 events, 440x640x5) and at N-Cars'
+    (B=64, 30000 events, 128x128x5): held against its plain version, then
+    timed beside it and beside K3's ``voxelize_batch`` (the same function:
+    PyTorch bin weights, then the splat); no single PyTorch call computes
+    it. The bound counts the bytes this data needs: the events below each
+    count read once (16 bytes), the grid written once."""
+    from eventpretrain_tpu_torch.ops.splat import (
+        voxelize_batch,
+        voxelize_batch_scatter,
+        voxelize_batch_scatter_reference,
+    )
+
+    row = {"name": "voxelize_batch_scatter", "route": "cuda",
+           "source": "eventpretrain_tpu_torch/csrc/voxel_scatter.cu",
+           "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:97",
+           "launches": total["voxelize_batch_scatter"],
+           "launches_by_path": {p: launches[p]["voxelize_batch_scatter"]
+                                for p in launches},
+           "max_abs_err": errs["voxelize_batch_scatter"][0],
+           "tol": errs["voxelize_batch_scatter"][1],
+           "library": None, "shapes": []}
+    rng = np.random.default_rng(14)
+    for batch, events, grid in ((DENSE_BATCH, K8_PATH_EVENTS, DSEC_HW),
+                                (TRAIN_BATCH, EVENTS, CANVAS)):
+        ev, counts, kw = k8_inputs(rng, batch, events, grid, dev)
+
+        def fn():
+            return voxelize_batch_scatter(ev, counts, **kw)
+
+        def plain():
+            return voxelize_batch_scatter_reference(ev, counts, **kw)
+
+        err = (fn() - plain()).abs().max().item()
+        require(err <= SPLAT_ATOL, f"voxelize_batch_scatter at B={batch} "
+                                   "disagrees with its plain version")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms, plain_ms = time_pair(fn, plain)
+        k3_ms = cuda_ms(lambda: voxelize_batch(ev, counts, **kw))
+        read = int(counts.clamp(max=events).sum())
+        nbytes = 16 * read + 4 * batch + 4 * batch * grid[0] * grid[1] * NUM_BINS
+        bms, bby = bound(0, nbytes)
+        entry = {"shape": [batch, events, grid[0], grid[1], NUM_BINS],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bms, "bound_by": bby, "flops": 0,
+                 "bytes": nbytes, "library_ms": None, "k3_voxelize_ms": k3_ms}
+        if "ms" not in row:
+            row.update({k: entry[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape", "flops", "bytes", "k3_voxelize_ms")})
+        else:
+            row["shapes"].append(entry)
+        log(f"time voxelize_batch_scatter {entry['shape']}: kernel {ms:.4g} "
+            f"ms, plain {plain_ms:.4g} ms, K3 voxelize_batch {k3_ms:.4g} ms, "
+            f"bound {bms:.4g} ms ({bby}) ({smi})")
     return row
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, smi) -> None:
+                 dense, loops, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -1758,6 +2195,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
             "bytes": head["bytes"], "shapes": per_shape[1:],
         })
 
+    kernels += k7_rows(dev, errs, total, launches, smi)
+    kernels.append(k8_row(dev, errs, total, launches, smi))
+
     # served function, raw numpy events -> numpy logits; kernel and plain
     # (unfused bf16) paths in turns: plain, kernel, kernel, plain
     runs = {True: [], False: []}
@@ -1793,6 +2233,17 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     e2e["cls_train"]["drop_path_rate"] = CLS_DROP_PATH
     e2e["semseg_train"]["host_batch_ms"] = dense["host_ms"]
     e2e["semseg_train"]["drop_path_rate"] = DENSE_DROP
+    # one epoch through train_one_epoch with the prefetcher, and the same
+    # loop in the training thread (phase 5d)
+    for key, loop in (("cls_train", "cls_loop"),
+                      ("semseg_train", "semseg_loop")):
+        e2e[key]["epoch_loop"] = loops[loop]
+        log(f"{key}: step {e2e[key]['step_ms']:.4g} ms, host build "
+            f"{e2e[key]['host_batch_ms']:.4g} ms per batch; delivered "
+            f"{loops[loop]['delivered_samples_per_s']:.4g} samples/s with "
+            f"the prefetcher, "
+            f"{loops[loop]['delivered_samples_per_s_no_prefetch']:.4g} "
+            f"without ({smi})")
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -1849,8 +2300,13 @@ def main() -> int:
     launches.update(phase_dense_eval(dev, dense))
     phase_semseg_cli(dev)
     mark("semseg finetuning")
+    launches.update(phase_k7_path(dev))
+    launches.update(phase_k8_path(dev))
+    loops, loop_launches = phase_prefetch_loops(dev)
+    launches.update(loop_launches)
+    mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, smi)
+                 dense, loops, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+# a strided (B, L, H, D) operand of csrc/mha.cu: pointer and four strides
+_STRIDED = [_P, _L, _L, _L, _L]
 
 # Every exported launcher, with its C argument types (all return int).
 SIGNATURES: dict[str, dict[str, list]] = {
@@ -49,6 +52,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "ln_backward_bf16": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _P],
         "colsum_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "mha": {
+        "mha_fwd_bf16": [*_STRIDED * 3, _P, _P, _I, _I, _I, _I, _F, _P],
+        "mha_bwd_bf16": [*_STRIDED * 4, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _F, _P],
+    },
+    "voxel_scatter": {
+        "voxel_scatter_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -27,8 +27,15 @@ deterministic (eval) calls, as in the last block of an attention-map
 forward. The JAX package enables all of them only on a TPU; here they are
 always eligible, and each wrapper runs its plain version on CPU tensors.
 ``ViTBlock(use_fused_layer=False)`` forces the plain composition for all
-four, as ``force_xla()`` does in JAX. K7 (``fused_mha``, opt-in in JAX) is
-not ported; ``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported yet.
+four, as ``force_xla()`` does in JAX. ``Attention(use_fused_kernel=True)``
+opts into K7 (``fused_mha``, layers.py:202,299): a call that takes neither
+K4 nor the explicit path for attention weights or dropout runs its
+multi-head core through K7 when ``supports_fused_mha`` holds and the compute
+dtype is bf16 (the port's CUDA kernels take bf16 only), and the plain
+product otherwise. JAX's module docstring calls K7 the default TPU path,
+but its code makes it opt-in, and no hub or CLI sets the flag; the port
+follows the code. ``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported
+yet.
 
 Stochastic depth draws its per-sample keep masks from a
 :class:`DropPathSource`: an explicit ``torch.Generator`` on the
@@ -48,6 +55,10 @@ from eventpretrain_tpu_torch.ops.fused_attn_layer import (
     fused_attn_layer,
     fused_ln_attn_layer,
     supports_fused_attn_layer,
+)
+from eventpretrain_tpu_torch.ops.fused_mha import (
+    fused_mha,
+    supports_fused_mha,
 )
 from eventpretrain_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp,
@@ -200,18 +211,24 @@ class Mlp(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head self-attention with a packed qkv projection
-    (layers.py:185-307). The softmax runs in f32. Calls that need no
-    attention weights and no attention dropout, inside the K4 gate, take
-    ``fused_attn_layer``."""
+    (layers.py:185-307). The softmax runs in f32. The routes, in JAX's
+    order: with ``fused``, a call that needs no attention weights and no
+    attention dropout, inside the K4 gate, takes ``fused_attn_layer``;
+    otherwise a call that needs either takes the explicit softmax path;
+    otherwise, with ``use_fused_kernel``, a bf16 call inside
+    ``supports_fused_mha`` takes ``fused_mha`` (K7) on the q, k, v slices of
+    the packed projection; otherwise the plain product."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, *, dtype=torch.float32, device=None):
+                 proj_drop: float = 0.0, *, use_fused_kernel: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.compute_dtype = dtype
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.use_fused_kernel = use_fused_kernel
         self.attn_drop_rate = attn_drop
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias, **kw)
         self.proj = Linear(dim, dim, **kw)
@@ -240,7 +257,14 @@ class Attention(nn.Module):
                 scale=self.scale,
             )
             return self.proj_drop(out), None
-        qkv = self.qkv(x).view(b, n, 3, self.num_heads, c // self.num_heads)
+        head_dim = c // self.num_heads
+        qkv = self.qkv(x).view(b, n, 3, self.num_heads, head_dim)
+        if (self.use_fused_kernel and not return_attn
+                and self.attn_drop_rate == 0.0 and dt == torch.bfloat16
+                and supports_fused_mha(n, head_dim)):
+            out = fused_mha(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                            scale=self.scale)
+            return self.proj_drop(self.proj(out.reshape(b, n, c))), None
         q, k, v = qkv.permute(2, 0, 3, 1, 4)  # (b, h, n, d) each
         attn = torch.matmul(q, k.transpose(-1, -2)).float() * self.scale
         attn = attn.softmax(-1).to(x.dtype)

@@ -1,16 +1,21 @@
 """The host-side epoch loop and the evaluation loop.
 
 Counterpart of eventpretrain_tpu/train/loop.py:37-129: iterate the
-pipeline, call the step, and read the metrics back in bulk every
+pipeline through a :class:`~eventpretrain_tpu_torch.data.prefetch.Prefetcher`
+(loop.py:70,123), so the host builds the next batches while the card runs
+the step, call the step, and read the metrics back in bulk every
 ``print_freq`` steps (a per-step ``float()`` would synchronise the device
-on every step).
+on every step). The prefetcher's thread is stopped and joined when a loop
+ends, also when a step raises.
 """
 
 from __future__ import annotations
 
 import time
+from contextlib import closing
 from typing import Callable, Iterable, Optional
 
+from eventpretrain_tpu_torch.data.prefetch import Prefetcher
 from eventpretrain_tpu_torch.train.state import TrainState
 
 
@@ -38,10 +43,11 @@ def train_one_epoch(step: Callable, state: TrainState, pipeline: Iterable,
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         pending.clear()
 
-    for batch in pipeline:
-        pending.append(step(state, batch))
-        if len(pending) >= print_freq:
-            flush()
+    with closing(iter(Prefetcher(pipeline))) as batches:
+        for batch in batches:
+            pending.append(step(state, batch))
+            if len(pending) >= print_freq:
+                flush()
     flush()
     return state, {k: v / max(count, 1) for k, v in sums.items()}
 
@@ -66,10 +72,11 @@ def evaluate(eval_step: Callable, pipeline: Iterable, *,
                 sums[k] = sums.get(k, 0.0) + v * n
         pending.clear()
 
-    for batch in pipeline:
-        pending.append(eval_step(batch))
-        if len(pending) >= print_freq:
-            flush()
+    with closing(iter(Prefetcher(pipeline))) as batches:
+        for batch in batches:
+            pending.append(eval_step(batch))
+            if len(pending) >= print_freq:
+                flush()
     flush()
     out = {k: v / max(total, 1) for k, v in sums.items()}
     print(f"{header} {total} samples  "

@@ -90,3 +90,13 @@ def test_dense_slice_modules_are_covered(module):
     """The dense slice's modules are among those the import check above
     loads with jax blocked."""
     assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("module", [
+    "data.prefetch", "ops.fused_mha", "ops.splat", "train.loop",
+])
+def test_k7_k8_slice_modules_are_covered(module):
+    """Slice 3c's modules (the prefetcher, K7, K8 beside K3, the loops that
+    prefetch) are among those the import check above loads with jax
+    blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
