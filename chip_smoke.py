@@ -18,7 +18,12 @@ Phases (any failure exits non-zero; nothing is caught):
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
    (8, 196, 512); their backward kernels with the same ``dy`` at K1
    (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12, K2 C=768,
-   512, 384, K4 C=384, 768 and K5 C=384, 512; K7 (``fused_mha``) forward
+   512, 384, K4 C=384, 768 and K5 C=384, 512; the attention core of K1/K4
+   alone (``_attention``, ``_attention_bwd``) against the plain attention
+   core at (64, 196, H12, D32), (64, 49, H12, D64), (64, 196, H16, D32),
+   (16, 196, H12, D64), ragged (4, 100, H16, D8) and (2, 17, H1, D128), and
+   the gate's corners at L=256 (forward D=192, both directions D=160), the
+   backward run twice and equal bit for bit; K7 (``fused_mha``) forward
    and backward, bf16, at (8, 196, H16, D32), (8, 196, H12, D32),
    (8, 49, H12, D64), (2, 1024, H4, D256), (4, 100, H3, D24) and
    (2, 77, H3, D20); K8 (``voxelize_batch_scatter``) at B=8, E=30000,
@@ -75,7 +80,10 @@ Phases (any failure exits non-zero; nothing is caught):
 6. Timing (CUDA events, median of 20 after warm-up; plain, kernel, kernel,
    plain): each kernel, first held against its plain version at the main
    path's batch (B=64) as in phase 2, then timed beside it with its bound
-   (and, for K4, one ``F.multi_head_attention_forward`` call); the served
+   (and, for K4, one ``F.multi_head_attention_forward`` call); the
+   attention core of K1/K4 alone, forward and backward, at its four
+   main-path shapes beside ``F.scaled_dot_product_attention`` on the same
+   q, k, v, with each of its kernels' registers and spills; the served
    function's samples/s at B=64; K7 at the decoder's, ViT-S's and the
    ViT-B encoder's attention shapes at B=64 beside
    ``F.scaled_dot_product_attention``; K8 at DSEC's and N-Cars' shapes
@@ -87,8 +95,8 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel and busy share.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
-hold the card's name and power limit, the end-to-end record and the
-per-kernel JSON record.
+hold the end-to-end record, the attention core's record, the card's name
+and power limit and the per-kernel JSON record.
 """
 
 from __future__ import annotations
@@ -154,7 +162,11 @@ def make_events(rng: np.random.Generator, batch: int, sensor_hw=SENSOR_HW,
     return ev, counts, sensor
 
 
-def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = REPS, warmup: int = 3, calls: int = 1) -> float:
+    """Median device ms of ``fn`` over ``reps`` event pairs, each around
+    ``calls`` calls in a row (divided by ``calls``): with more than one,
+    the host enqueues the next call while the card runs the last, so a
+    kernel shorter than its wrapper's host work is timed alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -163,10 +175,11 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / calls)
     return statistics.median(times)
 
 
@@ -210,10 +223,54 @@ def phase_environment() -> str:
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
+        PTXAS.update(ptxas_usage(name, text))
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "error" in line:
                 log(f"  [{name}] {line.strip()}")
+    for kernel, use in sorted(PTXAS.items()):
+        log(f"  ptxas {kernel}: {use['registers']} registers, "
+            f"{use['stack_frame']} B stack frame, {use['spill_stores']} B "
+            f"spill stores, {use['spill_loads']} B spill loads")
     return smi
+
+
+PTXAS = {}  # "source:kernel" -> registers and spills (ptxas -v)
+
+
+def ptxas_usage(source: str, text: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes from ``nvcc
+    -Xptxas -v``: its 'Function properties for <mangled name>' line, the
+    stack and spill line after it, then its 'Used N registers' line. A
+    kernel is named by the length-prefixed identifier ending in '_kernel'
+    inside its mangled name, with its first integer template argument
+    ('ILi13E' -> '<13>') where it has one."""
+    import re
+
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled, name = m.group(1), None
+            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                ident = mangled[n.end():n.end() + int(n.group(1))]
+                if ident.endswith("_kernel"):
+                    arg = re.match(r"ILi(\d+)E",
+                                   mangled[n.end() + len(ident):])
+                    name = ident + (f"<{arg.group(1)}>" if arg else "")
+                    break
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[f"{source}:{name}"] = {
+                "registers": int(m.group(1)), "stack_frame": frame[0],
+                "spill_stores": frame[1], "spill_loads": frame[2]}
+            name, frame = None, (0, 0, 0)
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -491,6 +548,7 @@ def phase_kernel_parity(dev) -> dict:
             prev = errs.get(name, (0.0, 0.0))
             errs[name] = (max(prev[0], err), max(prev[1], tol))
     errs.update(phase_backward_parity(dev))
+    errs.update(phase_core_parity(dev))
     errs.update(phase_k7_parity(dev))
     errs["voxelize_batch_scatter"] = phase_k8_parity(dev)
     return errs
@@ -552,6 +610,67 @@ def phase_backward_parity(dev) -> dict:
         errs[name] = (max(prev[0], worst_abs), SUBBLOCK_REL_TOL,
                       max(prev[2], worst))
     return errs
+
+
+# The attention core of K1/K4 alone (csrc/attention.cu, attention_bwd.cu),
+# (B, L, H, D): ViT-S at the cls step's batch, the ViT-B encoder's kept
+# tokens, the MAE decoder, the dense ViT-B at the semseg batch; ragged L at
+# widths the gate admits; the gate's corners at L=256: the largest head_dim
+# of the forward's gate (192; the backward's gate is closed there) and of
+# the backward's (160)
+CORE_MAIN_SHAPES = ((64, 196, 12, 32), (64, 49, 12, 64), (64, 196, 16, 32),
+                    (16, 196, 12, 64))
+CORE_PARITY_SHAPES = CORE_MAIN_SHAPES + ((4, 100, 16, 8), (2, 17, 1, 128),
+                                         (2, 256, 2, 192), (2, 256, 4, 160))
+CORE_FWD_ONLY = ((2, 256, 2, 192),)
+
+
+def core_args(gen, b, l, h, d, dev):
+    """Packed (B*L, 3C) bf16 qkv rows, as the qkv GEMM writes them, and the
+    head outputs' gradient (B*L, C)."""
+    c = h * d
+    qkv = torch.randn((b * l, 3 * c), generator=gen).to(dev, torch.bfloat16)
+    do = torch.randn((b * l, c), generator=gen).to(dev, torch.bfloat16)
+    return qkv, do
+
+
+def phase_core_parity(dev) -> dict:
+    """``_attention`` and ``_attention_bwd`` alone against the plain
+    attention core, bf16: o, and dq, dk, dv each within 2% of its scale
+    (both round p, o, ds and the gradients at the same points; their f32
+    sums run in other orders). Each shape must lie inside the gate (the
+    backward's too, but at the forward's corner); the backward runs twice
+    and must repeat bit for bit (no atomics)."""
+    from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
+
+    gen = torch.Generator().manual_seed(15)
+    fwd, bwd = (0.0, 0.0), (0.0, SUBBLOCK_REL_TOL, 0.0)
+    for b, l, h, d in CORE_PARITY_SHAPES:
+        c, scale = h * d, d ** -0.5
+        backward = (b, l, h, d) not in CORE_FWD_ONLY
+        require(ka.supports_fused_attn_layer(l, c, h, torch.bfloat16),
+                f"attention core {(b, l, h, d)} outside the forward gate")
+        require(ka.supports_fused_attn_layer(l, c, h, torch.bfloat16, True)
+                == backward, f"attention core {(b, l, h, d)}: backward gate")
+        qkv, do = core_args(gen, b, l, h, d, dev)
+        shape = [b, l, h, d]
+        err, _, tol = hold("attention_core", shape,
+                           ka._attention(qkv, b, l, h, scale),
+                           ka.attention_core_reference(qkv, b, l, h, scale))
+        fwd = (max(fwd[0], err), max(fwd[1], tol))
+        if not backward:
+            continue
+        got = ka._attention_bwd(qkv, do, b, l, h, scale)
+        again = ka._attention_bwd(qkv, do, b, l, h, scale)
+        torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"attention_core_bwd {shape} does not repeat bit for bit")
+        want = ka.attention_core_bwd_reference(qkv, do, b, l, h, scale)
+        err, rel, _ = hold("attention_core_bwd", shape, got.split(c, -1),
+                           want.split(c, -1), K7_GRAD_NAMES)
+        bwd = (max(bwd[0], err), SUBBLOCK_REL_TOL, max(bwd[2], rel))
+        log(f"attention_core_bwd {shape}: two runs equal bit for bit")
+    return {"attention_core": fwd, "attention_core_bwd": bwd}
 
 
 # K7 at the MAE decoder's heads (decoder.py:101), ViT-S, the ViT-B
@@ -1681,9 +1800,10 @@ def log_profile(what: str, prof: dict) -> None:
         log(f"  {ms:9.4f} ms  {name}")
 
 
-def time_pair(fn, plain) -> tuple[float, float]:
+def time_pair(fn, plain, calls: int = 1) -> tuple[float, float]:
     """plain, kernel, kernel, plain: both see the same clocks."""
-    p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, fn, fn, plain))
+    p1, k1, k2, p2 = (cuda_ms(f, calls=calls)
+                      for f in (plain, fn, fn, plain))
     return min(k1, k2), min(p1, p2)
 
 
@@ -1913,6 +2033,98 @@ def k7_rows(dev, errs, total, launches, smi) -> list:
                                     "bytes")},
             "library": "F.scaled_dot_product_attention"
                        + (" + autograd.grad" if backward else ""),
+            "shapes": per_shape[1:],
+        })
+    return rows
+
+
+# calls per event pair when the attention core is timed: its forward is
+# shorter than its wrapper's host work at some shapes
+CORE_CALLS = 10
+
+
+def core_rows(dev, errs, total, smi) -> list:
+    """The attention core of K1/K4 alone, forward and backward, at the main
+    paths' four shapes: held against the plain attention core on its
+    inputs, then timed beside it and beside ``F.scaled_dot_product_attention``
+    on the same q, k, v in its own (B, H, L, D) layout (forward;
+    forward-graph backward), with K7's bound (the same work). Each is
+    timed over ``CORE_CALLS`` calls in a row (the kernel rows over one call
+    each, as before). Its launches are those of the K1 and K4 calls on the
+    main paths (one core launch each), and each kernel's registers and
+    spills are ptxas's."""
+    import torch.nn.functional as F
+
+    from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
+
+    gen = torch.Generator().manual_seed(16)
+    rows = []
+    for name, backward, source in (
+            ("attention_core", False, "attention.cu"),
+            ("attention_core_bwd", True, "attention_bwd.cu")):
+        per_shape = []
+        for b, l, h, d in CORE_MAIN_SHAPES:
+            c, scale = h * d, d ** -0.5
+            qkv, do = core_args(gen, b, l, h, d, dev)
+            if backward:
+                def fn():
+                    return ka._attention_bwd(qkv, do, b, l, h, scale)
+
+                def plain():
+                    return ka.attention_core_bwd_reference(qkv, do, b, l, h,
+                                                           scale)
+            else:
+                def fn():
+                    return ka._attention(qkv, b, l, h, scale)
+
+                def plain():
+                    return ka.attention_core_reference(qkv, b, l, h, scale)
+            shape = [b, l, h, d]
+            if backward:
+                err, rel, _ = hold(name, shape, fn().split(c, -1),
+                                   plain().split(c, -1), K7_GRAD_NAMES)
+            else:
+                err, rel, _ = hold(name, shape, fn(), plain())
+            ms, plain_ms = time_pair(fn, plain, calls=CORE_CALLS)
+            qh, kh, vh = (t.contiguous().requires_grad_(backward)
+                          for t in qkv.view(b, l, 3, h, d).permute(
+                              2, 0, 3, 1, 4))
+            if backward:
+                out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+                doh = do.view(b, l, h, d).transpose(1, 2).contiguous()
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qh, kh, vh), doh, retain_graph=True),
+                    calls=CORE_CALLS)
+            else:
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, scale=scale), calls=CORE_CALLS)
+            flops, nbytes = k7_work(b, l, h, d, backward)
+            bms, bby = bound(flops, nbytes)
+            per_shape.append({
+                "shape": shape, "max_abs_err": err, "max_rel_err": rel,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": bby, "flops": flops, "bytes": nbytes,
+                "library_ms": lib_ms})
+            log(f"time {name} {shape}: kernel {ms:.4g} ms, plain "
+                f"{plain_ms:.4g} ms, sdpa {lib_ms:.4g} ms, bound {bms:.4g} "
+                f"ms ({bby}) ({smi})")
+        layers = (("fused_ln_attn_layer_bwd", "fused_attn_layer_bwd")
+                  if backward else ("fused_ln_attn_layer", "fused_attn_layer"))
+        head = per_shape[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "eventpretrain_tpu_torch/csrc/" + source,
+            "replaces": ("eventpretrain_tpu/ops/fused_attn_layer.py:142"
+                         if backward else
+                         "eventpretrain_tpu/ops/fused_attn_layer.py:83"),
+            "launches": sum(total[k] for k in layers),
+            "max_abs_err": errs[name][0], "tol": errs[name][1],
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape", "flops", "bytes")},
+            "library": "F.scaled_dot_product_attention"
+                       + (" + autograd.grad" if backward else ""),
+            "ptxas": {k: v for k, v in PTXAS.items()
+                      if k.startswith(source.split(".")[0] + ":")},
             "shapes": per_shape[1:],
         })
     return rows
@@ -2197,6 +2409,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
 
     kernels += k7_rows(dev, errs, total, launches, smi)
     kernels.append(k8_row(dev, errs, total, launches, smi))
+    core = core_rows(dev, errs, total, smi)
 
     # served function, raw numpy events -> numpy logits; kernel and plain
     # (unfused bf16) paths in turns: plain, kernel, kernel, plain
@@ -2256,8 +2469,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                                              calls)
         log_profile(f"{key} step B={e2e[key]['batch']}",
                     e2e[key]["profile"])
-    log(smi)
     log(json.dumps({"e2e": e2e}))
+    log(json.dumps({"attention_core": core}))
+    log(smi)
     log(json.dumps({"kernels": kernels}))
 
 

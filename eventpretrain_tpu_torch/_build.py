@@ -45,7 +45,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "attention": {"attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P]},
     "attention_bwd": {
-        "attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
     "ln_bwd": {
         "ln_rows_bf16": [_P, _P, _P, _F, _P, _I, _I, _P],

@@ -1,63 +1,75 @@
 // The attention core of K1's and K4's backward: per (sample, head), from
 // the packed qkv rows and the head outputs' gradient do, the gradients dq,
-// dk, dv.
+// dk, dv, on the tensor cores.
 //
 // Replaces the per-head loop of eventpretrain_tpu/ops/fused_attn_layer.py::
-// _layer_bwd (:138-164), with its rounding points:
+// _layer_bwd (:142-164), with its rounding points:
 //
 //   p  = softmax(q k^T * scale)                     (recomputed, f32)
 //   dv = bf16(p)^T . do                             (f32 sum, rounded)
 //   dp = do . v^T                                   (f32)
-//   ds = bf16(p * (dp - rowsum(dp * p)) * scale)
+//   dd = rowsum(dp * p)                             (f32; not rowsum(do * o))
+//   ds = bf16(p * (dp - dd) * scale)
 //   dq = ds . k,  dk = ds^T . q                     (f32 sums, rounded)
 //
-// One block per (sample, head) stages that head's q, k, v and do (L x D
-// bf16) in dynamic shared memory, rows padded to D + 2 elements: the row
-// stride is then an odd number of 32-bit words, so a warp whose lanes read
-// 32 different rows hits 32 different banks. The (L, L) matrices p, dp and
-// ds are never formed (at L=196 one bf16 copy of p and ds takes 154 KB, and
-// at D=64 with q, k, v, do beside them that is past the 227 KB a block may
-// use). Instead the kernel makes two passes:
+// Every product is a bf16 mma.sync.m16n8k16; the scalar steps use expf and
+// the _rn intrinsics, so nothing is contracted into an FMA that the plain
+// version rounds in two steps. Two kernels, each a block of 4 warps on 64
+// rows of one (sample, head), grid (row blocks, heads, samples):
 //
-//   rows     a warp per query row i, a lane per key: the row's scores,
-//            softmax statistics (max, sum) and D_i = rowsum(dp * p) stay in
-//            registers and shared memory; the rounded ds row goes to a
-//            per-warp buffer, and dq_i = ds_i . K is summed in key order.
-//   columns  a warp per key j, a lane per query in chunks of 32: p_ij and
-//            ds_ij are recomputed from the saved statistics with the same
-//            code (so bit for bit the values of the row pass), then a lane
-//            per feature d sums dv_j and dk_j over the queries in order.
+//   dq    a warp owns 16 query rows and every key (L <= 256, so Lp / 2 f32
+//         scores a thread). It computes s and p once, as the forward does,
+//         then dp = do . v^T one 16-key step at a time, twice: once for dd,
+//         once for ds, which it keeps in registers as bf16 A fragments; then
+//         dq = ds . k, 64 columns at a time. It saves (max, sum, dd) of each
+//         row in a (3, B, H, L) f32 scratch.
+//   dk/dv a warp owns 16 keys and loops over the queries 16 at a time:
+//         s^T = k . q^T and p from the saved statistics, dv += bf16(p)^T .
+//         do; dp^T = v . do^T, ds^T, dk += ds^T . q; 64 output columns at a
+//         time (s^T and dp^T are recomputed per 64 columns when D > 64).
 //
-// No atomics: every sum has a fixed order, so the result is the same on
-// every run. Shared memory is 4 * L * (D + 2) * 2 + 4 * (3 * L + 8 *
-// max(L, 64)) bytes (112 KB at L=196, D=64); the wrapper gates shapes above
-// the 227 KB a block may use. The products run on the CUDA cores in f32 (no
-// tensor cores yet), about 7 * L * L * D multiply-adds per head, so this
-// kernel is bound by the CUDA cores' FMA throughput.
+// Each block stages its own 64 rows and the head's other operands (Lp rows,
+// zero past L and past D) in shared memory with 16-byte cp.async straight
+// from the packed rows; fragments come from ldmatrix (.trans where the
+// operand is used as it is). Shared memory: 4 (64 + Lp)(Dp + 8) + 16 Lp
+// bytes, Dp = D rounded up to 16 (47 KB at L = 196, D = 32). No sum crosses
+// a warp: there are no atomics, every sum has a fixed order, and the result
+// repeats bit for bit.
+//
+// p is computed as the forward computes it (mma.cuh softmax_rows in the dq
+// kernel; the same expf and reciprocal-based exact division per query in
+// the dk/dv kernel). What bounds it on this card: at the repo's shapes (L <=
+// 196, D <= 64) a head is about 16 L^2 D multiply-adds on the tensor cores
+// (dp twice and s in both kernels) and 2 L^2 exp and divisions, on 0.1 MB
+// of operands, so the scalar softmax steps and latency take the time, not
+// the tensor cores' rate or device memory.
 #include <math.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kMaxKeysPerLane = 8;  // L <= 256
-constexpr int kMaxDPerLane = 8;     // D <= 256
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;  // query (dq) or key (dk/dv) rows a block
+constexpr int kPad = 8;             // bf16 of padding per shared-memory row
 
-// dot of two bf16 rows of length D (D even), in feature order. Both passes
-// call it with the same operands in the same order, so a score computed in
-// the row pass and recomputed in the column pass agree bit for bit.
-__device__ __forceinline__ float dot_row(const bf16* a, const bf16* b, int D) {
-  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(a);
-  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(b);
-  float acc = 0.0f;
-  for (int d = 0; d < D / 2; ++d) {
-    const float2 x = __bfloat1622float2(a2[d]);
-    const float2 y = __bfloat1622float2(b2[d]);
-    acc = __fmaf_rn(x.x, y.x, acc);
-    acc = __fmaf_rn(x.y, y.y, acc);
+__host__ __device__ constexpr int round16(int n) {
+  return (n + 15) / 16 * 16;
+}
+
+// As attention.cu: rows [row0, row0 + nrows) of one head's D columns into
+// dst[nrows][ld], zero past L and past D, as 16-byte cp.async.
+__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
+                                           long long stride, int row0,
+                                           int nrows, int L, int D, int DP) {
+  const int per_row = DP / 8;
+  for (int i = threadIdx.x; i < nrows * per_row; i += kThreads) {
+    const int r = i / per_row, c = i % per_row * 8;
+    const int row = row0 + r;
+    const bool ok = row < L && c < D;
+    cp_async16(dst + r * ld + c, ok ? src + row * stride + c : src, ok);
   }
-  return acc;
 }
 
 __device__ __forceinline__ float ds_value(float p, float dp, float dd,
@@ -65,186 +77,363 @@ __device__ __forceinline__ float ds_value(float p, float dp, float dd,
   return round_bf16(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, dd)), scale));
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    attention_bwd_kernel(const bf16* __restrict__ qkv,
-                         const bf16* __restrict__ dout,
-                         bf16* __restrict__ dqkv, int L, int H, int D,
-                         float scale) {
+// acc (16 x 16, two n8 tiles) = X[m0:m0+16] . Y[n0:n0+16]^T over DP columns
+__device__ __forceinline__ void product_nt16(float acc[2][4], const bf16* x,
+                                             const bf16* y, int ld, int m0,
+                                             int n0, int DP, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  }
+  for (int k0 = 0; k0 < DP; k0 += 16) {
+    uint32_t a[4], bb[4];
+    ldsm_a(a, x, ld, m0, k0, lane);
+    ldsm_b_nk(bb, y, ld, n0, k0, lane);
+    mma_bf16(acc[0], a, bb);
+    mma_bf16(acc[1], a, bb + 2);
+  }
+}
+
+// Store rows m0.. (16) and columns c0 + [0, nc) of f32 accumulators, rounded,
+// into a packed row block (row stride `stride`), rows < L and columns < D.
+__device__ __forceinline__ void store_tile(bf16* dst, long long stride,
+                                           const float acc[8][4], int row0,
+                                           int c0, int nc, int L, int D,
+                                           int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = c0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (8 * j < nc && col < D && row < L) {
+        *reinterpret_cast<uint32_t*>(dst + row * stride + col) =
+            pack_f32(acc[j][2 * r], acc[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int KT>  // KT * 16 >= Lp: the score tiles a thread holds
+__global__ void __launch_bounds__(kThreads)
+    attention_dq_kernel(const bf16* __restrict__ qkv,
+                        const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+                        float* __restrict__ stats, int B, int L, int H, int D,
+                        float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int S = D + 2;  // padded row stride (elements)
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + L * S;
-  bf16* sv = sk + L * S;
-  bf16* sdo = sv + L * S;
-  float* s_max = reinterpret_cast<float*>(sdo + L * S);
-  float* s_sum = s_max + L;
-  float* s_dd = s_sum + L;
-  float* sbuf = s_dd + L;  // [kWarps][max(L, 64)]
-  const int buf = L > 64 ? L : 64;
+  const int DP = round16(D), ld = DP + kPad;
+  const int nkt = (L + 15) / 16, Lp = nkt * 16;
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // [kRows][ld]
+  bf16* sdo = sq + kRows * ld;               // [kRows][ld]
+  bf16* sk = sdo + kRows * ld;               // [Lp][ld]
+  bf16* sv = sk + Lp * ld;                   // [Lp][ld]
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int C = H * D;
-  const bf16* base = qkv + (long long)b * L * 3 * C + h * D;
-  const bf16* dbase = dout + (long long)b * L * C + h * D;
-
-  const int chunks = D / 8;
-  for (int c = threadIdx.x; c < L * chunks; c += blockDim.x) {
-    const int j = c / chunks;
-    const int d0 = (c % chunks) * 8;
-    const bf16* row = base + (long long)j * 3 * C + d0;
-    const uint4 src[4] = {
-        *reinterpret_cast<const uint4*>(row),
-        *reinterpret_cast<const uint4*>(row + C),
-        *reinterpret_cast<const uint4*>(row + 2 * C),
-        *reinterpret_cast<const uint4*>(dbase + (long long)j * C + d0),
-    };
-    bf16* dst[4] = {sq, sk, sv, sdo};
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const unsigned int* w = reinterpret_cast<const unsigned int*>(&src[m]);
-      unsigned int* o = reinterpret_cast<unsigned int*>(dst[m] + j * S + d0);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) o[t] = w[t];
-    }
-  }
+  const long long stride = 3LL * C;
+  const long long row_b = static_cast<long long>(b) * L;
+  const bf16* head = qkv + row_b * stride + h * D;
+  stage_rows(sq, ld, head, stride, q0, kRows, L, D, DP);
+  stage_rows(sk, ld, head + C, stride, 0, Lp, L, D, DP);
+  cp_async_commit();
+  stage_rows(sdo, ld, dout + row_b * C + h * D, C, q0, kRows, L, D, DP);
+  stage_rows(sv, ld, head + 2 * C, stride, 0, Lp, L, D, DP);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  bf16* drow_base = dqkv + (long long)b * L * 3 * C + h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
+  const bool active = q0 + m0 < L;
 
-  // ---- row pass: softmax statistics, D_i, ds rows and dq
-  float* dsrow = sbuf + warp * buf;
-  for (int i = warp; i < L; i += kWarps) {
-    const bf16* qi = sq + i * S;
-    const bf16* doi = sdo + i * S;
-    float p[kMaxKeysPerLane], dp[kMaxKeysPerLane];
-    float mx = -INFINITY;
+  // s = q . k^T and p, as attention.cu computes them
+  float p[2 * KT][4];
 #pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      p[t] = 0.0f;
-      if (j < L) {
-        p[t] = __fmul_rn(dot_row(qi, sk + j * S, D), scale);
-        mx = fmaxf(mx, p[t]);
-      }
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
+  for (int j = 0; j < 2 * KT; ++j) {
 #pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      if (lane + 32 * t < L) {
-        p[t] = expf(__fsub_rn(p[t], mx));
-        sum += p[t];
-      }
-    }
-    sum = warp_sum(sum);
-    float dd = 0.0f;
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      dp[t] = 0.0f;
-      if (j < L) {
-        p[t] = __fdiv_rn(p[t], sum);
-        dp[t] = dot_row(doi, sv + j * S, D);
-        dd += dp[t] * p[t];
-      }
-    }
-    dd = warp_sum(dd);
-#pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      if (j < L) dsrow[j] = ds_value(p[t], dp[t], dd, scale);
-    }
-    if (lane == 0) {
-      s_max[i] = mx;
-      s_sum[i] = sum;
-      s_dd[i] = dd;
-    }
-    __syncwarp();
-    bf16* dq = drow_base + (long long)i * 3 * C;
-    for (int d = lane; d < D; d += 32) {
-      float acc = 0.0f;
-      for (int j = 0; j < L; ++j) {
-        acc = fmaf(dsrow[j], __bfloat162float(sk[j * S + d]), acc);
-      }
-      dq[d] = __float2bfloat16(acc);
-    }
-    __syncwarp();
+    for (int e = 0; e < 4; ++e) p[j][e] = 0.0f;
   }
-  __syncthreads();
-
-  // ---- column pass: dv and dk, summed over the queries in order
-  float* pbuf = sbuf + warp * buf;  // [32] rounded p, then [32] ds
-  float* dsbuf = pbuf + 32;
-  for (int j = warp; j < L; j += kWarps) {
-    const bf16* kj = sk + j * S;
-    const bf16* vj = sv + j * S;
-    float dv[kMaxDPerLane], dk[kMaxDPerLane];
+  float ms[2][2] = {};  // (max, sum) of rows g and g + 8
+  if (active) {
+    for (int k0 = 0; k0 < DP; k0 += 16) {
+      uint32_t a[4];
+      ldsm_a(a, sq, ld, m0, k0, lane);
 #pragma unroll
-    for (int u = 0; u < kMaxDPerLane; ++u) dv[u] = dk[u] = 0.0f;
-    for (int i0 = 0; i0 < L; i0 += 32) {
-      const int i = i0 + lane;
-      if (i < L) {
-        const float s = __fmul_rn(dot_row(sq + i * S, kj, D), scale);
-        const float pij = __fdiv_rn(expf(__fsub_rn(s, s_max[i])), s_sum[i]);
-        const float dpij = dot_row(sdo + i * S, vj, D);
-        pbuf[lane] = round_bf16(pij);
-        dsbuf[lane] = ds_value(pij, dpij, s_dd[i], scale);
+      for (int kt = 0; kt < KT; ++kt) {
+        if (kt < nkt) {
+          uint32_t bb[4];
+          ldsm_b_nk(bb, sk, ld, kt * 16, k0, lane);
+          mma_bf16(p[2 * kt], a, bb);
+          mma_bf16(p[2 * kt + 1], a, bb + 2);
+        }
       }
-      __syncwarp();
-      const int n = min(32, L - i0);
-      for (int ii = 0; ii < n; ++ii) {
-        const int row = i0 + ii;
-        const float pv = pbuf[ii];
-        const float dsv = dsbuf[ii];
+    }
+    softmax_rows<KT>(p, nkt, L, t, scale, ms);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+
+  // dd = rowsum(dp * p), dp = do . v^T one 16-key step at a time
+  float dd[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int u = 0; u < kMaxDPerLane; ++u) {
-          const int d = lane + 32 * u;
-          if (d < D) {
-            dv[u] = fmaf(pv, __bfloat162float(sdo[row * S + d]), dv[u]);
-            dk[u] = fmaf(dsv, __bfloat162float(sq[row * S + d]), dk[u]);
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt < nkt) {
+      float dp[2][4];
+      product_nt16(dp, sdo, sv, ld, m0, kt * 16, DP, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dd[e >> 1] = __fadd_rn(dd[e >> 1],
+                                 __fmul_rn(dp[j][e], p[2 * kt + j][e]));
+        }
+      }
+    }
+  }
+  dd[0] = quad_sum(dd[0]);
+  dd[1] = quad_sum(dd[1]);
+
+  // ds = bf16(p * (dp - dd) * scale), dp recomputed with the same
+  // instructions, kept as the A fragments of ds . k
+  uint32_t dsa[KT][4];
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt < nkt) {
+      float dp[2][4];
+      product_nt16(dp, sdo, sv, ld, m0, kt * 16, DP, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[j][e] = ds_value(p[2 * kt + j][e], dp[j][e], dd[e >> 1], scale);
+        }
+      }
+      acc_to_a(dsa[kt], dp[0], dp[1]);
+    }
+  }
+
+  // dq = ds . k, 64 columns at a time
+  bf16* dq = dqkv + row_b * stride + h * D;
+  for (int c0 = 0; c0 < DP; c0 += 64) {
+    const int nc = min(64, DP - c0);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      if (kt < nkt) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          if (jp * 16 < nc) {
+            uint32_t bb[4];
+            ldsm_b_kn(bb, sk, ld, kt * 16, c0 + jp * 16, lane);
+            mma_bf16(acc[2 * jp], dsa[kt], bb);
+            mma_bf16(acc[2 * jp + 1], dsa[kt], bb + 2);
           }
         }
       }
-      __syncwarp();
     }
-    bf16* dkrow = drow_base + (long long)j * 3 * C + C;
+    store_tile(dq, stride, acc, q0 + m0, c0, nc, L, D, g, t);
+  }
+
+  if (t == 0) {
+    const long long bhl = static_cast<long long>(B) * H * L;
+    const long long base = (static_cast<long long>(b) * H + h) * L;
 #pragma unroll
-    for (int u = 0; u < kMaxDPerLane; ++u) {
-      const int d = lane + 32 * u;
-      if (d < D) {
-        dkrow[d] = __float2bfloat16(dk[u]);
-        dkrow[C + d] = __float2bfloat16(dv[u]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + m0 + g + 8 * r;
+      if (row < L) {
+        stats[base + row] = ms[r][0];
+        stats[bhl + base + row] = ms[r][1];
+        stats[2 * bhl + base + row] = dd[r];
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    attention_dkdv_kernel(const bf16* __restrict__ qkv,
+                          const bf16* __restrict__ dout,
+                          bf16* __restrict__ dqkv,
+                          const float* __restrict__ stats, int B, int L,
+                          int H, int D, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int DP = round16(D), ld = DP + kPad;
+  const int Lp = round16(L);
+  bf16* sk = reinterpret_cast<bf16*>(smem);  // [kRows][ld]
+  bf16* sv = sk + kRows * ld;                // [kRows][ld]
+  bf16* sq = sv + kRows * ld;                // [Lp][ld]
+  bf16* sdo = sq + Lp * ld;                  // [Lp][ld]
+  float* smx = reinterpret_cast<float*>(sdo + Lp * ld);  // [Lp]
+  float* ssum = smx + Lp;
+  float* sdd = ssum + Lp;
+  float* srs = sdd + Lp;  // __frcp_rn of each row sum
+
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int C = H * D;
+  const long long stride = 3LL * C;
+  const long long row_b = static_cast<long long>(b) * L;
+  const bf16* head = qkv + row_b * stride + h * D;
+  stage_rows(sk, ld, head + C, stride, k0, kRows, L, D, DP);
+  stage_rows(sv, ld, head + 2 * C, stride, k0, kRows, L, D, DP);
+  stage_rows(sq, ld, head, stride, 0, Lp, L, D, DP);
+  stage_rows(sdo, ld, dout + row_b * C + h * D, C, 0, Lp, L, D, DP);
+  cp_async_commit();
+  const long long bhl = static_cast<long long>(B) * H * L;
+  const long long base = (static_cast<long long>(b) * H + h) * L;
+  for (int i = threadIdx.x; i < Lp; i += kThreads) {
+    const bool ok = i < L;
+    smx[i] = ok ? stats[base + i] : 0.0f;
+    ssum[i] = ok ? stats[bhl + base + i] : 1.0f;
+    sdd[i] = ok ? stats[2 * bhl + base + i] : 0.0f;
+    srs[i] = __frcp_rn(ssum[i]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
+  if (k0 + m0 >= L) return;
+
+  bf16* dk = dqkv + row_b * stride + C + h * D;
+  for (int c0 = 0; c0 < DP; c0 += 64) {
+    const int nc = min(64, DP - c0);
+    float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.0f;
+    }
+    for (int i0 = 0; i0 < Lp; i0 += 16) {
+      // rows are keys, columns the queries i0 + 8j + 2t + (e & 1)
+      float st[2][4], dpt[2][4];
+      product_nt16(st, sk, sq, ld, m0, i0, DP, lane);   // s^T = k . q^T
+      product_nt16(dpt, sv, sdo, ld, m0, i0, DP, lane); // dp^T = v . do^T
+      // p = exp(s * scale - max) / sum as the dq kernel computes it
+      bool exact = true;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = i0 + 8 * j + 2 * t + (e & 1);
+          st[j][e] = expf(__fsub_rn(__fmul_rn(st[j][e], scale), smx[c]));
+          exact &= div_rcp_exact(st[j][e]);
+        }
+      }
+      if (exact) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = i0 + 8 * j + 2 * t + (e & 1);
+            st[j][e] = div_rcp(st[j][e], ssum[c], srs[c]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = __fdiv_rn(st[j][e], ssum[i0 + 8 * j + 2 * t + (e & 1)]);
+          }
+        }
+      }
+      // ds^T; p and ds are 0 for the queries past L
+      const bool tail = i0 + 16 > L;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = i0 + 8 * j + 2 * t + (e & 1);
+          const bool live = !tail || c < L;
+          dpt[j][e] = live ? ds_value(st[j][e], dpt[j][e], sdd[c], scale)
+                           : 0.0f;
+          st[j][e] = live ? st[j][e] : 0.0f;
+        }
+      }
+      uint32_t pa[4], dsa[4];
+      acc_to_a(pa, st[0], st[1]);
+      acc_to_a(dsa, dpt[0], dpt[1]);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (jp * 16 < nc) {
+          uint32_t bb[4];
+          ldsm_b_kn(bb, sdo, ld, i0, c0 + jp * 16, lane);  // bf16(p)^T . do
+          mma_bf16(acc_v[2 * jp], pa, bb);
+          mma_bf16(acc_v[2 * jp + 1], pa, bb + 2);
+          ldsm_b_kn(bb, sq, ld, i0, c0 + jp * 16, lane);   // ds^T . q
+          mma_bf16(acc_k[2 * jp], dsa, bb);
+          mma_bf16(acc_k[2 * jp + 1], dsa, bb + 2);
+        }
+      }
+    }
+    store_tile(dk, stride, acc_k, k0 + m0, c0, nc, L, D, g, t);
+    store_tile(dk + C, stride, acc_v, k0 + m0, c0, nc, L, D, g, t);
+  }
+}
+
+template <int KT>
+int launch_dq(const bf16* qkv, const bf16* dout, bf16* dqkv, float* stats,
+              int B, int L, int H, int D, float scale, int smem,
+              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_dq_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + kRows - 1) / kRows, H, B);
+  attention_dq_kernel<KT><<<grid, kThreads, smem, stream>>>(
+      qkv, dout, dqkv, stats, B, L, H, D, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" long long attention_bwd_smem_bytes(int L, int D) {
-  const long long buf = L > 64 ? L : 64;
-  return 4LL * L * (D + 2) * 2 + 4LL * (3LL * L + kWarps * buf);
+  const long long lp = round16(L);
+  return 4LL * (kRows + lp) * (round16(D) + kPad) + 16LL * lp;
 }
 
 // qkv (B, L, 3*H*D) bf16 packed [q | k | v] with head h at columns h*D;
 // dout (B, L, H*D) bf16 the gradient of the concatenated head outputs;
-// dqkv (B, L, 3*H*D) bf16 in the same packing. Requires L <= 256,
-// D % 8 == 0, D <= 256 (the wrapper checks).
+// dqkv (B, L, 3*H*D) bf16 in the same packing; stats (3, B, H, L) f32
+// scratch: the dq kernel writes each row's max, sum and dd, and the dk/dv
+// kernel after it on the same stream reads them. Requires L <= 256, D % 8
+// == 0, D <= 256, H*D % 128 == 0 and 16-byte aligned pointers (the wrapper
+// checks).
 extern "C" int attention_bwd_bf16(const void* qkv, const void* dout,
-                                  void* dqkv, int B, int L, int H, int D,
-                                  float scale, void* stream) {
-  if (B == 0) return 0;
+                                  void* dqkv, void* stats, int B, int L,
+                                  int H, int D, float scale, void* stream) {
+  if (B == 0 || L == 0) return 0;
+  if (L > 256) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(attention_bwd_smem_bytes(L, D));
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* d = static_cast<const bf16*>(dout);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nkt = (L + 15) / 16;
+  int code;
+  if (nkt <= 4) {
+    code = launch_dq<4>(q, d, dx, st, B, L, H, D, scale, smem, s);
+  } else if (nkt <= 8) {
+    code = launch_dq<8>(q, d, dx, st, B, L, H, D, scale, smem, s);
+  } else if (nkt <= 13) {
+    code = launch_dq<13>(q, d, dx, st, B, L, H, D, scale, smem, s);
+  } else {
+    code = launch_dq<16>(q, d, dx, st, B, L, H, D, scale, smem, s);
+  }
+  if (code != 0) return code;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_kernel<<<B * H, kWarps * 32, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<bf16*>(dqkv), L, H, D, scale);
+  const dim3 grid((L + kRows - 1) / kRows, H, B);
+  attention_dkdv_kernel<<<grid, kThreads, smem, s>>>(q, d, dx, st, B, L, H,
+                                                     D, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,7 +45,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -67,79 +67,6 @@ Operand make_operand(const void* p, long long sb, long long sl, long long sh,
                    sh % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(p) % 16 == 0;
   return Operand{static_cast<const bf16*>(p), sb, sl, sh, sd, vec ? 1 : 0};
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragments of mma.m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
-// lane = 4 * g + t. A (16 x 16) from row-major X[m][k]:
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* x, int ld,
-                                       int m0, int k0, int g, int t) {
-  const bf16* r0 = x + (m0 + g) * ld + k0 + 2 * t;
-  const bf16* r1 = r0 + 8 * ld;
-  a[0] = ld32(r0);
-  a[1] = ld32(r1);
-  a[2] = ld32(r0 + 8);
-  a[3] = ld32(r1 + 8);
-}
-
-// B (16 x 8), B(k, n) = Y[n][k]: a row-major operand used transposed.
-__device__ __forceinline__ void frag_b_nk(uint32_t b[2], const bf16* y,
-                                          int ld, int n0, int k0, int g,
-                                          int t) {
-  const bf16* r = y + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(r);
-  b[1] = ld32(r + 8);
-}
-
-// B (16 x 8), B(k, n) = Z[k][n]: a row-major operand used as it is.
-__device__ __forceinline__ void frag_b_kn(uint32_t b[2], const bf16* z,
-                                          int ld, int k0, int n0, int g,
-                                          int t) {
-  const bf16* c = z + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack_bf16(c[0], c[ld]);
-  b[1] = pack_bf16(c[8 * ld], c[9 * ld]);
-}
-
-// The f32 accumulators of two neighbouring n8 tiles, rounded to bf16, as the
-// A fragment of the next product (its k = their n).
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
-                                         const float hi[4]) {
-  a[0] = pack_f32(lo[0], lo[1]);
-  a[1] = pack_f32(lo[2], lo[3]);
-  a[2] = pack_f32(hi[0], hi[1]);
-  a[3] = pack_f32(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Rows [row0, row0 + kTile) and columns [col0, col0 + ncols) of one

@@ -29,11 +29,11 @@ at C=384, against 227 KB a block may use), so the CUDA path is a few
 launches of hand-written kernels:
 
     forward   the GEMM for qkv (csrc/ln_gemm.cu; K1 with its LayerNorm
-              prologue), the per-(sample, head) attention kernel
-              (csrc/attention.cu), the GEMM for the out projection (K1 with
-              the residual epilogue);
+              prologue), the attention core (csrc/attention.cu), the GEMM
+              for the out projection (K1 with the residual epilogue);
     backward  dWo = dy^T . o and do = dy . Wo (GEMM, weight-gradient and
-              dgrad layouts), the attention backward (csrc/attention_bwd.cu),
+              dgrad layouts), the attention core's backward
+              (csrc/attention_bwd.cu: a dq kernel, then a dk/dv kernel),
               dWqkv = dqkv^T . u and du = dqkv . Wqkv (GEMM; K4 rounds du in
               the epilogue), and for K1 the LN rows and LN backward; the bias
               sums (csrc/ln_bwd.cu).
@@ -41,8 +41,9 @@ launches of hand-written kernels:
 qkv and the head outputs round-trip device memory between launches. The
 CUDA forward saves them for the backward instead of recomputing them (the
 same values bit for bit; 4C bf16 per token); K1's backward recomputes only
-LN(x). The attention kernels are bound by CUDA-core FMA throughput, the
-GEMMs by a simple WMMA loop (see the sources).
+LN(x). The attention core runs every product on the tensor cores (bf16
+``mma.sync``, one pass over the scores, whose whole rows fit in registers
+at L <= 256); the GEMMs are a simple WMMA loop (see the sources).
 
 Weights are in the torch layout: ``wqkv`` (3C, C), ``wo`` (C, C).
 """
@@ -69,31 +70,50 @@ from eventpretrain_tpu_torch.ops.common import (
     mm_f32,
 )
 
-# csrc/attention.cu: 8 warps, shared memory 3*L*D*2 + 8*L*4 bytes
-_ATTN_WARPS = 8
+# csrc/attention.cu and attention_bwd.cu: a block is 4 warps of 16 rows
+_ATTN_ROWS = 64
+_ATTN_PAD = 8  # bf16 of padding per shared-memory row
 MAX_BLOCK_SMEM = 232448  # bytes of shared memory a Hopper block may use
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def attention_smem_bytes(seq_len: int, head_dim: int) -> int:
-    return 3 * seq_len * head_dim * 2 + _ATTN_WARPS * seq_len * 4
+    """csrc/attention.cu: the block's 64 q rows and the head's k and v, L
+    and D rounded up to 16, rows padded by 8 bf16."""
+    rows = _ATTN_ROWS + 2 * _round16(seq_len)
+    return rows * (_round16(head_dim) + _ATTN_PAD) * 2
 
 
 def attention_bwd_smem_bytes(seq_len: int, head_dim: int) -> int:
-    """csrc/attention_bwd.cu: q, k, v, do with rows padded to D + 2, the
-    row statistics and the warps' buffers."""
-    buf = max(seq_len, 64)
-    return (4 * seq_len * (head_dim + 2) * 2
-            + 4 * (3 * seq_len + _ATTN_WARPS * buf))
+    """csrc/attention_bwd.cu, the larger of its two kernels: the block's 64
+    rows of two operands and the head's other two (q, do and k, v for dq;
+    k, v and q, do for dk/dv), and the dk/dv kernel's row statistics (max,
+    sum, dd and the sum's reciprocal)."""
+    lp = _round16(seq_len)
+    return (4 * (_ATTN_ROWS + lp) * (_round16(head_dim) + _ATTN_PAD)
+            + 16 * lp)
+
+
+def attention_bwd_scratch(b: int, seq_len: int, num_heads: int,
+                          device) -> torch.Tensor:
+    """The backward's (3, B, H, L) f32 scratch: each query row's score max,
+    sum of exp and rowsum(dp * p), written by the dq kernel and read by the
+    dk/dv kernel."""
+    return torch.empty((3, b, num_heads, seq_len), dtype=torch.float32,
+                       device=device)
 
 
 def supports_fused_attn_layer(seq_len: int, dim: int, num_heads: int,
                               dtype=None, backward: bool = False) -> bool:
     """The JAX gate of K1 and K4 (fused_attn_layer.py:48-63), plus the
-    shared-memory bound of the attention kernel: q, k and v of one head
-    must fit a block, and with ``backward`` q, k, v and do of the backward
-    kernel too. Every ViT and decoder width of the repo fits both (the
-    largest, L=196 at head_dim 64, takes 112 KB in the backward); head_dim
-    256 at long sequences does not."""
+    shared-memory bound of the attention core: a block's staged tiles must
+    fit, and with ``backward`` those of the backward kernels too. Every
+    ViT, decoder and dense width of the repo fits both (the largest, L=196
+    at head_dim 64, takes 80 KB in the backward); at L=256 the forward
+    takes head_dim up to 192 and the backward up to 160."""
     if dtype is not None and torch.empty((), dtype=dtype).element_size() > 2:
         return False
     if dim % num_heads != 0:
@@ -121,29 +141,24 @@ def _heads_softmax(qkv, b, l, num_heads, scale):
     return q, k, v, p / p.sum(-1, keepdim=True)
 
 
-def _layer_reference(u, wqkv, bqkv, wo, bo, num_heads, scale):
-    """The attention layer on ``u`` (b, l, c), f32 result before the
-    output rounding (``_layer_fwd``, fused_attn_layer.py:103)."""
-    b, l, c = u.shape
-    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(u.dtype)
+def attention_core_reference(qkv, b, l, num_heads, scale):
+    """Plain version of the attention core (csrc/attention.cu) on packed
+    (b*l, 3c) qkv rows: the head outputs, rounded, concatenated (b*l, c)
+    (``_attention_heads``, fused_attn_layer.py:83)."""
+    c = qkv.shape[-1] // 3
     _, _, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
-    o = mm_f32(p.to(u.dtype), v).to(u.dtype)  # (b, h, l, d)
-    o = o.transpose(1, 2).reshape(b, l, c)
-    return mm_f32(o, wo.t()) + bo.float()
+    o = mm_f32(p.to(qkv.dtype), v).to(qkv.dtype)  # (b, h, l, d)
+    return o.transpose(1, 2).reshape(b * l, c)
 
 
-def _layer_bwd_reference(u, wqkv, bqkv, wo, dy, num_heads, scale):
-    """Backward of :func:`_layer_reference` (``_layer_bwd``,
-    fused_attn_layer.py:115): ``(du f32, dwqkv, dbqkv, dwo, dbo)``."""
-    dt = u.dtype
-    b, l, c = u.shape
-    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(dt)
+def attention_core_bwd_reference(qkv, do, b, l, num_heads, scale):
+    """Plain version of the attention core's backward
+    (csrc/attention_bwd.cu): ``dqkv`` (b*l, 3c) in the packing of qkv, for
+    the head outputs' gradient ``do`` (b*l, c) (the head loop of
+    ``_layer_bwd``, fused_attn_layer.py:142-164)."""
+    dt = qkv.dtype
+    c = do.shape[-1]
     q, k, v, p = _heads_softmax(qkv, b, l, num_heads, scale)
-    o = mm_f32(p.to(dt), v).to(dt).transpose(1, 2).reshape(b * l, c)
-    dy2 = dy.reshape(b * l, c)
-    dwo = mm_f32(dy2.t(), o).to(wo.dtype)
-    dbo = dy2.float().sum(0).to(wo.dtype)
-    do = mm_f32(dy2, wo).to(dt)
     do_h = do.view(b, l, num_heads, -1).transpose(1, 2)  # (b, h, l, d)
     dv = mm_f32(p.to(dt).transpose(-1, -2), do_h)
     dp = mm_f32(do_h, v.transpose(-1, -2))
@@ -152,7 +167,30 @@ def _layer_bwd_reference(u, wqkv, bqkv, wo, dy, num_heads, scale):
     dk = mm_f32(ds.transpose(-1, -2), q)
     # (3, b, h, l, d) -> (b, l, 3, h, d): the packing of qkv
     dqkv = torch.stack([dq, dk, dv]).to(dt).permute(1, 3, 0, 2, 4)
-    dqkv = dqkv.reshape(b * l, 3 * c)
+    return dqkv.reshape(b * l, 3 * c)
+
+
+def _layer_reference(u, wqkv, bqkv, wo, bo, num_heads, scale):
+    """The attention layer on ``u`` (b, l, c), f32 result before the
+    output rounding (``_layer_fwd``, fused_attn_layer.py:103)."""
+    b, l, c = u.shape
+    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(u.dtype)
+    o = attention_core_reference(qkv, b, l, num_heads, scale)
+    return mm_f32(o.view(b, l, c), wo.t()) + bo.float()
+
+
+def _layer_bwd_reference(u, wqkv, bqkv, wo, dy, num_heads, scale):
+    """Backward of :func:`_layer_reference` (``_layer_bwd``,
+    fused_attn_layer.py:115): ``(du f32, dwqkv, dbqkv, dwo, dbo)``."""
+    dt = u.dtype
+    b, l, c = u.shape
+    qkv = (mm_f32(u, wqkv.t()) + bqkv.float()).to(dt)
+    o = attention_core_reference(qkv, b, l, num_heads, scale)
+    dy2 = dy.reshape(b * l, c)
+    dwo = mm_f32(dy2.t(), o).to(wo.dtype)
+    dbo = dy2.float().sum(0).to(wo.dtype)
+    do = mm_f32(dy2, wo).to(dt)
+    dqkv = attention_core_bwd_reference(qkv, do, b, l, num_heads, scale)
     dwqkv = mm_f32(dqkv.t(), u.reshape(b * l, c)).to(wqkv.dtype)
     dbqkv = dqkv.float().sum(0).to(wqkv.dtype)
     du = mm_f32(dqkv, wqkv).view(b, l, c)
@@ -219,11 +257,12 @@ def _attention_bwd(qkv: torch.Tensor, do: torch.Tensor, b: int, l: int,
                    num_heads: int, scale: float) -> torch.Tensor:
     c = do.shape[-1]
     dqkv = torch.empty((b * l, 3 * c), dtype=qkv.dtype, device=qkv.device)
+    stats = attention_bwd_scratch(b, l, num_heads, qkv.device)
     lib = _build.load("attention_bwd")
     with torch.cuda.device(qkv.device):
         code = lib.attention_bwd_bf16(
-            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), b, l, num_heads,
-            c // num_heads, float(scale),
+            qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            b, l, num_heads, c // num_heads, float(scale),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     _build.check(lib, "attention_bwd_bf16", code)

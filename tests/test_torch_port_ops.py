@@ -386,18 +386,127 @@ def test_backward_gate_open_at_every_rec_hub_width(l, c, h):
 
 
 def test_backward_gate_bound_closes_past_shared_memory():
-    """head_dim 128 at L=256: the forward fits a block (205 KB), the
-    backward's q, k, v, do do not (277 KB)."""
+    """The attention core's shared-memory bounds at L=256: head_dim 192
+    fits the forward's block (226 KB) and not the backward's (253 KB);
+    head_dim 160 fits both; past them each closes."""
     from eventpretrain_tpu_torch.ops.fused_attn_layer import (
         MAX_BLOCK_SMEM,
         attention_bwd_smem_bytes,
+        attention_smem_bytes,
     )
 
-    assert supports_fused_attn_layer(256, 256, 2, torch.bfloat16)
-    assert not supports_fused_attn_layer(256, 256, 2, torch.bfloat16,
+    assert supports_fused_attn_layer(256, 384, 2, torch.bfloat16)
+    assert not supports_fused_attn_layer(256, 384, 2, torch.bfloat16,
                                          backward=True)
-    assert attention_bwd_smem_bytes(256, 128) > MAX_BLOCK_SMEM
-    assert attention_bwd_smem_bytes(196, 64) <= 115 * 1024
+    assert supports_fused_attn_layer(256, 640, 4, torch.bfloat16,
+                                     backward=True)
+    assert not supports_fused_attn_layer(256, 256, 1, torch.bfloat16)
+    assert attention_smem_bytes(256, 200) > MAX_BLOCK_SMEM
+    assert attention_bwd_smem_bytes(256, 168) > MAX_BLOCK_SMEM
+    assert attention_bwd_smem_bytes(196, 64) <= 80 * 1024
+
+
+def _cuda_core_gate(l, d, backward):
+    """The shared-memory bounds of the CUDA-core attention kernels that the
+    tensor-core ones replaced: q, k, v of a head and 8 warps' f32 rows; and
+    q, k, v, do with rows of D + 2 and the row statistics."""
+    ok = 3 * l * d * 2 + 8 * l * 4 <= 232448
+    if backward:
+        ok = ok and 8 * l * (d + 2) + 4 * (3 * l + 8 * max(l, 64)) <= 232448
+    return ok
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_attention_gate_open_wherever_the_cuda_core_gate_was(backward):
+    """Every L <= 256 and head_dim (a multiple of 8, at the fewest heads
+    that make C a multiple of 128): open wherever the CUDA-core kernels'
+    gate was open, and never open where JAX's gate is closed."""
+    import math
+
+    for d in range(8, 264, 8):
+        h = 128 // math.gcd(d, 128)
+        for l in range(1, 258):
+            ours = supports_fused_attn_layer(l, d * h, h, torch.bfloat16,
+                                             backward)
+            jax_ok = j_supports_attn(l, d * h, h, jnp.bfloat16)
+            if jax_ok and _cuda_core_gate(l, d, backward):
+                assert ours, (l, d)
+            if not jax_ok:
+                assert not ours, (l, d)
+
+
+def test_attention_bwd_scratch_is_three_f32_rows_per_head():
+    """The backward's statistics: (3, B, H, L) f32 on the operands' device,
+    one max, sum and rowsum(dp * p) per query row of each head."""
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        attention_bwd_scratch,
+    )
+
+    st = attention_bwd_scratch(5, 196, 12, torch.device("cpu"))
+    assert st.shape == (3, 5, 12, 196) and st.dtype == torch.float32
+    assert st.device.type == "cpu" and st.is_contiguous()
+    meta = attention_bwd_scratch(2, 17, 1, "meta")
+    assert meta.shape == (3, 2, 1, 17) and meta.device.type == "meta"
+
+
+def _packed_qkv(rng, b, l, c, jdt, tdt):
+    a = rng.normal(size=(b, l, 3 * c))
+    return _as(a, jdt, tdt)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("l,c,h", [(20, 128, 4), (17, 128, 1),
+                                   (49, 256, 8)])
+def test_attention_core_reference_matches_jax_heads(dtypes, l, c, h):
+    """The plain attention core against JAX's ``_attention_heads`` on each
+    sample's packed (L, 3C) rows, concatenated as ``_layer_fwd`` does."""
+    from eventpretrain_tpu.ops.fused_attn_layer import _attention_heads
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        attention_core_reference,
+    )
+
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(l + c + h)
+    b, scale = 2, (c // h) ** -0.5
+    qj, qt = _packed_qkv(rng, b, l, c, jdt, tdt)
+    want = jnp.stack([jnp.concatenate(_attention_heads(qj[i], c, h, scale,
+                                                       jdt), axis=-1)
+                      for i in range(b)])
+    got = attention_core_reference(qt.reshape(b * l, 3 * c), b, l, h, scale)
+    assert got.dtype == tdt and got.shape == (b * l, c)
+    _rel_check(got.view(b, l, c), want, tdt)
+
+
+@pytest.mark.parametrize("l,c,h", [(20, 128, 4), (17, 128, 1),
+                                   (49, 256, 8)])
+def test_attention_core_bwd_reference_matches_jax_vjp(l, c, h):
+    """The plain attention core's backward, f32: dq, dk, dv in the packing
+    of qkv against ``jax.vjp`` of JAX's ``_attention_heads`` (in f32 the
+    kernels' rowsum(dp * p) form is the softmax's exact gradient)."""
+    from eventpretrain_tpu.ops.fused_attn_layer import _attention_heads
+    from eventpretrain_tpu_torch.ops.fused_attn_layer import (
+        attention_core_bwd_reference,
+    )
+
+    rng = np.random.default_rng(3 * l + c + h)
+    b, scale = 2, (c // h) ** -0.5
+    qj, qt = _packed_qkv(rng, b, l, c, jnp.float32, torch.float32)
+    doj, dot = _as(rng.normal(size=(b, l, c)), jnp.float32, torch.float32)
+
+    def heads(x):
+        return jnp.stack([jnp.concatenate(
+            _attention_heads(x[i], c, h, scale, jnp.float32), axis=-1)
+            for i in range(b)])
+
+    _, vjp = jax.vjp(heads, qj)
+    (want,) = vjp(doj)
+    got = attention_core_bwd_reference(qt.reshape(b * l, 3 * c),
+                                       dot.reshape(b * l, c), b, l, h, scale)
+    assert got.dtype == torch.float32 and got.shape == (b * l, 3 * c)
+    got = got.view(b, l, 3 * c)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _rel_check(got[..., i * c:(i + 1) * c], want[..., i * c:(i + 1) * c],
+                   torch.float32, name)
 
 
 def test_wrappers_never_fall_back_off_cpu():
