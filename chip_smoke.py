@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught but an ``sdpa``
+backend's refusal of a shape, which its timing records as null):
 
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for the f32 comparisons; every CUDA kernel of the
@@ -25,8 +26,13 @@ Phases (any failure exits non-zero; nothing is caught):
    the gate's corners at L=256 (forward D=192, both directions D=160), the
    backward run twice and equal bit for bit; K7 (``fused_mha``) forward
    and backward, bf16, at (8, 196, H16, D32), (8, 196, H12, D32),
-   (8, 49, H12, D64), (2, 1024, H4, D256), (4, 100, H3, D24) and
-   (2, 77, H3, D20); K8 (``voxelize_batch_scatter``) at B=8, E=30000,
+   (8, 49, H12, D64), (2, 1024, H4, D256), (4, 100, H3, D24),
+   (2, 77, H3, D20), the route boundaries (4, 256, H4, D64) and
+   (2, 257, H4, D64), the shared-memory corner (2, 256, H4, D192) (its
+   forward one-pass, its backward tiled) and contiguous q, k, v at
+   (8, 196, H16, D32), each direction on the route ``mha_route`` names,
+   the backward through autograd equal bit for bit to ``fused_mha_bwd``;
+   K8 (``voxelize_batch_scatter``) at B=8, E=30000,
    128x128x5 with strays, negative fractions and counts 0 and 1, against
    its plain version and K3's ``voxelize_batch``.
 3. Slice 1, serving: the ViT-S/16 classification hub (2 classes, N-Cars),
@@ -70,8 +76,8 @@ Phases (any failure exits non-zero; nothing is caught):
    against the plain path's; ``cli.finetune_semseg.main`` for one epoch.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
-   and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1, K4 0),
-   output and gradients against the plain product;
+   and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
+   one-pass route, K4 0), output and gradients against the plain product;
    ``voxelize_batch_scatter`` on a DSEC-shape batch (B=16, 200000 events,
    440x640x5; K8 1) against its plain version and K3. Then one epoch of
    the cls loop (B=64, 6 batches) and of the semseg loop (B=16, 4 batches)
@@ -82,11 +88,12 @@ Phases (any failure exits non-zero; nothing is caught):
    path's batch (B=64) as in phase 2, then timed beside it with its bound
    (and, for K4, one ``F.multi_head_attention_forward`` call); the
    attention core of K1/K4 alone, forward and backward, at its four
-   main-path shapes beside ``F.scaled_dot_product_attention`` on the same
-   q, k, v, with each of its kernels' registers and spills; the served
-   function's samples/s at B=64; K7 at the decoder's, ViT-S's and the
-   ViT-B encoder's attention shapes at B=64 beside
-   ``F.scaled_dot_product_attention``; K8 at DSEC's and N-Cars' shapes
+   main-path shapes, and K7 at the decoder's, ViT-S's and the ViT-B
+   encoder's attention shapes at B=64 (10 calls per event pair), each
+   beside ``F.scaled_dot_product_attention`` on the same q, k, v by
+   default and under each ``sdpa_kernel`` backend that takes the shape,
+   with each of their kernels' registers and spills; the served
+   function's samples/s at B=64; K8 at DSEC's and N-Cars' shapes
    beside K3's ``voxelize_batch``; the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
    B=16), the cls and dense pipelines' host time per batch and phase 5d's
@@ -223,7 +230,7 @@ def phase_environment() -> str:
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        PTXAS.update(ptxas_usage(name, text))
+        PTXAS.update(_build.ptxas_usage(name, text))
         for line in text.splitlines():
             if "error" in line:
                 log(f"  [{name}] {line.strip()}")
@@ -235,42 +242,6 @@ def phase_environment() -> str:
 
 
 PTXAS = {}  # "source:kernel" -> registers and spills (ptxas -v)
-
-
-def ptxas_usage(source: str, text: str) -> dict:
-    """Each kernel's registers, stack frame and spill bytes from ``nvcc
-    -Xptxas -v``: its 'Function properties for <mangled name>' line, the
-    stack and spill line after it, then its 'Used N registers' line. A
-    kernel is named by the length-prefixed identifier ending in '_kernel'
-    inside its mangled name, with its first integer template argument
-    ('ILi13E' -> '<13>') where it has one."""
-    import re
-
-    out, name, frame = {}, None, (0, 0, 0)
-    for line in text.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            mangled, name = m.group(1), None
-            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
-                ident = mangled[n.end():n.end() + int(n.group(1))]
-                if ident.endswith("_kernel"):
-                    arg = re.match(r"ILi(\d+)E",
-                                   mangled[n.end() + len(ident):])
-                    name = ident + (f"<{arg.group(1)}>" if arg else "")
-                    break
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            frame = tuple(int(x) for x in m.groups())
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name is not None:
-            out[f"{source}:{name}"] = {
-                "registers": int(m.group(1)), "stack_frame": frame[0],
-                "spill_stores": frame[1], "spill_loads": frame[2]}
-            name, frame = None, (0, 0, 0)
-    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -676,47 +647,82 @@ def phase_core_parity(dev) -> dict:
 # K7 at the MAE decoder's heads (decoder.py:101), ViT-S, the ViT-B
 # encoder's kept tokens, the gate's corner, a ragged L with a head_dim that
 # is not a multiple of 16, and one whose rows the kernel cannot read 16
-# bytes at a time (D % 8 != 0): (B, L, H, D)
-K7_PARITY_SHAPES = ((8, 196, 16, 32), (8, 196, 12, 32), (8, 49, 12, 64),
-                    (2, 1024, 4, 256), (4, 100, 3, 24), (2, 77, 3, 20))
+# bytes at a time (D % 8 != 0); then the routes' boundaries: the longest L
+# of the one-pass route and the shortest of the tiled one, the shared-memory
+# corner where the forward is one-pass and the backward tiled, and
+# contiguous separate q, k, v: (B, L, H, D, packed)
+K7_PARITY_SHAPES = ((8, 196, 16, 32, True), (8, 196, 12, 32, True),
+                    (8, 49, 12, 64, True), (2, 1024, 4, 256, True),
+                    (4, 100, 3, 24, True), (2, 77, 3, 20, True),
+                    (4, 256, 4, 64, True), (2, 257, 4, 64, True),
+                    (2, 256, 4, 192, True), (8, 196, 16, 32, False))
 K7_GRAD_NAMES = ("dq", "dk", "dv")
 
 
-def k7_args(gen, b, l, h, d, dev):
+def k7_args(gen, b, l, h, d, dev, packed=True):
     """q, k, v as the strided slices of one packed (B, L, 3, H, D) bf16
-    tensor, as ``Attention`` hands them over, and a ``dy``."""
-    qkv = torch.randn((b, l, 3, h, d), generator=gen).to(dev, torch.bfloat16)
+    tensor, as ``Attention`` hands them over (or, unless ``packed``, three
+    contiguous tensors), and a ``dy``."""
+    if packed:
+        qkv = torch.randn((b, l, 3, h, d), generator=gen).to(dev,
+                                                              torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn((b, l, h, d), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(3))
     dy = torch.randn((b, l, h, d), generator=gen).to(dev, torch.bfloat16)
-    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dy
+    return q, k, v, dy
 
 
 def phase_k7_parity(dev) -> dict:
     """K7 forward and backward (the same ``dy``) against their plain
     versions in bf16. Both round p, o, ds, dq, dk and dv at the same points;
-    their f32 sums run in other orders (and the kernel's row sum of exp is
-    taken online), so a rounded value may land one bf16 ulp apart: each
-    output within 2% of its scale, as K1/K4."""
+    their f32 sums run in other orders (and the tiled forward's row sum of
+    exp is taken online), so a rounded value may land one bf16 ulp apart:
+    each output within 2% of its scale, as K1/K4. The forward and the
+    backward each take the route ``mha_route`` names (read from the
+    per-route counts); the backward runs through autograd, from the
+    forward's saved statistics, and again through ``fused_mha_bwd``, and the
+    two must be equal bit for bit."""
     from eventpretrain_tpu_torch.ops.fused_mha import (
         fused_mha,
         fused_mha_bwd,
         fused_mha_bwd_reference,
         fused_mha_reference,
+        mha_route,
     )
 
     gen = torch.Generator().manual_seed(6)
     fwd, bwd = (0.0, 0.0), (0.0, SUBBLOCK_REL_TOL, 0.0)
-    for b, l, h, d in K7_PARITY_SHAPES:
-        q, k, v, dy = k7_args(gen, b, l, h, d, dev)
+    for b, l, h, d, packed in K7_PARITY_SHAPES:
+        q, k, v, dy = k7_args(gen, b, l, h, d, dev, packed)
         kw = dict(scale=d ** -0.5)
-        err, _, tol = hold("fused_mha", [b, l, h, d],
-                           fused_mha(q, k, v, **kw),
+        shape = [b, l, h, d]
+        want = (mha_route(l, d, (q, k, v), backward=False),
+                mha_route(l, d, (q, k, v, dy), backward=True))
+        before = route_counts()
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fused_mha(*leaves, **kw)
+        grads = torch.autograd.grad(out, leaves, dy)
+        counted = {k_: n - before[k_] for k_, n in route_counts().items()
+                   if n > before[k_]}
+        require(counted == {f"fused_mha[{want[0]}]": 1,
+                            f"fused_mha_bwd[{want[1]}]": 1},
+                f"fused_mha {shape}: routes counted {counted}, mha_route "
+                f"names {want}")
+        err, _, tol = hold("fused_mha", shape, out.detach(),
                            fused_mha_reference(q, k, v, **kw))
         fwd = (max(fwd[0], err), max(fwd[1], tol))
-        err, rel, _ = hold("fused_mha_bwd", [b, l, h, d],
-                           fused_mha_bwd(q, k, v, dy, **kw),
+        again = fused_mha_bwd(q, k, v, dy, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, a) for g, a in zip(grads, again)),
+                f"fused_mha_bwd {shape} does not repeat bit for bit")
+        err, rel, _ = hold("fused_mha_bwd", shape, grads,
                            fused_mha_bwd_reference(q, k, v, dy, **kw),
                            K7_GRAD_NAMES)
         bwd = (max(bwd[0], err), SUBBLOCK_REL_TOL, max(bwd[2], rel))
+        log(f"fused_mha {shape} {'packed' if packed else 'contiguous'}: "
+            f"routes {want[0]} / {want[1]}, backward repeated bit for bit")
     return {"fused_mha": fwd, "fused_mha_bwd": bwd}
 
 
@@ -833,12 +839,29 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
+    from eventpretrain_tpu_torch.ops.fused_mha import fused_mha
+
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    for by_route in (fused_mha.launches_by_route,
+                     fused_mha.launches_bwd_by_route):
+        for route in by_route:
+            by_route[route] = 0
 
 
 def read_counts() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def route_counts() -> dict:
+    """K7's launches by the route each took, ``fused_mha[onepass]`` ..."""
+    from eventpretrain_tpu_torch.ops.fused_mha import fused_mha
+
+    return {f"{name}[{route}]": n
+            for name, by_route in (
+                ("fused_mha", fused_mha.launches_by_route),
+                ("fused_mha_bwd", fused_mha.launches_bwd_by_route))
+            for route, n in by_route.items()}
 
 
 def phase_main_path(dev, hub, infer, inputs) -> dict:
@@ -1558,6 +1581,7 @@ def phase_semseg_cli(dev) -> None:
 # the MAE decoder's width and heads at the rec batch (decoder.py:101)
 K7_PATH_SHAPE = (64, 196, 512)
 K7_PATH_HEADS = 16
+K7_PATH_ROUTES = {}  # the K7 path's launches by route (phase 5d)
 
 
 def phase_k7_path(dev) -> dict:
@@ -1588,18 +1612,24 @@ def phase_k7_path(dev) -> dict:
     reset_counts()
     got = run(attn)
     torch.cuda.synchronize()
-    launches = read_counts()
+    launches, routes = read_counts(), route_counts()
     want = run(plain)
     require(read_counts() == launches, "the plain product launched a kernel")
     names = ("y", "dx", *(n for n, _ in attn.named_parameters()))
     hold("Attention(use_fused_kernel=True)", [b, l, c, K7_PATH_HEADS], got,
          want, names)
     log(f"K7 path: Attention({c}, {K7_PATH_HEADS}, use_fused_kernel=True) "
-        f"forward and backward on {(b, l, c)} bf16; launches {launches}")
+        f"forward and backward on {(b, l, c)} bf16; launches {launches}; "
+        f"routes {routes}")
     require(launches["fused_mha"] == 1 and launches["fused_mha_bwd"] == 1,
             "the K7 path did not launch K7 once forward and once backward")
     require(sum(launches.values()) == 2,
             "the K7 path launched another kernel (K4 must stay off)")
+    require(routes == {"fused_mha[onepass]": 1, "fused_mha[tiled]": 0,
+                       "fused_mha_bwd[onepass]": 1,
+                       "fused_mha_bwd[tiled]": 0},
+            "the K7 path did not take the one-pass route both ways")
+    K7_PATH_ROUTES.update(routes)
     return {"k7_attention": launches}
 
 
@@ -1953,21 +1983,69 @@ def k7_work(b, l, h, d, backward=False) -> tuple[float, float]:
     return 4 * b * h * l * l * d, 8 * b * h * l * d
 
 
+# calls per event pair when the attention core and K7 are timed: their
+# forwards are shorter than their wrappers' host work at some shapes
+CORE_CALLS = 10
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_times(qh, kh, vh, doh, scale, backward) -> dict:
+    """``F.scaled_dot_product_attention`` on (B, H, L, D) q, k, v (forward;
+    forward-graph backward for ``doh``), ``CORE_CALLS`` calls per event
+    pair: the default call's ms and the backend it picks, then each
+    backend's ms under ``torch.nn.attention.sdpa_kernel`` (None where the
+    backend refuses the shape)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def timed():
+        if not backward:
+            return cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), calls=CORE_CALLS)
+        q_, k_, v_ = (t.detach().requires_grad_() for t in (qh, kh, vh))
+        out = F.scaled_dot_product_attention(q_, k_, v_, scale=scale)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, (q_, k_, v_), doh, retain_graph=True), calls=CORE_CALLS)
+
+    times = {"default": timed(), "default_backend": None}
+    if hasattr(torch, "_fused_sdp_choice"):
+        times["default_backend"] = SDPBackend(torch._fused_sdp_choice(
+            qh, kh, vh, scale=scale)).name
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                times[name] = timed()
+        except RuntimeError as err:  # the backend does not take the shape
+            log(f"  sdpa {name} refuses {list(qh.shape)}: "
+                f"{str(err).splitlines()[0][:120]}")
+            times[name] = None
+    return times
+
+
+def sdpa_text(times: dict) -> str:
+    return ", ".join(
+        [f"sdpa {times['default']:.4g} ms ({times['default_backend']})"]
+        + [f"{n.split('_')[0].lower()} "
+           + ("refused" if times[n] is None else f"{times[n]:.4g}")
+           for n in SDPA_BACKENDS])
+
+
 def k7_rows(dev, errs, total, launches, smi) -> list:
     """K7 forward and backward at the MAE decoder's, ViT-S's and the ViT-B
     encoder's attention shapes at B=64: each held against its plain version
-    on its inputs, then timed beside it, beside
-    ``F.scaled_dot_product_attention`` on the same values in its own
-    (B, H, L, D) layout (forward; forward-graph backward), with its
-    bound."""
-    import torch.nn.functional as F
-
+    on its inputs, then timed beside it, ``CORE_CALLS`` calls per event pair
+    as the attention core, and beside ``F.scaled_dot_product_attention`` on
+    the same values in its own (B, H, L, D) layout (forward; forward-graph
+    backward) by default and under each backend, with its bound and the
+    route each call took. The forward is timed through ``fused_mha``, the
+    backward from the forward's saved statistics."""
     from eventpretrain_tpu_torch.ops import fused_mha as km
 
     gen = torch.Generator().manual_seed(13)
     rows = []
     for name, backward, replaces in (
-            ("fused_mha", False, "eventpretrain_tpu/ops/pallas_attention.py:91"),
+            ("fused_mha", False,
+             "eventpretrain_tpu/ops/pallas_attention.py:91"),
             ("fused_mha_bwd", True,
              "eventpretrain_tpu/ops/pallas_attention.py:104")):
         per_shape = []
@@ -1975,11 +2053,11 @@ def k7_rows(dev, errs, total, launches, smi) -> list:
             q, k, v, dy = k7_args(gen, b, l, h, d, dev)
             kw = dict(scale=d ** -0.5)
             if backward:
-                _, stats = km._forward_cuda(q, k, v, kw["scale"])
+                _, stats, _ = km._forward_cuda(q, k, v, kw["scale"])
 
                 def fn():
-                    return km._backward_cuda(q, k, v, stats, dy,
-                                             kw["scale"])
+                    return km._backward_cuda(q, k, v, dy, kw["scale"],
+                                             stats)[0]
 
                 def plain():
                     return km.fused_mha_bwd_reference(q, k, v, dy, **kw)
@@ -1990,57 +2068,55 @@ def k7_rows(dev, errs, total, launches, smi) -> list:
                 def plain():
                     return km.fused_mha_reference(q, k, v, **kw)
             shape = [b, l, h, d]
+            route = km.mha_route(l, d, (q, k, v, dy) if backward
+                                 else (q, k, v), backward)
             err, rel, tol = hold(name, shape, fn(), plain(),
                                  K7_GRAD_NAMES if backward else ("y",))
             prev = errs[name]
             errs[name] = ((max(prev[0], err), SUBBLOCK_REL_TOL,
                            max(prev[2], rel)) if backward
                           else (max(prev[0], err), max(prev[1], tol)))
-            ms, plain_ms = time_pair(fn, plain)
-            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(
-                backward) for t in (q, k, v))
-            if backward:
-                out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
-                doh = dy.transpose(1, 2).contiguous()
-                lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                    out, (qh, kh, vh), doh, retain_graph=True))
-            else:
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, **kw))
+            ms, plain_ms = time_pair(fn, plain, calls=CORE_CALLS)
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            sdpa = sdpa_times(qh, kh, vh, dy.transpose(1, 2).contiguous(),
+                              kw["scale"], backward)
             flops, nbytes = k7_work(b, l, h, d, backward)
             bms, bby = bound(flops, nbytes)
             per_shape.append({
-                "shape": shape, "max_abs_err": err, "max_rel_err": rel,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                "bound_by": bby, "flops": flops, "bytes": nbytes,
-                "library_ms": lib_ms})
-            log(f"time {name} {shape}: kernel {ms:.4g} ms, plain "
-                f"{plain_ms:.4g} ms, sdpa {lib_ms:.4g} ms, bound {bms:.4g} "
-                f"ms ({bby}) ({smi})")
+                "shape": shape, "k7_route": route, "max_abs_err": err,
+                "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": bby, "flops": flops,
+                "bytes": nbytes, "library_ms": sdpa["default"],
+                "sdpa": sdpa})
+            log(f"time {name} {shape} ({route}): kernel {ms:.4g} ms, plain "
+                f"{plain_ms:.4g} ms, {sdpa_text(sdpa)}, bound {bms:.4g} ms "
+                f"({bby}) ({smi})")
         err, tol = errs[name][:2]
         head = per_shape[0]
+        csrc = "eventpretrain_tpu_torch/csrc/"
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "eventpretrain_tpu_torch/csrc/mha.cu", "also": [],
+            "name": name, "route": "cuda", "source": csrc + "mha.cu",
+            "also": [csrc + "attention_core.cuh", csrc + "mma.cuh"],
             "replaces": replaces, "launches": total[name],
             "launches_by_path": {p: launches[p][name] for p in launches},
+            "launches_by_k7_route": {
+                r: n for r, n in K7_PATH_ROUTES.items()
+                if r.startswith(name + "[")},
             "max_abs_err": err, "tol": tol,
             **({"max_rel_err": errs[name][2],
                 "tol_is": "max_rel_err, of each gradient's scale"}
                if backward else {}),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "shape", "flops",
-                                    "bytes")},
+                                    "library_ms", "shape", "flops", "bytes",
+                                    "k7_route", "sdpa")},
+            "calls_per_event_pair": CORE_CALLS,
             "library": "F.scaled_dot_product_attention"
                        + (" + autograd.grad" if backward else ""),
+            "ptxas": {k: v for k, v in PTXAS.items()
+                      if k.startswith("mha:")},
             "shapes": per_shape[1:],
         })
     return rows
-
-
-# calls per event pair when the attention core is timed: its forward is
-# shorter than its wrapper's host work at some shapes
-CORE_CALLS = 10
 
 
 def core_rows(dev, errs, total, smi) -> list:
@@ -2048,13 +2124,11 @@ def core_rows(dev, errs, total, smi) -> list:
     paths' four shapes: held against the plain attention core on its
     inputs, then timed beside it and beside ``F.scaled_dot_product_attention``
     on the same q, k, v in its own (B, H, L, D) layout (forward;
-    forward-graph backward), with K7's bound (the same work). Each is
-    timed over ``CORE_CALLS`` calls in a row (the kernel rows over one call
-    each, as before). Its launches are those of the K1 and K4 calls on the
-    main paths (one core launch each), and each kernel's registers and
-    spills are ptxas's."""
-    import torch.nn.functional as F
-
+    forward-graph backward; by default and under each backend), with K7's
+    bound (the same work). Each is timed over ``CORE_CALLS`` calls in a row
+    (K7's rows too; the other kernel rows over one call each). Its launches
+    are those of the K1 and K4 calls on the main paths (one core launch
+    each), and each kernel's registers and spills are ptxas's."""
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
 
     gen = torch.Generator().manual_seed(16)
@@ -2086,28 +2160,20 @@ def core_rows(dev, errs, total, smi) -> list:
             else:
                 err, rel, _ = hold(name, shape, fn(), plain())
             ms, plain_ms = time_pair(fn, plain, calls=CORE_CALLS)
-            qh, kh, vh = (t.contiguous().requires_grad_(backward)
-                          for t in qkv.view(b, l, 3, h, d).permute(
-                              2, 0, 3, 1, 4))
-            if backward:
-                out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-                doh = do.view(b, l, h, d).transpose(1, 2).contiguous()
-                lib_ms = cuda_ms(lambda: torch.autograd.grad(
-                    out, (qh, kh, vh), doh, retain_graph=True),
-                    calls=CORE_CALLS)
-            else:
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, scale=scale), calls=CORE_CALLS)
+            qh, kh, vh = (t.contiguous() for t in qkv.view(
+                b, l, 3, h, d).permute(2, 0, 3, 1, 4))
+            sdpa = sdpa_times(qh, kh, vh, do.view(b, l, h, d).transpose(
+                1, 2).contiguous(), scale, backward)
             flops, nbytes = k7_work(b, l, h, d, backward)
             bms, bby = bound(flops, nbytes)
             per_shape.append({
                 "shape": shape, "max_abs_err": err, "max_rel_err": rel,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": bby, "flops": flops, "bytes": nbytes,
-                "library_ms": lib_ms})
+                "library_ms": sdpa["default"], "sdpa": sdpa})
             log(f"time {name} {shape}: kernel {ms:.4g} ms, plain "
-                f"{plain_ms:.4g} ms, sdpa {lib_ms:.4g} ms, bound {bms:.4g} "
-                f"ms ({bby}) ({smi})")
+                f"{plain_ms:.4g} ms, {sdpa_text(sdpa)}, bound {bms:.4g} ms "
+                f"({bby}) ({smi})")
         layers = (("fused_ln_attn_layer_bwd", "fused_attn_layer_bwd")
                   if backward else ("fused_ln_attn_layer", "fused_attn_layer"))
         head = per_shape[0]
@@ -2120,7 +2186,9 @@ def core_rows(dev, errs, total, smi) -> list:
             "launches": sum(total[k] for k in layers),
             "max_abs_err": errs[name][0], "tol": errs[name][1],
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "shape", "flops", "bytes")},
+                                    "library_ms", "shape", "flops", "bytes",
+                                    "sdpa")},
+            "calls_per_event_pair": CORE_CALLS,
             "library": "F.scaled_dot_product_attention"
                        + (" + autograd.grad" if backward else ""),
             "ptxas": {k: v for k, v in PTXAS.items()

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +32,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # a strided (B, L, H, D) operand of csrc/mha.cu: pointer and four strides
 _STRIDED = [_P, _L, _L, _L, _L]
+# a (B, L, H, D) operand of csrc/mha.cu's one-pass route (onepass::Heads):
+# pointer and its batch, row and head strides, columns contiguous
+_HEADS = [_P, _L, _L, _L]
 
 # Every exported launcher, with its C argument types (all return int).
 SIGNATURES: dict[str, dict[str, list]] = {
@@ -54,6 +58,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "colsum_bf16": [_P, _P, _P, _I, _I, _I, _P],
     },
     "mha": {
+        "mha_onepass_fwd_bf16": [*_HEADS * 4, _P, _I, _I, _I, _I, _F, _P],
+        "mha_onepass_bwd_bf16": [*_HEADS * 7, _P, _I, _I, _I, _I, _F, _P],
         "mha_fwd_bf16": [*_STRIDED * 3, _P, _P, _I, _I, _I, _I, _F, _P],
         "mha_bwd_bf16": [*_STRIDED * 4, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _F, _P],
@@ -160,3 +166,37 @@ def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{fn}: CUDA error {code} ({msg})")
+
+
+def ptxas_usage(source: str, text: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes from ``nvcc
+    -Xptxas -v``: its 'Function properties for <mangled name>' line, the
+    stack and spill line after it, then its 'Used N registers' line. A
+    kernel is named by the length-prefixed identifier ending in '_kernel'
+    inside its mangled name, with its first integer template argument
+    ('ILi13E' -> '<13>') where it has one."""
+    out, name, frame = {}, None, (0, 0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            mangled, name = m.group(1), None
+            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                ident = mangled[n.end():n.end() + int(n.group(1))]
+                if ident.endswith("_kernel"):
+                    arg = re.match(r"ILi(\d+)E",
+                                   mangled[n.end() + len(ident):])
+                    name = ident + (f"<{arg.group(1)}>" if arg else "")
+                    break
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[f"{source}:{name}"] = {
+                "registers": int(m.group(1)), "stack_frame": frame[0],
+                "spill_stores": frame[1], "spill_loads": frame[2]}
+            name, frame = None, (0, 0, 0)
+    return out

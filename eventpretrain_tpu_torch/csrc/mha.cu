@@ -12,40 +12,60 @@
 // scalar steps use the _rn intrinsics, so nothing is contracted into an FMA
 // that the plain version rounds in two steps.
 //
-// The TPU kernel keeps one head's whole (L, L) f32 score tile in VMEM; at
-// L = 1024 that is 4 MB, and a Hopper block may use 227 KB of shared memory.
-// So nothing of size L x L is ever stored. Every kernel works on 64-row tiles
-// (4 warps of 16 rows), zero-padded in shared memory to L and to D rounded up
-// to 16, with the key tail masked, so it takes the whole JAX gate (L <= 1024,
-// D <= 256, ragged L, any D):
-//   forward  one block per (query tile, head, sample). Pass 1 runs over the
-//            key tiles for the row max and the row sum (online: the sum is
-//            rescaled when the max grows). Pass 2 recomputes s and
-//            accumulates the normalised, rounded p times v, 64 output columns
-//            at a time (s is recomputed per 64 columns when D > 64, which
-//            keeps the accumulators in registers at D = 256). It saves the
-//            row max and sum, (2, B, H, L) f32, for the backward.
-//   dq       one block per (query tile, head, sample): pass A over the key
-//            tiles for rowsum(dp * p) (saved for dk/dv), pass B accumulates
-//            dq = ds.k.
-//   dk, dv   one block per (key tile, head, sample), looping over the query
-//            tiles; then p and ds are transposed products (s^T = k.q^T).
-// No sum crosses blocks, so there are no atomics and the result repeats bit
-// for bit. Operands are read through their strides (q, k and v are slices of
-// the packed qkv projection): 16 bytes at a time where the rows allow it (D a
-// multiple of 8, 16-byte aligned rows), one bf16 at a time otherwise.
+// Two routes, each its own entry points; ops/fused_mha.py (mha_route) picks
+// one in Python from the shape and the operands.
 //
-// What bounds it on this card: at the shapes of the repo (L <= 196, D <= 64)
-// the work per (sample, head) is small (4*L*L*D = 4.9 MFLOP at L=196, D=32),
-// so the kernels are bound by latency: the scalar strided tile loads, the
-// two block barriers per tile and the recomputed score products (the forward
-// computes q.k^T twice, the backward four times), not by the tensor cores'
-// rate or by device memory. A faster version would stage tiles with cp.async
-// or TMA and keep the statistics pass out of the forward.
+//   one-pass  (mha_onepass_fwd_bf16, mha_onepass_bwd_bf16) where L <= 256,
+//             D % 8 == 0, every operand's rows can be read 16 bytes at a
+//             time and the shared memory fits: the shapes of every hub of
+//             the repo. Thin kernels resolve K7's operand descriptors
+//             (Heads) at their (sample, head) and run the bodies of
+//             attention_core.cuh, the same bodies the K1/K4 attention core
+//             runs over its packed rows: q.k^T once, whole score rows in a
+//             warp's registers, the exact softmax over the final max, a dq
+//             and a dk/dv kernel. The forward also writes each row's (max,
+//             sum) for the tiled backward. attention_core.cuh says what
+//             bounds them.
+//   tiled     (mha_fwd_bf16, mha_bwd_bf16) for the rest of the JAX gate (L
+//             <= 1024, D <= 256): L from 257 to 1024, where a warp cannot
+//             hold its score rows in registers; D % 8 != 0 (as D = 20);
+//             unaligned views; and the widest heads near L = 256, where the
+//             one-pass shared memory does not fit (at L = 256: the forward
+//             past D = 192, the backward past D = 160). No path of the repo
+//             takes it. Nothing of size L x L is stored (the TPU kernel
+//             keeps a head's (L, L) f32 scores in VMEM: 4 MB at L = 1024,
+//             against the 227 KB of shared memory a Hopper block may use).
+//             Every kernel works on 64-row tiles (4 warps of 16 rows),
+//             zero-padded in shared memory to L and to D rounded up to 16,
+//             with the key tail masked:
+//     forward  one block per (query tile, head, sample). Pass 1 runs over
+//              the key tiles for the row max and the row sum (online: the
+//              sum is rescaled when the max grows, so it may differ from
+//              JAX's sum over the final max in its last bits). Pass 2
+//              recomputes s and accumulates the normalised, rounded p times
+//              v, 64 output columns at a time (s is recomputed per 64
+//              columns when D > 64). It saves the row max and sum, (2, B, H,
+//              L) f32, for the backward.
+//     dq       one block per (query tile, head, sample): pass A over the key
+//              tiles for rowsum(dp * p) (saved for dk/dv), pass B
+//              accumulates dq = ds.k.
+//     dk, dv   one block per (key tile, head, sample), looping over the
+//              query tiles; p and ds are transposed products (s^T = k.q^T).
+//   The tiled backward reads the forward's saved (max, sum) from either
+//   route. Operands are read through their strides: 16 bytes at a time
+//   where the rows allow it (D a multiple of 8, 16-byte aligned rows), one
+//   bf16 at a time otherwise. What bounds it on this card: latency, not the
+//   tensor cores' rate or device memory: the forward computes q.k^T twice,
+//   the backward s and dp three times each; each key tile is loaded
+//   synchronously into registers and stored, behind two block barriers;
+//   every score takes __fdiv_rn.
+//
+// Neither route sums across blocks: there are no atomics, and the results
+// repeat bit for bit.
 #include <math.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "attention_core.cuh"
 
 namespace {
 
@@ -447,9 +467,159 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int round16(int d) { return (d + 15) / 16 * 16; }
+// ---- the one-pass route: thin kernels over attention_core.cuh's bodies
+
+// K7's operand descriptor: a (B, L, H, D) bf16 tensor with unit column
+// stride, element (b, l, h, d) at p[b * sb + l * sl + h * sh + d].
+struct Heads {
+  bf16* p;
+  long long sb, sl, sh;
+
+  // row 0, column 0 of head h of sample b
+  __device__ __forceinline__ bf16* head(int b, int h) const {
+    return p + b * sb + h * sh;
+  }
+};
+
+struct OnepassFwd {
+  Heads q, k, v, o;
+  float* stats;  // (2, B, H, L): each row's max and sum of exp
+  int L, H, D;
+  float scale;
+};
+
+struct OnepassBwd {
+  Heads q, k, v, dout, dq, dk, dv;
+  float* stats;  // (3, B, H, L) scratch: each row's max, sum and dd
+  int L, H, D;
+  float scale;
+};
+
+// this head's row 0 of the first plane of a (planes, B, H, L) f32 array
+__device__ __forceinline__ long long stats_row(int b, int h, int H, int L) {
+  return (static_cast<long long>(b) * H + h) * L;
+}
+
+__device__ __forceinline__ long long stats_plane(int H, int L) {
+  return static_cast<long long>(gridDim.z) * H * L;
+}
+
+// KT as attention.cu's: 3 blocks an SM, one at KT = 16
+template <int KT>
+__global__ void __launch_bounds__(onepass::kThreads, KT > 13 ? 1 : 3)
+    mha_onepass_fwd_kernel(const OnepassFwd a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  onepass::forward_block<KT>(
+      {a.q.head(b, h), a.q.sl}, {a.k.head(b, h), a.k.sl},
+      {a.v.head(b, h), a.v.sl},
+      [=] { return onepass::Out{a.o.head(b, h), a.o.sl}; },
+      [=] {
+        return onepass::Stats{a.stats + stats_row(b, h, a.H, a.L),
+                              stats_plane(a.H, a.L)};
+      },
+      a.L, a.D, a.scale);
+}
+
+template <int KT>
+__global__ void __launch_bounds__(onepass::kThreads)
+    mha_onepass_dq_kernel(const OnepassBwd a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  onepass::dq_block<KT>(
+      {a.q.head(b, h), a.q.sl}, {a.k.head(b, h), a.k.sl},
+      {a.v.head(b, h), a.v.sl}, {a.dout.head(b, h), a.dout.sl},
+      {a.dq.head(b, h), a.dq.sl}, a.stats + stats_row(b, h, a.H, a.L),
+      stats_plane(a.H, a.L), a.L, a.D, a.scale);
+}
+
+__global__ void __launch_bounds__(onepass::kThreads)
+    mha_onepass_dkdv_kernel(const OnepassBwd a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  onepass::dkdv_block(
+      {a.q.head(b, h), a.q.sl}, {a.k.head(b, h), a.k.sl},
+      {a.v.head(b, h), a.v.sl}, {a.dout.head(b, h), a.dout.sl},
+      {a.dk.head(b, h), a.dk.sl}, {a.dv.head(b, h), a.dv.sl},
+      a.stats + stats_row(b, h, a.H, a.L), stats_plane(a.H, a.L), a.L, a.D,
+      a.scale);
+}
+
+Heads heads(const void* p, long long sb, long long sl, long long sh) {
+  return Heads{static_cast<bf16*>(const_cast<void*>(p)), sb, sl, sh};
+}
 
 }  // namespace
+
+// The one-pass route. q, k, v: (B, L, H, D) bf16, each a pointer and its
+// batch, row and head element strides (columns contiguous); out the same
+// for o; stats (2, B, H, L) f32 receives each row's max and sum of exp.
+// Requires L <= 256, D % 8 == 0, strides that are multiples of 8, 16-byte
+// aligned pointers and onepass::fwd_smem_bytes(L, D) within the block's
+// shared memory (ops/fused_mha.py mha_route checks).
+extern "C" int mha_onepass_fwd_bf16(
+    const void* q, long long qsb, long long qsl, long long qsh, const void* k,
+    long long ksb, long long ksl, long long ksh, const void* v, long long vsb,
+    long long vsl, long long vsh, void* out, long long osb, long long osl,
+    long long osh, void* stats, int B, int L, int H, int D, float scale,
+    void* stream) {
+  if (B == 0 || L == 0 || H == 0) return 0;
+  if (L > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const OnepassFwd a{heads(q, qsb, qsl, qsh), heads(k, ksb, ksl, ksh),
+                     heads(v, vsb, vsl, vsh), heads(out, osb, osl, osh),
+                     static_cast<float*>(stats), L, H, D, scale};
+  const int smem = static_cast<int>(onepass::fwd_smem_bytes(L, D));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return onepass::with_key_tiles(L, [&](auto kt) {
+    constexpr int KT = decltype(kt)::value;
+    cudaError_t err = cudaFuncSetAttribute(
+        mha_onepass_fwd_kernel<KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((L + onepass::kRows - 1) / onepass::kRows, H, B);
+    mha_onepass_fwd_kernel<KT><<<grid, onepass::kThreads, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The one-pass backward: q, k, v, dout (the gradient of o) and dq, dk, dv,
+// each as in mha_onepass_fwd_bf16; stats (3, B, H, L) f32 scratch, written
+// by the dq kernel and read by the dk/dv kernel after it on the same
+// stream. The same requirements, with onepass::bwd_smem_bytes(L, D).
+extern "C" int mha_onepass_bwd_bf16(
+    const void* q, long long qsb, long long qsl, long long qsh, const void* k,
+    long long ksb, long long ksl, long long ksh, const void* v, long long vsb,
+    long long vsl, long long vsh, const void* dout, long long dsb,
+    long long dsl, long long dsh, void* dq, long long dqsb, long long dqsl,
+    long long dqsh, void* dk, long long dksb, long long dksl, long long dksh,
+    void* dv, long long dvsb, long long dvsl, long long dvsh, void* stats,
+    int B, int L, int H, int D, float scale, void* stream) {
+  if (B == 0 || L == 0 || H == 0) return 0;
+  if (L > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const OnepassBwd a{heads(q, qsb, qsl, qsh),     heads(k, ksb, ksl, ksh),
+                     heads(v, vsb, vsl, vsh),     heads(dout, dsb, dsl, dsh),
+                     heads(dq, dqsb, dqsl, dqsh), heads(dk, dksb, dksl, dksh),
+                     heads(dv, dvsb, dvsl, dvsh), static_cast<float*>(stats),
+                     L, H, D, scale};
+  const int smem = static_cast<int>(onepass::bwd_smem_bytes(L, D));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((L + onepass::kRows - 1) / onepass::kRows, H, B);
+  const int code = onepass::with_key_tiles(L, [&](auto kt) {
+    constexpr int KT = decltype(kt)::value;
+    cudaError_t err = cudaFuncSetAttribute(
+        mha_onepass_dq_kernel<KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mha_onepass_dq_kernel<KT><<<grid, onepass::kThreads, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (code != 0) return code;
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_onepass_dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_onepass_dkdv_kernel<<<grid, onepass::kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the tiled route
 
 extern "C" long long mha_fwd_smem_bytes(int D) {
   const int ld = round16(D) + kPad;

@@ -1,7 +1,9 @@
-// Tensor-core building blocks shared by the attention kernels (mha.cu for
-// K7; attention.cu and attention_bwd.cu for the attention core of K1/K4):
-// the bf16 mma.sync.m16n8k16 product, its fragment loaders, the quad
-// reductions over an accumulator row, ldmatrix, and 16-byte cp.async.
+// Tensor-core building blocks shared by the attention kernels (the one-pass
+// bodies of attention_core.cuh, which the K1/K4 attention core and K7's
+// one-pass route wrap; mha.cu, K7's tiled kernels): the bf16
+// mma.sync.m16n8k16 product, its fragment loaders, the quad reductions over
+// an accumulator row, the softmax of a warp's score rows, ldmatrix, and
+// 16-byte cp.async.
 //
 // Fragments of mma.m16n8k16 (PTX ISA, "Matrix Fragments for
 // mma.m16n8k16"), lane = 4 * g + t:
@@ -15,6 +17,10 @@
 #include <stdint.h>
 
 #include "common.cuh"
+
+__host__ __device__ constexpr int round16(int n) {
+  return (n + 15) / 16 * 16;
+}
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
