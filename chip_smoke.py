@@ -9,7 +9,8 @@ backend's refusal of a shape, which its timing records as null):
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for the f32 comparisons; every CUDA kernel of the
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
-   at once).
+   at once), each kernel's registers and spills printed, and no GEMM
+   instantiation allowed to spill.
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the
    tiled splat (K6) at B=2 of DSEC's shape, both entry points, with and
@@ -19,7 +20,13 @@ backend's refusal of a shape, which its timing records as null):
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
    (8, 196, 512); their backward kernels with the same ``dy`` at K1
    (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12, K2 C=768,
-   512, 384, K4 C=384, 768 and K5 C=384, 512; the attention core of K1/K4
+   512, 384, K4 C=384, 768 and K5 C=384, 512; their GEMM alone
+   (csrc/ln_gemm.cu) against its plain version ``gemm_reference``: every
+   launch of K1/K4 at (64, 196, 384), K2/K5 at (64, 196, 512) and K2 at
+   (64, 49, 768), forward and backward, and every layout and epilogue at a
+   ragged M or token count, each weight gradient run twice and equal bit
+   for bit, and the LayerNorm rows those GEMMs read (``ln_rows``) against
+   ``ln_forward``; the attention core of K1/K4
    alone (``_attention``, ``_attention_bwd``) against the plain attention
    core at (64, 196, H12, D32), (64, 49, H12, D64), (64, 196, H16, D32),
    (16, 196, H12, D64), ragged (4, 100, H16, D8) and (2, 17, H1, D128), and
@@ -86,7 +93,10 @@ backend's refusal of a shape, which its timing records as null):
 6. Timing (CUDA events, median of 20 after warm-up; plain, kernel, kernel,
    plain): each kernel, first held against its plain version at the main
    path's batch (B=64) as in phase 2, then timed beside it with its bound
-   (and, for K4, one ``F.multi_head_attention_forward`` call); the
+   (and, for K4, one ``F.multi_head_attention_forward`` call), and under
+   each K1/K2/K4/K5 row its GEMM launches at the row's first shape, each
+   timed from a CUDA graph of 10 calls beside one ``torch.matmul`` in the
+   same layout, with its bound (the ``gemms`` sub-table); the
    attention core of K1/K4 alone, forward and backward, at its four
    main-path shapes, and K7 at the decoder's, ViT-S's and the ViT-B
    encoder's attention shapes at B=64 (10 calls per event pair), each
@@ -112,6 +122,7 @@ import copy
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -190,6 +201,24 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3, calls: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10, reps: int = REPS) -> float:
+    """Median device ms of one call of ``fn`` replayed from a CUDA graph of
+    ``calls`` calls: the card's time alone, without the wrapper's host work
+    (a GEMM's wrapper takes tens of microseconds of host time, as long as
+    the smaller products themselves)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    try:
+        return cuda_ms(graph.replay, reps=reps) / calls
+    finally:
+        del graph
+
+
 def host_ms(fn, reps: int = REPS, warmup: int = 3) -> list[float]:
     """Host-clock times (ms) of ``reps`` synchronised calls, sorted."""
     for _ in range(warmup):
@@ -237,7 +266,17 @@ def phase_environment() -> str:
     for kernel, use in sorted(PTXAS.items()):
         log(f"  ptxas {kernel}: {use['registers']} registers, "
             f"{use['stack_frame']} B stack frame, {use['spill_stores']} B "
-            f"spill stores, {use['spill_loads']} B spill loads")
+            f"spill stores, {use['spill_loads']} B spill loads, "
+            f"{use['static_smem']} B static shared memory")
+    if "ln_gemm" in logs:
+        # the GEMM's dynamic shared memory (its operand ring) is set at
+        # launch: csrc/ln_gemm.cu SMEM_BYTES, 6 x 32 KB + 1 KB of alignment
+        gemm = {k: u for k, u in PTXAS.items() if k.startswith("ln_gemm:")}
+        require(any("gemm_kernel" in k for k in gemm),
+                "ptxas reported no GEMM kernel")
+        for kernel, use in gemm.items():
+            require(use["spill_stores"] == use["spill_loads"] == 0,
+                    f"{kernel} spills ({use})")
     return smi
 
 
@@ -519,6 +558,7 @@ def phase_kernel_parity(dev) -> dict:
             prev = errs.get(name, (0.0, 0.0))
             errs[name] = (max(prev[0], err), max(prev[1], tol))
     errs.update(phase_backward_parity(dev))
+    errs["gemm"] = phase_gemm_parity(dev)
     errs.update(phase_core_parity(dev))
     errs.update(phase_k7_parity(dev))
     errs["voxelize_batch_scatter"] = phase_k8_parity(dev)
@@ -581,6 +621,159 @@ def phase_backward_parity(dev) -> dict:
         errs[name] = (max(prev[0], worst_abs), SUBBLOCK_REL_TOL,
                       max(prev[2], worst))
     return errs
+
+
+# The GEMM under K1/K2/K4/K5 (csrc/ln_gemm.cu) alone, against its plain
+# version (ops/common.py::gemm_reference): each launch of the sub-blocks on
+# the main paths at B=64 (ViT-S C=384 for K1/K4, the decoder's C=512 for
+# K2/K5, the ViT-B encoder's C=768 at L=49 for K2's weight gradients), and
+# every layout and epilogue at a ragged M (forward, dgrad) or a ragged token
+# count (wgrad, split and unsplit). bf16 outputs rounded at the same points
+# as the plain version, f32 sums in another order: 2% of each output's scale,
+# as the sub-blocks are held. Each weight gradient runs twice and must come
+# out equal bit for bit.
+GEMM_PARITY_BLOCKS = (("K1", 64, 196, 384), ("K4", 64, 196, 384),
+                      ("K2", 64, 196, 512), ("K5", 64, 196, 512),
+                      ("K2", 64, 49, 768))
+GEMM_RAGGED = ((0, 3001, 384, 512), (1, 3001, 384, 512), (2, 384, 256, 3001),
+               (2, 2048, 2304, 1000))
+LN_ROWS_ATOL = 1e-5
+
+
+def gemm_launches(kind: str, b: int, l: int, c: int, backward: bool
+                  ) -> list:
+    """``(name, layout, M, N, K, epilogue, gelu_out)`` of each GEMM launch
+    of one sub-block call, in launch order (ops/fused_attn_layer.py,
+    ops/fused_mlp.py; a weight gradient's K is its token count)."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    f, d, w = cm.LAYOUT_FORWARD, cm.LAYOUT_DGRAD, cm.LAYOUT_WGRAD
+    m, ln = b * l, kind in ("K1", "K2")
+    out_epi = cm.EPI_BIAS_RESIDUAL if ln else cm.EPI_BIAS
+    du_epi = cm.EPI_F32 if ln else cm.EPI_BIAS
+    if kind in ("K1", "K4"):
+        if not backward:
+            return [("qkv", f, m, 3 * c, c, cm.EPI_BIAS, False),
+                    ("proj", f, m, c, c, out_epi, False)]
+        return [("dWo", w, c, c, m, cm.EPI_BIAS, False),
+                ("do", d, m, c, c, cm.EPI_BIAS, False),
+                ("dWqkv", w, 3 * c, c, m, cm.EPI_BIAS, False),
+                ("du", d, m, c, 3 * c, du_epi, False)]
+    if not backward:
+        return [("fc1", f, m, 4 * c, c, cm.EPI_BIAS_GELU, False),
+                ("fc2", f, m, c, 4 * c, out_epi, False)]
+    return [("h_pre", f, m, 4 * c, c, cm.EPI_F32, True),
+            ("dW2", w, c, 4 * c, m, cm.EPI_BIAS, False),
+            ("dh_pre", d, m, 4 * c, c, cm.EPI_DGELU, False),
+            ("dW1", w, 4 * c, c, m, cm.EPI_BIAS, False),
+            ("du", d, m, c, 4 * c, du_epi, False)]
+
+
+def gemm_case(gen, dev, layout, m, n, k, epilogue, gelu_out):
+    """(kernel, plain version, torch.matmul in the same layout) on random
+    operands of one launch."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
+
+    a = rnd(k, m) if layout == cm.LAYOUT_WGRAD else rnd(m, k)
+    w = (rnd(n, k, std=k ** -0.5) if layout == cm.LAYOUT_FORWARD
+         else rnd(k, n, std=k ** -0.5))
+    kw = dict(bias=None if layout == cm.LAYOUT_WGRAD else rnd(n, std=0.1),
+              residual=(rnd(m, n) if epilogue == cm.EPI_BIAS_RESIDUAL
+                        else None),
+              aux=(rnd(m, n, dtype=torch.float32)
+                   if epilogue == cm.EPI_DGELU else None),
+              gelu_out=gelu_out)
+    chunk = None
+    if layout == cm.LAYOUT_WGRAD:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits, chunk = cm.plan_wgrad_split(m, n, k, sms)
+        chunk = chunk if splits > 1 else None
+
+    def fn():
+        return cm._gemm(a, w, m=m, n=n, k=k, layout=layout,
+                        epilogue=epilogue, **kw)
+
+    def plain():
+        return cm.gemm_reference(a, w, layout=layout, epilogue=epilogue,
+                                 chunk=chunk, **kw)
+
+    def matmul():
+        if layout == cm.LAYOUT_FORWARD:
+            return a @ w.t()
+        return a.t() @ w if layout == cm.LAYOUT_WGRAD else a @ w
+
+    return fn, plain, matmul
+
+
+def gemm_work(layout, m, n, k, epilogue, gelu_out) -> tuple[float, float]:
+    """(FLOPs, bytes) of one launch: A and B in, bias, residual and aux in
+    where the epilogue reads them, out (and the GELU out) written once."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    nbytes = 2 * (m * k + k * n) + m * n * (
+        4 if epilogue == cm.EPI_F32 else 2)
+    nbytes += 2 * n if layout != cm.LAYOUT_WGRAD else 0
+    nbytes += 2 * m * n if epilogue == cm.EPI_BIAS_RESIDUAL else 0
+    nbytes += 4 * m * n if epilogue == cm.EPI_DGELU else 0
+    nbytes += 2 * m * n if gelu_out else 0
+    return 2.0 * m * n * k, nbytes
+
+
+def phase_gemm_parity(dev) -> tuple[float, float, float]:
+    """The GEMM against its plain version (see above) and the LayerNorm
+    rows K1's and K2's GEMMs read (``ln_rows``) against their plain twin
+    ``ln_forward``: the same f32 statistics summed in another order, so a
+    value may round to the neighbouring bf16 (one step of the rounded
+    value), and a value near zero, where x - mean cancels, may move by the
+    statistics' last f32 bits (bounded at 1e-5; the rows are O(1)).
+    Returns the largest absolute error, the tolerance (of each output's
+    scale) and the largest error over its scale."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    gen = torch.Generator().manual_seed(9)
+    cases = {}
+    for kind, b, l, c in GEMM_PARITY_BLOCKS:
+        for backward in (False, True):
+            for _, *key in gemm_launches(kind, b, l, c, backward):
+                cases[tuple(key)] = "main path"
+    for layout, m, n, k in GEMM_RAGGED:
+        epis = ([(cm.EPI_BIAS, False)] if layout == cm.LAYOUT_WGRAD else
+                [(e, False) for e in range(5)] + [(cm.EPI_F32, True)] * (
+                    layout == cm.LAYOUT_FORWARD))
+        for e, go in epis:
+            cases[(layout, m, n, k, e, go)] = "ragged"
+    worst_abs = worst_rel = 0.0
+    for (layout, m, n, k, epi, go), what in cases.items():
+        fn, plain, _ = gemm_case(gen, dev, layout, m, n, k, epi, go)
+        got = fn()
+        shape = [layout, m, n, k, epi] + (["gelu_out"] if go else [])
+        err, rel, _ = hold(f"gemm ({what})", shape, got, plain(),
+                           ("out", "gelu_out") if go else ("out",))
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if layout == cm.LAYOUT_WGRAD:
+            require(torch.equal(fn(), got),
+                    f"gemm wgrad {shape} differs from itself on a repeat")
+    log(f"gemm: {len(cases)} launches held, each weight gradient equal bit "
+        f"for bit on a repeat")
+    for b, l, c in ((64, 196, 384), (64, 49, 768), (64, 196, 512)):
+        a = _subblock_inputs(gen, b, l, c, dev)
+        x2 = a["x"].view(b * l, c)
+        got = cm.ln_rows(x2, a["ln_w"], a["ln_b"], 1e-6)
+        want = cm.ln_forward(x2, a["ln_w"], a["ln_b"], 1e-6)
+        # one bf16 step at |want| = m 2^e (0.5 <= m < 1) is 2^(e - 8)
+        step = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                           torch.frexp(want.float()).exponent - 8)
+        diff = (got.float() - want.float()).abs()
+        require(bool((diff <= step + LN_ROWS_ATOL).all()),
+                f"ln_rows ({b * l}, {c}) more than one bf16 step from "
+                f"ln_forward (max {diff.max().item():.3g})")
+        log(f"ln_rows ({b * l}, {c}): {(diff == 0).float().mean().item():.4%}"
+            f" equal to ln_forward, the rest within one bf16 step "
+            f"(+{LN_ROWS_ATOL})")
+    return worst_abs, SUBBLOCK_REL_TOL, worst_rel
 
 
 # The attention core of K1/K4 alone (csrc/attention.cu, attention_bwd.cu),
@@ -1808,9 +2001,19 @@ def device_profile(fn, calls: int) -> dict:
     busy = sum(per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    # the GEMM's device time by layout (csrc/ln_gemm.cu: gemm_kernel<layout,
+    # ...>; the weight gradient's split sum with its GEMMs)
+    gemm = {"forward": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    for key, ms in per.items():
+        layout = re.search(r"gemm_kernel<(\d)", key)
+        if layout:
+            gemm[("forward", "dgrad", "wgrad")[int(layout.group(1))]] += ms
+        elif "split_sum_kernel" in key:
+            gemm["wgrad"] += ms
     return {"calls": calls, "wall_ms": wall / calls,
             "device_ms": busy / calls,
             "busy_share": busy / wall if busy else None,
+            "gemm_ms": {k: v / calls for k, v in gemm.items()},
             "top_ms": [[k[:90], v / calls] for k, v in top],
             "host_ms": sum(host.values()) / calls,
             "top_host_ms": [[k[:90], v / calls] for k, v in top_host]}
@@ -1822,6 +2025,9 @@ def log_profile(what: str, prof: dict) -> None:
         return
     log(f"profile {what}: {prof['device_ms']:.4g} ms of device time in "
         f"{prof['wall_ms']:.4g} ms per call (busy {prof['busy_share']:.1%})")
+    log("  the GEMM: " + ", ".join(
+        f"{layout} {ms:.4g} ms ({ms / prof['device_ms']:.1%})"
+        for layout, ms in prof["gemm_ms"].items()))
     for name, ms in prof["top_ms"]:
         log(f"  {ms:9.4f} ms  {name}")
     log(f"  host: {prof['host_ms']:.4g} ms of self CPU time per call in "
@@ -1872,6 +2078,68 @@ def step_record(runs: dict, peak: dict, batch: int) -> dict:
             f"{key}peak_step_gib": peak[fused],
         })
     return out
+
+
+GEMM_TIMED = {}  # (layout, M, N, K, epilogue, gelu_out) -> its row
+
+
+def gemm_rows(dev, kind, b, l, c, backward, smi) -> list:
+    """The GEMM sub-table of a K1/K2/K4/K5 row: each GEMM launch of one
+    call at its shape, timed from a CUDA graph of 10 calls (the card's time
+    without the wrapper's host work) in turns with one ``torch.matmul`` in
+    the same layout (matmul, kernel, kernel, matmul), beside its bound; for
+    K1's and K2's forward first the LayerNorm rows' pass (``ln_rows``) and
+    its share of the GEMM it feeds. A launch shared by two rows is timed
+    once."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    gen = torch.Generator().manual_seed(17)
+    rows = []
+    for name, *key in gemm_launches(kind, b, l, c, backward):
+        key = tuple(key)
+        if key not in GEMM_TIMED:
+            layout, m, n, k, epi, go = key
+            fn, _, matmul = gemm_case(gen, dev, *key)
+            m1, k1, k2, m2 = (graph_ms(f) for f in (matmul, fn, fn, matmul))
+            flops, nbytes = gemm_work(*key)
+            bms, bby = bound(flops, nbytes)
+            row = {"layout": ("forward", "dgrad", "wgrad")[layout],
+                   "epilogue": epi, "gelu_out": go, "shape": [m, n, k],
+                   "gflop": flops / 1e9, "bytes": nbytes, "bound_ms": bms,
+                   "bound_by": bby, "ms": min(k1, k2),
+                   "matmul_ms": min(m1, m2)}
+            if layout == cm.LAYOUT_WGRAD:
+                splits, chunk = cm.plan_wgrad_split(
+                    m, n, k, torch.cuda.get_device_properties(
+                        dev).multi_processor_count)
+                row.update(splits=splits, chunk=chunk,
+                           scratch_mb=(4 * splits * m * n / 1e6
+                                       if splits > 1 else 0.0))
+            GEMM_TIMED[key] = row
+            del fn, matmul
+            ratio = row["ms"] / row["matmul_ms"]
+            log(f"time gemm {name} {row['layout']} ({m},{n},{k}) epi {epi}"
+                f": kernel {row['ms']:.4g} ms, matmul "
+                f"{row['matmul_ms']:.4g} ms ({ratio:.3g}x), bound "
+                f"{bms:.4g} ms ({bby}), {flops / row['ms'] / 1e9:.0f} "
+                f"TFLOP/s ({smi})")
+        rows.append({"name": name, **GEMM_TIMED[key]})
+    if kind in ("K1", "K2") and not backward:
+        # the LayerNorm rows the first GEMM reads: their own pass, beside
+        # the GEMM they feed
+        a = _subblock_inputs(gen, b, l, c, dev)
+        x2 = a["x"].view(b * l, c)
+        ln_ms = graph_ms(lambda: cm.ln_rows(x2, a["ln_w"], a["ln_b"], 1e-6))
+        nbytes = 2 * 2 * b * l * c + 2 * 4 * c
+        bms, bby = bound(0.0, nbytes)
+        share = ln_ms / rows[0]["ms"]
+        rows.insert(0, {"name": "ln_rows", "shape": [b * l, c],
+                        "bytes": nbytes, "bound_ms": bms, "bound_by": bby,
+                        "ms": ln_ms, "share_of_gemm": share})
+        log(f"time ln_rows ({b * l}, {c}): {ln_ms:.4g} ms, bound {bms:.4g} "
+            f"ms ({bby}), {share:.1%} of the {rows[1]['name']} GEMM it feeds "
+            f"({smi})")
+    return rows
 
 
 def k6_row(dense, errs, total, launches, smi) -> dict:
@@ -2363,14 +2631,15 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     attn = [csrc + "ln_gemm.cu"]
     attn_bwd = [csrc + "ln_gemm.cu", csrc + "ln_bwd.cu", csrc + "attention.cu"]
     rows = [
-        ("fused_ln_attn_layer", csrc + "attention.cu", attn,
+        ("fused_ln_attn_layer", csrc + "attention.cu",
+         attn + [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_attn_layer.py:357",
          [(196, 384, 12), (49, 768, 12), (196, 512, 16)], False, k1_case,
          k1_work, None),
         ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:386",
          [(196, 512, 16), (49, 768, 12)], True, k1_case, k1_work, None),
-        ("fused_ln_mlp", csrc + "ln_gemm.cu", [],
+        ("fused_ln_mlp", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:329",
          [(196, 384, 0), (49, 768, 0), (196, 512, 0)], False, k2_case,
          k2_work, None),
@@ -2457,6 +2726,11 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                 + f" ({smi})")
         err, tol = errs[name][:2]
         head = per_shape[0]
+        kind = {"fused_ln_attn_layer": "K1", "fused_attn_layer": "K4",
+                "fused_ln_mlp": "K2", "fused_mlp": "K5"}[
+                    name.removesuffix("_bwd")]
+        l, c = shapes[0][:2]
+        gemms = gemm_rows(dev, kind, b, l, c, backward, smi)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "also": also,
             "replaces": replaces, "launches": total[name],
@@ -2473,6 +2747,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                if library else {}),
             "shape": head["shape"], "flops": head["flops"],
             "bytes": head["bytes"], "shapes": per_shape[1:],
+            "gemms": gemms,
         })
 
     kernels += k7_rows(dev, errs, total, launches, smi)

@@ -44,8 +44,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
                             _I, _I, _P],
     },
     "ln_gemm": {
-        "gemm_bf16": [_P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _P],
+        "gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P],
     },
     "attention": {"attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P]},
     "attention_bwd": {
@@ -169,12 +169,13 @@ def check(lib: ctypes.CDLL, fn: str, code: int) -> None:
 
 
 def ptxas_usage(source: str, text: str) -> dict:
-    """Each kernel's registers, stack frame and spill bytes from ``nvcc
-    -Xptxas -v``: its 'Function properties for <mangled name>' line, the
-    stack and spill line after it, then its 'Used N registers' line. A
+    """Each kernel's registers, stack frame, spill bytes and static shared
+    memory from ``nvcc -Xptxas -v``: its 'Function properties for <mangled
+    name>' line, the stack and spill line after it, then its 'Used N
+    registers, ..., M bytes smem' line. A
     kernel is named by the length-prefixed identifier ending in '_kernel'
-    inside its mangled name, with its first integer template argument
-    ('ILi13E' -> '<13>') where it has one."""
+    inside its mangled name, with its integer template arguments ('ILi13EE'
+    -> '<13>', 'ILi0ELi3EE' -> '<0,3>') where it has them."""
     out, name, frame = {}, None, (0, 0, 0)
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -183,9 +184,10 @@ def ptxas_usage(source: str, text: str) -> dict:
             for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
                 ident = mangled[n.end():n.end() + int(n.group(1))]
                 if ident.endswith("_kernel"):
-                    arg = re.match(r"ILi(\d+)E",
-                                   mangled[n.end() + len(ident):])
-                    name = ident + (f"<{arg.group(1)}>" if arg else "")
+                    args = re.match(r"I((?:Li\d+E)+)",
+                                    mangled[n.end() + len(ident):])
+                    name = ident + ("<" + ",".join(re.findall(
+                        r"Li(\d+)E", args.group(1))) + ">" if args else "")
                     break
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -195,8 +197,10 @@ def ptxas_usage(source: str, text: str) -> dict:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
             out[f"{source}:{name}"] = {
                 "registers": int(m.group(1)), "stack_frame": frame[0],
-                "spill_stores": frame[1], "spill_loads": frame[2]}
+                "spill_stores": frame[1], "spill_loads": frame[2],
+                "static_smem": int(smem.group(1)) if smem else 0}
             name, frame = None, (0, 0, 0)
     return out

@@ -1,20 +1,24 @@
 """Pieces shared by the fused kernels K1/K4 (fused_attn_layer.py) and K2/K5
 (fused_mlp.py): the LayerNorm numerics, forward and backward, and the
-launchers of their GEMM (csrc/ln_gemm.cu) and row kernels (csrc/ln_bwd.cu).
+launchers of their GEMM (csrc/ln_gemm.cu) and row kernels (csrc/ln_bwd.cu),
+with the GEMM's plain version and its weight-gradient split planner.
 
 Counterpart of eventpretrain_tpu/ops/pallas_common.py. ``ln_forward`` keeps
 the TPU kernels' LN numerics (f32 statistics, var = E[x^2] - mean^2), so the
-plain versions and the CUDA GEMM's LayerNorm prologue round where the
-Pallas kernels round; ``ln_backward_reference`` is the LN tail of their
-backward kernels (fused_attn_layer.py:348-354, fused_mlp.py:320-326).
+plain versions and the CUDA LayerNorm rows (``ln_rows``, which K1's and
+K2's forward GEMMs read) round where the Pallas kernels round;
+``ln_backward_reference`` is the LN tail of their backward kernels
+(fused_attn_layer.py:348-354, fused_mlp.py:320-326).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from eventpretrain_tpu_torch import _build
 
@@ -28,7 +32,17 @@ EPI_BIAS_RESIDUAL = 2  # + bias + residual, rounded
 EPI_F32 = 3            # + bias, f32 out (optionally also GELU rounded)
 EPI_DGELU = 4          # * gelu'(aux), rounded
 
-_GEMM_BM, _GEMM_BN, _GEMM_BK = 64, 64, 32
+# GEMM operand layouts (csrc/ln_gemm.cu)
+LAYOUT_FORWARD = 0  # A (M, K) . W (N, K)^T
+LAYOUT_DGRAD = 1    # A (M, K) . W (K, N)
+LAYOUT_WGRAD = 2    # dY (K, M)^T . X (K, N), K the tokens
+
+# the GEMM's output tile and depth step (csrc/ln_gemm.cu)
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
+# the H100 SXM's SMs, and the weight-gradient grid's aim of output tiles an
+# SM (csrc/ln_gemm.cu's persistent blocks take them in turn)
+H100_SMS = 132
+WGRAD_TILES_PER_SM = 2
 # rows of one block's partial column sums (csrc/ln_bwd.cu)
 _COLSUM_ROWS = 64
 _LN_BWD_MAX_WIDTH = 768
@@ -101,26 +115,66 @@ def check_cuda_operands(fn: str, dtype: torch.dtype, **tensors) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device (the value of
+    ``torch.cuda.current_stream(t.device).cuda_stream``, without building
+    the Stream object: a twentieth of its host time)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _gemm(a, w, *, m, n, k, a_trans, b_kn, epilogue, bias=None, ln=None,
-          residual=None, aux=None, gelu_out=False):
-    """Launch ``gemm_bf16`` after checking what it needs; see ln_gemm.cu."""
-    if n % _GEMM_BN:
-        raise ValueError(f"gemm: needs N % {_GEMM_BN} == 0, got N={n}")
-    if a_trans:
-        if m % _GEMM_BM:
+def gemm_check(m: int, n: int, k: int, layout: int) -> None:
+    """Raise ``ValueError`` unless ``gemm_bf16`` takes an (M, N, K) product
+    in this layout: N a multiple of the tile's 128 columns; the forward
+    and dgrad depth K a multiple of 64 (M ragged); the weight gradient's M
+    a multiple of 128 (its K, the tokens, ragged)."""
+    if layout not in (LAYOUT_FORWARD, LAYOUT_DGRAD, LAYOUT_WGRAD):
+        raise ValueError(f"gemm: unknown layout {layout}")
+    if n % GEMM_BN:
+        raise ValueError(f"gemm: needs N % {GEMM_BN} == 0, got N={n}")
+    if layout == LAYOUT_WGRAD:
+        if m % GEMM_BM:
             raise ValueError(f"gemm: the weight-gradient layout needs "
-                             f"M % {_GEMM_BM} == 0, got M={m}")
-    elif k % _GEMM_BK:
-        raise ValueError(f"gemm: needs K % {_GEMM_BK} == 0, got K={k}")
-    if (m + _GEMM_BM - 1) // _GEMM_BM > 65535:
+                             f"M % {GEMM_BM} == 0, got M={m}")
+    elif k % GEMM_BK:
+        raise ValueError(f"gemm: needs K % {GEMM_BK} == 0, got K={k}")
+    if -(-m // GEMM_BM) > 65535:
         raise ValueError(f"gemm: M={m} rows exceed the launch grid")
+
+
+def plan_wgrad_split(m: int, n: int, tokens: int,
+                     sms: int = H100_SMS) -> tuple[int, int]:
+    """``(splits, chunk)`` of a weight gradient's (M, N) sum over
+    ``tokens``: ``splits`` contiguous token ranges of ``chunk`` tokens (a
+    multiple of 64; the last range may be shorter), enough that the
+    (M / 128) x (N / 128) output tiles, once per range, come to at least
+    ``WGRAD_TILES_PER_SM`` tiles an SM where the tokens allow, never more
+    ranges than 64-token steps: the longest ranges that give that many. A
+    function of the shape and the SM count alone, so a gradient's summation
+    order is the same on every run."""
+    tiles = (m // GEMM_BM) * (n // GEMM_BN)
+    k_tiles = max(1, -(-tokens // GEMM_BK))
+    want = -(-WGRAD_TILES_PER_SM * sms // max(1, tiles))
+    steps = -(-k_tiles // want)  # 64-token steps a range
+    while steps > 1 and -(-k_tiles // steps) < want:
+        steps -= 1
+    chunk = steps * GEMM_BK
+    return -(-tokens // chunk) if tokens else 1, chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemm(a, w, *, m, n, k, layout, epilogue, bias=None, residual=None,
+          aux=None, gelu_out=False):
+    """Launch ``gemm_bf16`` after checking what it needs; see ln_gemm.cu.
+    The weight gradient gets its token split and its f32 partial scratch
+    here."""
+    gemm_check(m, n, k, layout)
     check_cuda_operands("gemm", torch.bfloat16, a=a, w=w)
     if bias is not None:
         if bias.shape != (n,):
@@ -136,33 +190,91 @@ def _gemm(a, w, *, m, n, k, a_trans, b_kn, epilogue, bias=None, ln=None,
         check_cuda_operands("gemm", torch.float32, aux=aux)
         if aux.device != a.device:
             raise ValueError("gemm: aux on another device")
-    if ln is not None:
-        gamma, beta, eps = ln
-        if a_trans or b_kn:
-            raise ValueError("gemm: the LayerNorm prologue needs the "
-                             "forward layout")
-        if gamma.shape != (k,) or beta.shape != (k,):
-            raise ValueError("gemm: LayerNorm parameters must be (K,)")
-        check_cuda_operands("gemm", torch.float32, a_ln_w=gamma, a_ln_b=beta)
-        if gamma.device != a.device:
-            raise ValueError("gemm: LayerNorm parameters on another device")
-    out_dtype = torch.float32 if epilogue == EPI_F32 else torch.bfloat16
+    out_dtype = torch.float32 if epilogue == EPI_F32 else a.dtype
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    out2 = (torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    out2 = (torch.empty((m, n), dtype=a.dtype, device=a.device)
             if gelu_out else None)
+    part, chunk = None, k
+    if layout == LAYOUT_WGRAD:
+        if k == 0:  # a sum over no tokens
+            return out.zero_()
+        splits, chunk = plan_wgrad_split(m, n, k, _sm_count(a.device.index))
+        if splits > 1:
+            part = torch.empty((splits, m, n), dtype=torch.float32,
+                               device=a.device)
+    _launch_gemm(a, w, bias, residual, aux, out, out2, part, m, n, k,
+                 layout, epilogue, chunk)
+    return (out, out2) if gelu_out else out
+
+
+def _launch_gemm(a, w, bias, residual, aux, out, out2, part, m, n, k,
+                 layout, epilogue, chunk) -> None:
     lib = _build.load("ln_gemm")
     with torch.cuda.device(a.device):
         code = lib.gemm_bf16(
-            a.data_ptr(),
-            _ptr(ln[0]) if ln is not None else None,
-            _ptr(ln[1]) if ln is not None else None,
-            float(ln[2]) if ln is not None else 0.0,
-            int(ln is not None), int(a_trans), int(b_kn),
-            w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(aux),
-            out.data_ptr(), _ptr(out2), m, n, k, int(epilogue), _stream(a),
+            a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual),
+            _ptr(aux), out.data_ptr(), _ptr(out2), _ptr(part), m, n, k,
+            int(layout), int(epilogue), int(chunk), _stream(a),
         )
     _build.check(lib, "gemm_bf16", code)
-    return (out, out2) if gelu_out else out
+
+
+def _gemm_operands_f32(a, w, layout):
+    """The (M, K) and (K, N) factors of a layout's product, in f32."""
+    if layout == LAYOUT_FORWARD:
+        return a.float(), w.float().t()
+    if layout == LAYOUT_DGRAD:
+        return a.float(), w.float()
+    return a.float().t(), w.float()
+
+
+def gemm_reference(a, w, *, layout, epilogue=EPI_BIAS, bias=None,
+                   residual=None, aux=None, gelu_out=False, chunk=None):
+    """Plain PyTorch version of ``gemm_bf16`` (csrc/ln_gemm.cu) in each
+    layout and epilogue: the f32 product, ``+ bias``, then the epilogue,
+    rounded to ``a.dtype`` where the kernel rounds (``EPI_F32`` keeps f32,
+    and with ``gelu_out`` also returns the rounded GELU). With ``chunk``
+    (the weight gradient) the tokens are summed range by range and the
+    ranges' f32 sums added in order, as the kernel's split does. Used by
+    the tests and ``chip_smoke.py``, by nothing on the main path."""
+    lhs, rhs = _gemm_operands_f32(a, w, layout)
+    if chunk is None:
+        acc = lhs @ rhs
+    else:
+        acc = None
+        for t in range(0, max(1, lhs.shape[1]), chunk):
+            p = lhs[:, t:t + chunk] @ rhs[t:t + chunk]
+            acc = p if acc is None else acc + p
+    if bias is not None:
+        acc = acc + bias.float()
+    if epilogue == EPI_F32:
+        if gelu_out:
+            return acc, F.gelu(acc, approximate="none").to(a.dtype)
+        return acc
+    if epilogue == EPI_BIAS_GELU:
+        acc = F.gelu(acc, approximate="none")
+    elif epilogue == EPI_BIAS_RESIDUAL:
+        acc = residual.float() + acc
+    elif epilogue == EPI_DGELU:
+        acc = acc * gelu_grad(aux)
+    return acc.to(a.dtype)
+
+
+def gemm_launch_reference(a, w, bias, residual, aux, out, out2, part, m, n,
+                          k, layout, epilogue, chunk) -> None:
+    """Plain twin of :func:`_launch_gemm`: fills ``out`` (and ``out2``) as
+    ``gemm_bf16`` does, a weight gradient with a partial scratch ``part``
+    summed over its ``chunk``-token ranges in order. The tests put it in
+    the launcher's place to run the CUDA paths' composition on the CPU."""
+    got = gemm_reference(a, w, layout=layout, epilogue=epilogue, bias=bias,
+                         residual=residual, aux=aux,
+                         gelu_out=out2 is not None,
+                         chunk=chunk if part is not None else None)
+    if out2 is not None:
+        out.copy_(got[0])
+        out2.copy_(got[1])
+    else:
+        out.copy_(got)
 
 
 def ln_gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
@@ -171,7 +283,8 @@ def ln_gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     """``epilogue([LN](a) @ w.T + bias)``: the forward layout.
 
     ``a`` (M, K), ``w`` (N, K), ``bias`` (N,) or None, ``residual`` (M, N);
-    ``ln`` is ``(gamma f32 (K,), beta f32 (K,), eps)``. bf16 out, or f32
+    ``ln`` is ``(gamma f32 (K,), beta f32 (K,), eps)``: :func:`ln_rows`
+    normalises the rows first, then the GEMM reads them. bf16 out, or f32
     for ``EPI_F32`` (with ``gelu_out`` also the rounded GELU of it, as a
     second result). CUDA tensors only.
     """
@@ -180,8 +293,10 @@ def ln_gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     if w.shape != (n, k):
         raise ValueError(f"ln_gemm: a {tuple(a.shape)} and w "
                          f"{tuple(w.shape)} do not agree")
-    return _gemm(a, w, m=m, n=n, k=k, a_trans=False, b_kn=False,
-                 epilogue=epilogue, bias=bias, ln=ln, residual=residual,
+    if ln is not None:
+        a = ln_rows(a, *ln)
+    return _gemm(a, w, m=m, n=n, k=k, layout=LAYOUT_FORWARD,
+                 epilogue=epilogue, bias=bias, residual=residual,
                  gelu_out=gelu_out)
 
 
@@ -195,25 +310,27 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *, epilogue: int = EPI_BIAS,
     if w.ndim != 2 or w.shape[0] != k:
         raise ValueError(f"gemm_dgrad: dy {tuple(dy.shape)} and w "
                          f"{tuple(w.shape)} do not agree")
-    return _gemm(dy, w, m=m, n=w.shape[1], k=k, a_trans=False, b_kn=True,
+    return _gemm(dy, w, m=m, n=w.shape[1], k=k, layout=LAYOUT_DGRAD,
                  epilogue=epilogue, aux=aux)
 
 
 def gemm_wgrad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``dy.T @ x``, the weight gradient of a Linear in the torch layout
     (N_out, N_in), summed over the M tokens in f32 and rounded to bf16
-    once. ``dy`` (M, N_out), ``x`` (M, N_in). CUDA tensors only."""
+    once (over :func:`plan_wgrad_split`'s token ranges, added in order).
+    ``dy`` (M, N_out), ``x`` (M, N_in). CUDA tensors only."""
     if dy.ndim != 2 or x.ndim != 2 or dy.shape[0] != x.shape[0]:
         raise ValueError(f"gemm_wgrad: dy {tuple(dy.shape)} and x "
                          f"{tuple(x.shape)} do not agree")
     return _gemm(dy, x, m=dy.shape[1], n=x.shape[1], k=dy.shape[0],
-                 a_trans=True, b_kn=True, epilogue=EPI_BIAS)
+                 layout=LAYOUT_WGRAD, epilogue=EPI_BIAS)
 
 
 def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             eps: float) -> torch.Tensor:
-    """``LN(x)`` rounded to bf16 (csrc/ln_bwd.cu), with the statistics of
-    the GEMM prologue. ``x`` (M, C) bf16. CUDA tensors only."""
+    """``LN(x)`` rounded to bf16 (csrc/ln_bwd.cu): K1's and K2's GEMM input,
+    with the statistics and rounding of the TPU kernels' LN (common.cuh).
+    ``x`` (M, C) bf16. CUDA tensors only."""
     m, c = x.shape
     check_cuda_operands("ln_rows", torch.bfloat16, x=x)
     check_cuda_operands("ln_rows", torch.float32, gamma=gamma, beta=beta)

@@ -28,9 +28,10 @@ in VMEM. On Hopper they do not fit in shared memory (Wqkv alone is 884 KB
 at C=384, against 227 KB a block may use), so the CUDA path is a few
 launches of hand-written kernels:
 
-    forward   the GEMM for qkv (csrc/ln_gemm.cu; K1 with its LayerNorm
-              prologue), the attention core (csrc/attention.cu), the GEMM
-              for the out projection (K1 with the residual epilogue);
+    forward   the GEMM for qkv (csrc/ln_gemm.cu; K1 on the LayerNorm rows
+              of csrc/ln_bwd.cu), the attention core (csrc/attention.cu),
+              the GEMM for the out projection (K1 with the residual
+              epilogue);
     backward  dWo = dy^T . o and do = dy . Wo (GEMM, weight-gradient and
               dgrad layouts), the attention core's backward
               (csrc/attention_bwd.cu: a dq kernel, then a dk/dv kernel),
@@ -43,7 +44,9 @@ CUDA forward saves them for the backward instead of recomputing them (the
 same values bit for bit; 4C bf16 per token); K1's backward recomputes only
 LN(x). The attention core runs every product on the tensor cores (bf16
 ``mma.sync``, one pass over the scores, whose whole rows fit in registers
-at L <= 256); the GEMMs are a simple WMMA loop (see the sources).
+at L <= 256); the GEMMs run on ``wgmma`` fed by TMA through a
+shared-memory ring, the weight gradients split over token ranges and
+summed in order, without atomics (see the sources).
 
 Weights are in the torch layout: ``wqkv`` (3C, C), ``wo`` (C, C).
 """
@@ -291,8 +294,8 @@ def _check_cuda(fn, x, wqkv, bqkv, wo, bo, num_heads, backward, ln=None):
 
 def _layer_cuda(x, wqkv, bqkv, wo, bo, num_heads, scale, ln=None):
     """(y, qkv, o): the output and the two intermediates the backward
-    takes. ``ln = (gamma, beta, eps)`` makes it K1 (LN prologue, residual
-    epilogue), None K4."""
+    takes. ``ln = (gamma, beta, eps)`` makes it K1 (LayerNorm rows first,
+    residual epilogue), None K4."""
     b, l, c = x.shape
     x2 = x.view(b * l, c)
     qkv = ln_gemm(x2, wqkv, bqkv, epilogue=EPI_BIAS, ln=ln)

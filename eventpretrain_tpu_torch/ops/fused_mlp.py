@@ -19,16 +19,19 @@ once), K5 rounds it once as its ``dx``. Every weight and bias gradient is
 summed in f32 over all B*L tokens and rounded to the weight dtype once.
 
 On the TPU the (L, 4C) hidden activation never leaves VMEM. On Hopper the
-CUDA forward is two launches of the hand-written GEMM (csrc/ln_gemm.cu):
-fc1 (K2 with the LayerNorm prologue) with the bias+GELU epilogue writes
-``h`` to device memory, fc2 (K2 with the bias+residual epilogue, K5 with
-the bias epilogue) reads it back. That round trip (B*L*4C bf16 written and
-read, 38.5 MB per layer at B=64, C=384) is the known cost of this first
-version. The backward saves only the inputs, as the TPU kernels do, and
-recomputes: one launch of the same GEMM writes the f32 ``h_pre`` and the
-forward's ``h`` from one accumulator, then the dgrad and weight-gradient
-layouts of the GEMM, the gelu' epilogue, the column sums and, for K2, the
-row kernels of csrc/ln_bwd.cu. GELU uses CUDA's exact ``erff``; the TPU
+CUDA forward is launches of the hand-written tensor-core GEMM
+(csrc/ln_gemm.cu: TMA into a shared-memory ring, ``wgmma``): for K2 the
+LayerNorm rows first (csrc/ln_bwd.cu ``ln_rows``), then fc1 with the
+bias+GELU epilogue writes ``h`` to device memory, fc2 (K2 with the
+bias+residual epilogue, K5 with the bias epilogue) reads it back. That
+round trip (B*L*4C bf16 written and read, 38.5 MB per layer at B=64,
+C=384) is the known cost of this design. The backward saves only the
+inputs, as the TPU kernels do, and recomputes: one launch of the same GEMM
+on the LayerNorm rows writes the f32 ``h_pre`` and the forward's ``h`` from
+one accumulator, then the dgrad and weight-gradient layouts of the GEMM
+(the weight gradients split over token ranges and summed in order), the
+gelu' epilogue, the column sums and, for K2, the row kernels of
+csrc/ln_bwd.cu. GELU uses CUDA's exact ``erff``; the TPU
 kernels approximate erf with Abramowitz-Stegun 7.1.26 (|err| < 1.5e-7,
 below bf16 rounding).
 
@@ -177,8 +180,8 @@ def _check_cuda(fn, gate, x, w1, b1, w2, b2, ln=None):
 
 
 def _mlp_cuda(x, w1, b1, w2, b2, ln=None):
-    """``ln = (gamma, beta, eps)`` makes it K2 (LN prologue, residual
-    epilogue), None K5."""
+    """``ln = (gamma, beta, eps)`` makes it K2 (LayerNorm rows first,
+    residual epilogue), None K5."""
     b, l, c = x.shape
     x2 = x.view(b * l, c)
     h = ln_gemm(x2, w1, b1, epilogue=EPI_BIAS_GELU, ln=ln)
@@ -189,12 +192,11 @@ def _mlp_cuda(x, w1, b1, w2, b2, ln=None):
     return y.view(b, l, c)
 
 
-def _mlp_bwd_cuda(x2, w1, b1, w2, dy2, u2, du_epilogue, ln=None):
-    """(du, dw1, db1, dw2, db2) for the rows ``x2``; ``u2`` is the fc1
-    input (LN(x2) for K2, x2 for K5), ``du`` f32 (``EPI_F32``) or rounded
-    (``EPI_BIAS``)."""
+def _mlp_bwd_cuda(u2, w1, b1, w2, dy2, du_epilogue):
+    """(du, dw1, db1, dw2, db2) for the fc1 input rows ``u2`` (LN(x) for
+    K2, x for K5); ``du`` f32 (``EPI_F32``) or rounded (``EPI_BIAS``)."""
     check_cuda_operands("mlp backward", torch.bfloat16, dy=dy2)
-    h_pre, h = ln_gemm(x2, w1, b1, epilogue=EPI_F32, ln=ln, gelu_out=True)
+    h_pre, h = ln_gemm(u2, w1, b1, epilogue=EPI_F32, gelu_out=True)
     dw2 = gemm_wgrad(dy2, h)
     db2 = colsum(dy2)
     dh_pre = gemm_dgrad(dy2, w2, epilogue=EPI_DGELU, aux=h_pre)
@@ -209,10 +211,8 @@ def _ln_backward_cuda(x, ln_weight, ln_bias, w1, b1, w2, dy, eps):
     b, l, c = x.shape
     x2 = x.view(b * l, c)
     dy2 = dy.view(b * l, c)
-    ln = (ln_weight, ln_bias, eps)
     yln = ln_rows(x2, ln_weight, ln_bias, eps)
-    d_yln, dw1, db1, dw2, db2 = _mlp_bwd_cuda(x2, w1, b1, w2, dy2, yln,
-                                              EPI_F32, ln=ln)
+    d_yln, dw1, db1, dw2, db2 = _mlp_bwd_cuda(yln, w1, b1, w2, dy2, EPI_F32)
     dx, dg, dbeta = ln_backward(x2, ln_weight, eps, dy2, d_yln)
     return dx.view(b, l, c), dg, dbeta, dw1, db1, dw2, db2
 
@@ -220,8 +220,7 @@ def _ln_backward_cuda(x, ln_weight, ln_bias, w1, b1, w2, dy, eps):
 def _backward_cuda(x, w1, b1, w2, dy):
     b, l, c = x.shape
     x2 = x.view(b * l, c)
-    dx, *grads = _mlp_bwd_cuda(x2, w1, b1, w2, dy.view(b * l, c), x2,
-                               EPI_BIAS)
+    dx, *grads = _mlp_bwd_cuda(x2, w1, b1, w2, dy.view(b * l, c), EPI_BIAS)
     return (dx.view(b, l, c), *grads)
 
 
