@@ -10,7 +10,7 @@ backend's refusal of a shape, which its timing records as null):
    (nvidia-smi), TF32 off for the f32 comparisons; every CUDA kernel of the
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
    at once), each kernel's registers and spills printed, and no GEMM
-   instantiation allowed to spill.
+   instantiation or row kernel (csrc/ln_bwd.cu) allowed to spill.
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the
    tiled splat (K6) at B=2 of DSEC's shape, both entry points, with and
@@ -26,7 +26,13 @@ backend's refusal of a shape, which its timing records as null):
    (64, 49, 768), forward and backward, and every layout and epilogue at a
    ragged M or token count, each weight gradient run twice and equal bit
    for bit, and the LayerNorm rows those GEMMs read (``ln_rows``) against
-   ``ln_forward``; the attention core of K1/K4
+   ``ln_forward``; the row and column reductions of the K1/K2/K4/K5
+   backward alone (``ln_backward`` against ``ln_backward_reference`` at
+   (12544, 384), (12544, 512), (3136, 768), (3001, 64), (3001, 768), and
+   ``colsum`` against the f32 column sum at N = C, 3C, 4C of each; dx and
+   the bias sums within one bf16 step + 1e-5 of scale, dgamma and dbeta
+   1e-4 of scale, each equal bit for bit on a repeat; ``ln_rows`` again at
+   those shapes); the attention core of K1/K4
    alone (``_attention``, ``_attention_bwd``) against the plain attention
    core at (64, 196, H12, D32), (64, 49, H12, D64), (64, 196, H16, D32),
    (16, 196, H12, D64), ragged (4, 100, H16, D8) and (2, 17, H1, D128), and
@@ -107,9 +113,13 @@ backend's refusal of a shape, which its timing records as null):
    beside K3's ``voxelize_batch``; the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
    B=16), the cls and dense pipelines' host time per batch and phase 5d's
-   delivered samples/s; then a
-   ``torch.profiler`` window over each kernel path for its device time by
-   kernel and busy share.
+   delivered samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
+   each main-path shape from CUDA graphs beside their plain versions, their
+   bounds and ``torch.sum`` / ``F.layer_norm``, their launches on every
+   main path checked against those of the sub-blocks that call them; then
+   a ``torch.profiler`` window over each kernel path for its device time by
+   kernel (the GEMM's by layout, the row kernels' with their launches) and
+   busy share.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
 hold the end-to-end record, the attention core's record, the card's name
@@ -275,6 +285,15 @@ def phase_environment() -> str:
         require(any("gemm_kernel" in k for k in gemm),
                 "ptxas reported no GEMM kernel")
         for kernel, use in gemm.items():
+            require(use["spill_stores"] == use["spill_loads"] == 0,
+                    f"{kernel} spills ({use})")
+    if "ln_bwd" in logs:
+        # the LayerNorm backward holds a row of d_yln and dy and its
+        # column sums in registers, at the 128 a thread of 2 blocks an SM
+        rows = {k: u for k, u in PTXAS.items() if k.startswith("ln_bwd:")}
+        require(any("ln_bwd_kernel<12>" in k for k in rows),
+                "ptxas reported no LayerNorm backward at C=768")
+        for kernel, use in rows.items():
             require(use["spill_stores"] == use["spill_loads"] == 0,
                     f"{kernel} spills ({use})")
     return smi
@@ -559,6 +578,7 @@ def phase_kernel_parity(dev) -> dict:
             errs[name] = (max(prev[0], err), max(prev[1], tol))
     errs.update(phase_backward_parity(dev))
     errs["gemm"] = phase_gemm_parity(dev)
+    errs.update(phase_rows_parity(dev))
     errs.update(phase_core_parity(dev))
     errs.update(phase_k7_parity(dev))
     errs["voxelize_batch_scatter"] = phase_k8_parity(dev)
@@ -774,6 +794,104 @@ def phase_gemm_parity(dev) -> tuple[float, float, float]:
             f" equal to ln_forward, the rest within one bf16 step "
             f"(+{LN_ROWS_ATOL})")
     return worst_abs, SUBBLOCK_REL_TOL, worst_rel
+
+
+# The row and column reductions under the K1/K2/K4/K5 backward
+# (csrc/ln_bwd.cu) alone, against their plain versions: ``ln_backward`` at
+# the main paths' LayerNorm rows at B=64 (ViT-S and the dense hub's block
+# 0, the MAE decoder, the ViT-B encoder's kept tokens), a ragged M and the
+# narrowest and widest C its gate admits; ``colsum`` at N = C, 3C and 4C of
+# each (dbo and db2, dbqkv, db1). dx and the bias sums are rounded once
+# from f32 values computed in another order: each within one bf16 step of
+# the plain value, plus 1e-5 of the output's scale near zero, where those
+# f32 values cancel; dgamma and dbeta, f32 sums of the same values in
+# another order, within 1e-4 of their scale. Each output must come out
+# equal bit for bit on a repeat.
+ROW_SHAPES = ((12544, 384), (12544, 512), (3136, 768), (3001, 64),
+              (3001, 768))
+ROW_SLACK = 1e-5
+ROW_SUM_REL_TOL = 1e-4
+
+
+def bf16_step_err(got, want) -> tuple[float, float]:
+    """(largest absolute error, largest error over the allowed one: one
+    bf16 step of the plain value plus ``ROW_SLACK`` of its scale)."""
+    got, want = got.float(), want.float()
+    step = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    err = (got - want).abs()
+    allowed = step + ROW_SLACK * want.abs().max()
+    return err.max().item(), (err / allowed).max().item()
+
+
+def phase_rows_parity(dev) -> dict:
+    """``ln_backward`` and ``colsum`` against ``ln_backward_reference`` and
+    the f32 column sum rounded once, and ``ln_rows`` against
+    ``ln_forward`` (see above). Returns each kernel's largest absolute
+    error and its tolerance's description."""
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    gen = torch.Generator().manual_seed(13)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    worst = {"ln_backward": 0.0, "colsum": 0.0, "ln_rows": 0.0}
+    for m, c in ROW_SHAPES:
+        x, dy, d_yln = rnd(m, c), rnd(m, c), rnd(m, c, dtype=torch.float32)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        # the LayerNorm rows of the same x, as phase_gemm_parity holds them
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        yln, want = cm.ln_rows(x, g, b, 1e-6), cm.ln_forward(x, g, b, 1e-6)
+        step = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                           torch.frexp(want.float()).exponent - 8)
+        diff = (yln.float() - want.float()).abs()
+        require(bool((diff <= step + LN_ROWS_ATOL).all()),
+                f"ln_rows ({m}, {c}) more than one bf16 step from "
+                f"ln_forward (max {diff.max().item():.3g})")
+        worst["ln_rows"] = max(worst["ln_rows"], diff.max().item())
+        got = cm.ln_backward(x, g, 1e-6, dy, d_yln)
+        again = cm.ln_backward(x, g, 1e-6, dy, d_yln)
+        want = cm.ln_backward_reference(x, g, 1e-6, dy, d_yln)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(t).all()) for t in got),
+                f"ln_backward ({m}, {c}) non-finite")
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"ln_backward ({m}, {c}) differs from itself on a repeat")
+        err, over = bf16_step_err(got[0], want[0])
+        require(over <= 1.0, f"ln_backward ({m}, {c}) dx more than one bf16 "
+                             f"step (+{ROW_SLACK} of scale) from the plain "
+                             f"dx (max {err:.3g})")
+        rel = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(got[1:], want[1:]))
+        require(rel <= ROW_SUM_REL_TOL,
+                f"ln_backward ({m}, {c}) dgamma/dbeta off by {rel:.3g} of "
+                f"their scale (tol {ROW_SUM_REL_TOL})")
+        worst["ln_backward"] = max(worst["ln_backward"], err, *(
+            (a - b).abs().max().item() for a, b in zip(got[1:], want[1:])))
+        log(f"ln_backward ({m}, {c}): dx within {over:.3g} of one bf16 step "
+            f"(max_abs_err {err:.3g}), dgamma/dbeta {rel:.3g} of scale (tol "
+            f"{ROW_SUM_REL_TOL}), equal on a repeat")
+        for n in (c, 3 * c, 4 * c):
+            t = rnd(m, n)
+            got, again = cm.colsum(t), cm.colsum(t)
+            want = t.float().sum(0).to(torch.bfloat16)
+            require(torch.equal(got, again),
+                    f"colsum ({m}, {n}) differs from itself on a repeat")
+            err, over = bf16_step_err(got, want)
+            require(over <= 1.0, f"colsum ({m}, {n}) more than one bf16 step "
+                                 f"(+{ROW_SLACK} of scale) from the plain sum"
+                                 f" (max {err:.3g})")
+            worst["colsum"] = max(worst["colsum"], err)
+            log(f"colsum ({m}, {n}): within {over:.3g} of one bf16 step "
+                f"(max_abs_err {err:.3g}), equal on a repeat")
+    return {
+        "ln_backward": (worst["ln_backward"],
+                        f"dx one bf16 step + {ROW_SLACK} of scale; dgamma, "
+                        f"dbeta {ROW_SUM_REL_TOL} of scale"),
+        "colsum": (worst["colsum"],
+                   f"one bf16 step + {ROW_SLACK} of scale"),
+        "ln_rows": (worst["ln_rows"], f"one bf16 step + {LN_ROWS_ATOL}"),
+    }
 
 
 # The attention core of K1/K4 alone (csrc/attention.cu, attention_bwd.cu),
@@ -1031,19 +1149,58 @@ def counters() -> dict:
     return COUNTED
 
 
+ROW_COUNTED = {}  # row kernel name -> its wrapper (ops/common.py)
+
+
+def row_counters() -> dict:
+    if not ROW_COUNTED:
+        from eventpretrain_tpu_torch.ops import common as cm
+
+        ROW_COUNTED.update(ln_rows=cm.ln_rows, ln_backward=cm.ln_backward,
+                           colsum=cm.colsum)
+    return ROW_COUNTED
+
+
+class Counts(dict):
+    """The counted wrappers' launches (``counters()``), and in ``rows``
+    those of the row kernels under K1/K2/K4/K5 (``row_counters()``): the
+    sub-blocks' own launches, kept apart from the sub-blocks' counts that
+    each phase checks."""
+
+    def __init__(self, counts: dict, rows: dict):
+        super().__init__(counts)
+        self.rows = rows
+
+
 def reset_counts() -> None:
     from eventpretrain_tpu_torch.ops.fused_mha import fused_mha
 
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    for fn in row_counters().values():
+        fn.launches = 0
     for by_route in (fused_mha.launches_by_route,
                      fused_mha.launches_bwd_by_route):
         for route in by_route:
             by_route[route] = 0
 
 
-def read_counts() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+def read_counts() -> Counts:
+    return Counts({k: getattr(fn, attr)
+                   for k, (fn, attr) in counters().items()},
+                  {k: fn.launches for k, fn in row_counters().items()})
+
+
+def row_launches_expected(launches: dict) -> dict:
+    """The row kernels' launches a run's sub-block launches imply:
+    ``ln_rows`` once in each K1/K2 forward and backward, ``ln_backward``
+    once in each K1/K2 backward, ``colsum`` twice in each K1/K2/K4/K5
+    backward (ops/fused_attn_layer.py, ops/fused_mlp.py)."""
+    fwd = launches["fused_ln_attn_layer"] + launches["fused_ln_mlp"]
+    bwd = launches["fused_ln_attn_layer_bwd"] + launches["fused_ln_mlp_bwd"]
+    bare = launches["fused_attn_layer_bwd"] + launches["fused_mlp_bwd"]
+    return {"ln_rows": fwd + bwd, "ln_backward": bwd,
+            "colsum": 2 * (bwd + bare)}
 
 
 def route_counts() -> dict:
@@ -2010,10 +2167,23 @@ def device_profile(fn, calls: int) -> dict:
             gemm[("forward", "dgrad", "wgrad")[int(layout.group(1))]] += ms
         elif "split_sum_kernel" in key:
             gemm["wgrad"] += ms
+    # the row kernels of csrc/ln_bwd.cu, each with its launches
+    rows = {"ln_rows_kernel": [0.0, 0], "ln_bwd_kernel": [0.0, 0],
+            "colsum_kernel": [0.0, 0]}
+    for e in prof.key_averages():
+        for name, acc in rows.items():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and re.search(rf"::{name}\b", e.key)):
+                us = getattr(e, "self_device_time_total", None)
+                acc[0] += (us if us is not None
+                           else e.self_cuda_time_total) / 1e3
+                acc[1] += e.count
     return {"calls": calls, "wall_ms": wall / calls,
             "device_ms": busy / calls,
             "busy_share": busy / wall if busy else None,
             "gemm_ms": {k: v / calls for k, v in gemm.items()},
+            "rows_ms": {k: v[0] / calls for k, v in rows.items()},
+            "rows_launches": {k: v[1] / calls for k, v in rows.items()},
             "top_ms": [[k[:90], v / calls] for k, v in top],
             "host_ms": sum(host.values()) / calls,
             "top_host_ms": [[k[:90], v / calls] for k, v in top_host]}
@@ -2028,6 +2198,9 @@ def log_profile(what: str, prof: dict) -> None:
     log("  the GEMM: " + ", ".join(
         f"{layout} {ms:.4g} ms ({ms / prof['device_ms']:.1%})"
         for layout, ms in prof["gemm_ms"].items()))
+    log("  the row kernels: " + ", ".join(
+        f"{name} {ms:.4g} ms in {prof['rows_launches'][name]:.4g} launches"
+        for name, ms in prof["rows_ms"].items()))
     for name, ms in prof["top_ms"]:
         log(f"  {ms:9.4f} ms  {name}")
     log(f"  host: {prof['host_ms']:.4g} ms of self CPU time per call in "
@@ -2140,6 +2313,123 @@ def gemm_rows(dev, kind, b, l, c, backward, smi) -> list:
             f"ms ({bby}), {share:.1%} of the {rows[1]['name']} GEMM it feeds "
             f"({smi})")
     return rows
+
+
+# The row kernels' shapes on the main paths at B=64, (M, C): the rec
+# step's decoder and ViT-B encoder, ViT-S (cls, and the dense hub's block
+# 0); a column sum runs at N = C, 3C and 4C of each
+ROW_TIMED = ((12544, 512), (3136, 768), (12544, 384))
+PEAK_F32 = 67e12  # the card's f32 rate outside the tensor cores
+
+
+def row_rows(dev, errs, launches, smi) -> list:
+    """The rows of ``ln_backward``, ``colsum`` and ``ln_rows``
+    (csrc/ln_bwd.cu): launches on every main path (the ``rows`` of each
+    path's counts), each kernel at each main-path shape graph-timed (a CUDA
+    graph of 10 calls: the card alone, without the wrapper's host work) in
+    turns with its plain version (plain, kernel, kernel, plain), also over
+    10 calls an event pair, beside its bound (bytes over the memory rate,
+    or f32 operations over the f32 rate) and one PyTorch call of the same
+    function where there is one."""
+    import torch.nn.functional as F
+
+    from eventpretrain_tpu_torch.ops import common as cm
+
+    gen = torch.Generator().manual_seed(19)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def ln_bwd_case(m, c):
+        x, dy, d_yln = rnd(m, c), rnd(m, c), rnd(m, c, dtype=torch.float32)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        return (lambda: cm.ln_backward(x, g, 1e-6, dy, d_yln),
+                lambda: cm.ln_backward_reference(x, g, 1e-6, dy, d_yln),
+                None, 16 * m * c, 10 * m * c + 12 * c)
+
+    def colsum_case(m, n):
+        t = rnd(m, n)
+        return (lambda: cm.colsum(t),
+                lambda: t.float().sum(0).to(torch.bfloat16),
+                lambda: torch.sum(t, 0, dtype=torch.float32), m * n,
+                2 * m * n + 2 * n)
+
+    def ln_rows_case(m, c):
+        x = rnd(m, c)
+        g = (1.0 + 0.1 * torch.randn(c, generator=gen)).to(dev)
+        b = (0.1 * torch.randn(c, generator=gen)).to(dev)
+        g16, b16 = g.to(torch.bfloat16), b.to(torch.bfloat16)
+        return (lambda: cm.ln_rows(x, g, b, 1e-6),
+                lambda: cm.ln_forward(x, g, b, 1e-6),
+                lambda: F.layer_norm(x, (c,), g16, b16, 1e-6), 8 * m * c,
+                4 * m * c + 8 * c)
+
+    csrc = "eventpretrain_tpu_torch/csrc/ln_bwd.cu"
+    specs = [
+        ("ln_backward", "eventpretrain_tpu/ops/fused_attn_layer.py:348 "
+         "(K1 _ln_bwd_kernel's LN tail :348-354; K2 fused_mlp.py:320-326, "
+         ":451-456)", ln_bwd_case, list(ROW_TIMED),
+         "none: no PyTorch call takes bf16 rows with an f32 gradient of the "
+         "normalised rows and adds the residual's gradient "
+         "(native_layer_norm_backward takes one dtype and returns no sum "
+         "with dy)"),
+        ("colsum", "eventpretrain_tpu/ops/fused_attn_layer.py:132 (dbo; "
+         "dbqkv :169; K2/K5 fused_mlp.py:134, :144, :285, :312, :437, :445)",
+         colsum_case, [(m, k * c) for m, c in ROW_TIMED for k in (1, 3, 4)],
+         "torch.sum(x, 0, dtype=torch.float32)"),
+        ("ln_rows", "eventpretrain_tpu/ops/fused_attn_layer.py:322 (K1 "
+         "_ln_fwd_kernel's LN, pallas_common.py:68; K2 fused_mlp.py:261; "
+         "both backwards' recompute :341, :284)", ln_rows_case,
+         [(12544, 384), (3136, 768), (12544, 512)],
+         "F.layer_norm (bf16 weight and bias)"),
+    ]
+    out = []
+    for name, replaces, case, shapes, library in specs:
+        per_shape = []
+        for m, n in shapes:
+            fn, plain, lib_fn, flops, nbytes = case(m, n)
+            p1, k1, k2, p2 = (graph_ms(f) for f in (plain, fn, fn, plain))
+            t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
+            entry = {"shape": [m, n], "ms": min(k1, k2),
+                     "event_ms": cuda_ms(fn, calls=10),
+                     "plain_ms": min(p1, p2),
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": graph_ms(lib_fn) if lib_fn else None,
+                     "flops": flops, "bytes": nbytes}
+            per_shape.append(entry)
+            del fn, plain, lib_fn
+            log(f"time {name} ({m}, {n}): kernel {entry['ms'] * 1e3:.4g} us "
+                f"(graph; {entry['event_ms'] * 1e3:.4g} us over 10 calls an "
+                f"event pair), plain {entry['plain_ms'] * 1e3:.4g} us, bound "
+                f"{entry['bound_ms'] * 1e3:.4g} us ({entry['bound_by']}, "
+                f"{entry['bound_ms'] / entry['ms']:.1%} of it)"
+                + (f", library {entry['library_ms'] * 1e3:.4g} us"
+                   if entry["library_ms"] is not None else "")
+                + f" ({smi})")
+        total = sum(launches[p].rows[name] for p in launches)
+        require(total > 0, f"{name}: no main path launched it")
+        for p in launches:
+            want = row_launches_expected(launches[p])[name]
+            require(launches[p].rows[name] == want,
+                    f"{p}: {name} launched {launches[p].rows[name]} times, "
+                    f"its sub-blocks imply {want}")
+        head = per_shape[0]
+        err, tol = errs.get(name, (None, None))
+        out.append({
+            "name": name, "route": "cuda", "source": csrc, "also": [],
+            "replaces": replaces, "launches": total,
+            "launches_by_path": {p: launches[p].rows[name]
+                                 for p in launches},
+            "max_abs_err": err, "tol": tol,
+            "ms": head["ms"], "timing": "CUDA graph of 10 calls",
+            "event_ms": head["event_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library": library,
+            "shape": head["shape"], "flops": head["flops"],
+            "bytes": head["bytes"], "shapes": per_shape[1:],
+        })
+    return out
 
 
 def k6_row(dense, errs, total, launches, smi) -> dict:
@@ -2751,6 +3041,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         })
 
     kernels += k7_rows(dev, errs, total, launches, smi)
+    kernels += row_rows(dev, errs, launches, smi)
     kernels.append(k8_row(dev, errs, total, launches, smi))
     core = core_rows(dev, errs, total, smi)
 

@@ -53,9 +53,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "ln_bwd": {
         "ln_rows_bf16": [_P, _P, _P, _F, _P, _I, _I, _P],
-        "ln_backward_bf16": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _P],
-        "colsum_bf16": [_P, _P, _P, _I, _I, _I, _P],
+        "ln_backward_bf16": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _P],
+        "colsum_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "row_kernel_occupancy": [_I, _I],
     },
     "mha": {
         "mha_onepass_fwd_bf16": [*_HEADS * 4, _P, _I, _I, _I, _I, _F, _P],

@@ -1,7 +1,8 @@
 """Pieces shared by the fused kernels K1/K4 (fused_attn_layer.py) and K2/K5
 (fused_mlp.py): the LayerNorm numerics, forward and backward, and the
 launchers of their GEMM (csrc/ln_gemm.cu) and row kernels (csrc/ln_bwd.cu),
-with the GEMM's plain version and its weight-gradient split planner.
+with the GEMM's plain version and its weight-gradient split planner, and
+the row kernels' range planner and plain twins of their launches.
 
 Counterpart of eventpretrain_tpu/ops/pallas_common.py. ``ln_forward`` keeps
 the TPU kernels' LN numerics (f32 statistics, var = E[x^2] - mean^2), so the
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +44,16 @@ GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
 # SM (csrc/ln_gemm.cu's persistent blocks take them in turn)
 H100_SMS = 132
 WGRAD_TILES_PER_SM = 2
-# rows of one block's partial column sums (csrc/ln_bwd.cu)
-_COLSUM_ROWS = 64
-_LN_BWD_MAX_WIDTH = 768
+# csrc/ln_bwd.cu: a row-kernel block is 8 warps; the column sum's block
+# covers 256 columns (8 a lane) and each of its warps takes at least 4
+# rows; the LayerNorm backward holds C % 64 == 0 up to 768
+ROW_WARPS = 8
+COLSUM_TILE = 256
+COLSUM_MIN_ROWS = 4 * ROW_WARPS
+LN_BWD_MAX_WIDTH = 768
+# a step of the ordered sum adds at most 16 rows in one batch of loads
+# (csrc/ln_bwd.cu kBatch), so a tile has at most 16 x 16 ranges
+ROW_MAX_RANGES = 16 * 16
 
 
 def ln_stats(x: torch.Tensor, eps: float):
@@ -330,64 +338,233 @@ def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             eps: float) -> torch.Tensor:
     """``LN(x)`` rounded to bf16 (csrc/ln_bwd.cu): K1's and K2's GEMM input,
     with the statistics and rounding of the TPU kernels' LN (common.cuh).
-    ``x`` (M, C) bf16. CUDA tensors only."""
+    ``x`` (M, C) bf16. CUDA tensors only. ``launches`` counts its kernel's
+    launches."""
     m, c = x.shape
     check_cuda_operands("ln_rows", torch.bfloat16, x=x)
     check_cuda_operands("ln_rows", torch.float32, gamma=gamma, beta=beta)
     if c % 2 or gamma.shape != (c,) or beta.shape != (c,):
         raise ValueError("ln_rows: needs an even C and (C,) parameters")
     out = torch.empty_like(x)
+    if m == 0:
+        return out
     lib = _build.load("ln_bwd")
     with torch.cuda.device(x.device):
         code = lib.ln_rows_bf16(x.data_ptr(), gamma.data_ptr(),
                                 beta.data_ptr(), float(eps), out.data_ptr(),
                                 m, c, _stream(x))
     _build.check(lib, "ln_rows_bf16", code)
+    ln_rows.launches += 1
     return out
+
+
+class RowPlan(NamedTuple):
+    """How csrc/ln_bwd.cu's row kernels cut M rows: ``ranges`` contiguous
+    ranges of ``rows`` rows (the last may be shorter), one block each (for
+    each column tile of a column sum), and their partial sums added
+    ``group`` ranges at a time, then group by group."""
+
+    ranges: int
+    rows: int
+    group: int
+
+    @property
+    def groups(self) -> int:
+        return -(-self.ranges // self.group)
+
+    def bounds(self, m: int) -> list[tuple[int, int]]:
+        """``[(start, stop), ...]`` of each range, in order."""
+        return [(r * self.rows, min(m, (r + 1) * self.rows))
+                for r in range(self.ranges)]
+
+
+def plan_row_ranges(m: int, slots: int, tiles: int = 1,
+                    min_rows: int = ROW_WARPS) -> RowPlan:
+    """The ranges of a row kernel's M rows: at most one block for each of
+    the ``slots`` blocks the card holds at once (its SMs times the blocks
+    an SM holds at the kernel's registers and shared memory), shared by
+    ``tiles`` column tiles, so that they run in one wave; each range at
+    least ``min_rows`` long where M allows, and at most ``ROW_MAX_RANGES``
+    ranges. They are grouped ceil(sqrt(ranges)) at a time, so that both
+    steps of the ordered sum add about as many rows, at most 16. A
+    function of the shape and the card alone, so a sum's order is the
+    same on every run."""
+    if m <= 0 or slots <= 0 or tiles <= 0 or min_rows <= 0:
+        raise ValueError(f"plan_row_ranges: M={m}, slots={slots}, "
+                         f"tiles={tiles}, min_rows={min_rows}")
+    ranges = max(1, min(slots // tiles, m // min_rows, ROW_MAX_RANGES))
+    rows = -(-m // ranges)
+    ranges = -(-m // rows)
+    return RowPlan(ranges, rows, math.isqrt(ranges - 1) + 1)
+
+
+def row_scratch_shape(plan: RowPlan, sums: int,
+                      width: int) -> tuple[int, int, int]:
+    """The f32 scratch of ``sums`` column sums of ``width`` columns: each
+    range's partial row, then each group's."""
+    return sums, plan.ranges + plan.groups, width
+
+
+def row_counter_count(plan: RowPlan, tiles: int = 1) -> int:
+    """The integer counters a launch uses: one for each group and one for
+    the last step, for each column tile."""
+    return tiles * (plan.groups + 1)
+
+
+def ordered_row_sum(t: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """Plain twin of the row kernels' ordered column sum of ``t`` (M, N):
+    the f32 partial sum of each planned range, the ranges of a group added
+    in order, then the groups in order."""
+    t = t.float()
+    parts = [t[a:b].sum(0) for a, b in plan.bounds(t.shape[0])]
+    sums = []
+    for first in range(0, plan.ranges, plan.group):
+        acc = parts[first]
+        for p in parts[first + 1:first + plan.group]:
+            acc = acc + p
+        sums.append(acc)
+    out = sums[0]
+    for acc in sums[1:]:
+        out = out + acc
+    return out
+
+
+def ln_backward_launch_reference(x, weight, eps, dy, d_yln, plan: RowPlan):
+    """Plain twin of ``ln_backward_bf16``'s launch contract: ``dx`` row by
+    row as :func:`ln_backward_reference`, ``dgamma`` and ``dbeta`` summed
+    over ``plan``'s ranges and added in its order. Used by the tests."""
+    xhat, _ = ln_stats(x, eps)
+    dx, _, _ = ln_backward_reference(x, weight, eps, dy, d_yln)
+    d = d_yln.float()
+    return dx, ordered_row_sum(d * xhat, plan), ordered_row_sum(d, plan)
+
+
+def colsum_launch_reference(x: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """Plain twin of ``colsum_bf16``: the f32 column sums over ``plan``'s
+    ranges in its order, rounded to ``x.dtype`` once."""
+    return ordered_row_sum(x, plan).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_occupancy(index: int, kind: int, width: int) -> int:
+    """Blocks of a row kernel an SM of card ``index`` holds (kind 0: the
+    LayerNorm backward at ``width``, 1: the column sum)."""
+    lib = _build.load("ln_bwd")
+    with torch.cuda.device(index):
+        n = lib.row_kernel_occupancy(kind, width)
+    if n < 0:
+        _build.check(lib, "row_kernel_occupancy", -n)
+    if n == 0:
+        raise RuntimeError(f"row kernel {kind} at width {width}: an SM "
+                           "holds no block")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _row_launch(index: int, kind: int, m: int, n: int):
+    """``(rows, group, scratch floats, counters)`` of a row kernel's
+    launch over (M, N) on card ``index``: kind 0 the LayerNorm backward
+    (two sums of N = C columns), 1 the column sum (one sum, N / 256
+    tiles)."""
+    slots = _sm_count(index) * _row_occupancy(index, kind,
+                                              n if kind == 0 else 0)
+    if kind == 0:
+        plan, sums, tiles = plan_row_ranges(m, slots), 2, 1
+    else:
+        tiles = -(-n // COLSUM_TILE)
+        plan = plan_row_ranges(m, slots, tiles, COLSUM_MIN_ROWS)
+        sums = 1
+    return (plan.rows, plan.group,
+            math.prod(row_scratch_shape(plan, sums, n)),
+            row_counter_count(plan, tiles))
+
+
+_ROW_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _row_workspace(device: torch.device, stream: int, floats: int,
+                   counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The row kernels' f32 partial-sum scratch and their zeroed u32
+    counters on this stream, at least ``floats`` and ``counters`` long.
+    The launches of one stream run one after the other, and each leaves
+    the counters it used at zero (csrc/ln_bwd.cu wraps them), so they
+    share one pair, allocated (``torch.empty``, ``torch.zeros``) when a
+    launch needs more."""
+    key = (device.index, stream)
+    ws = _ROW_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < counters:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(floats, have[0], 1 << 16), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(counters, have[1], 1024), dtype=torch.int32,
+                          device=device))
+        _ROW_WORKSPACE[key] = ws
+    return ws
 
 
 def ln_backward(x: torch.Tensor, gamma: torch.Tensor, eps: float,
                 dy: torch.Tensor, d_yln: torch.Tensor):
     """CUDA twin of :func:`ln_backward_reference` over (M, C) rows:
-    ``(dx bf16, dgamma f32, dbeta f32)``, the column sums deterministic."""
+    ``(dx bf16, dgamma f32, dbeta f32)``, the column sums in the order of
+    :func:`plan_row_ranges` (one launch; see csrc/ln_bwd.cu). CUDA tensors
+    only; ``launches`` counts its kernel's launches."""
     m, c = x.shape
-    if c % 64 or c > _LN_BWD_MAX_WIDTH:
+    if c % 64 or not 0 < c <= LN_BWD_MAX_WIDTH:
         raise ValueError(f"ln_backward: needs C % 64 == 0 and C <= "
-                         f"{_LN_BWD_MAX_WIDTH}, got C={c}")
+                         f"{LN_BWD_MAX_WIDTH}, got C={c}")
     if dy.shape != (m, c) or d_yln.shape != (m, c) or gamma.shape != (c,):
         raise ValueError("ln_backward: shapes do not agree")
     check_cuda_operands("ln_backward", torch.bfloat16, x=x, dy=dy)
     check_cuda_operands("ln_backward", torch.float32, gamma=gamma,
                         d_yln=d_yln)
-    if gamma.device != x.device:
+    device = x.device
+    if gamma.device != device:
         raise ValueError("ln_backward: operands on several devices")
-    nblk = max(1, -(-m // _COLSUM_ROWS))
     dx = torch.empty_like(x)
-    part = torch.empty((2, nblk, c), dtype=torch.float32, device=x.device)
-    dg = torch.empty((c,), dtype=torch.float32, device=x.device)
-    db = torch.empty((c,), dtype=torch.float32, device=x.device)
+    dg = torch.empty((c,), dtype=torch.float32, device=device)
+    db = torch.empty((c,), dtype=torch.float32, device=device)
+    if m == 0:
+        return dx, dg.zero_(), db.zero_()
+    rows, group, floats, counters = _row_launch(device.index, 0, m, c)
+    stream = _stream(x)
+    part, cnt = _row_workspace(device, stream, floats, counters)
     lib = _build.load("ln_bwd")
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(device):
         code = lib.ln_backward_bf16(
             x.data_ptr(), gamma.data_ptr(), float(eps), dy.data_ptr(),
-            d_yln.data_ptr(), dx.data_ptr(), part.data_ptr(), dg.data_ptr(),
-            db.data_ptr(), m, c, _COLSUM_ROWS, _stream(x),
+            d_yln.data_ptr(), dx.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+            dg.data_ptr(), db.data_ptr(), m, c, rows, group, stream,
         )
     _build.check(lib, "ln_backward_bf16", code)
+    ln_backward.launches += 1
     return dx, dg, db
 
 
 def colsum(x: torch.Tensor) -> torch.Tensor:
     """Column sums of a bf16 (M, N) matrix in f32, rounded to bf16 once:
-    a bias gradient. Deterministic (csrc/ln_bwd.cu). CUDA tensors only."""
+    a bias gradient, in the order of :func:`plan_row_ranges` (one launch;
+    see csrc/ln_bwd.cu). N % 8 == 0 (16-byte rows). CUDA tensors only;
+    ``launches`` counts its kernel's launches."""
     m, n = x.shape
     check_cuda_operands("colsum", torch.bfloat16, x=x)
-    nblk = max(1, -(-m // _COLSUM_ROWS))
-    part = torch.empty((nblk, n), dtype=torch.float32, device=x.device)
-    out = torch.empty((n,), dtype=torch.bfloat16, device=x.device)
+    if n % 8:
+        raise ValueError(f"colsum: needs N % 8 == 0, got N={n}")
+    device = x.device
+    out = torch.empty((n,), dtype=torch.bfloat16, device=device)
+    if m == 0 or n == 0:
+        return out.zero_()
+    rows, group, floats, counters = _row_launch(device.index, 1, m, n)
+    stream = _stream(x)
+    part, cnt = _row_workspace(device, stream, floats, counters)
     lib = _build.load("ln_bwd")
-    with torch.cuda.device(x.device):
-        code = lib.colsum_bf16(x.data_ptr(), part.data_ptr(), out.data_ptr(),
-                               m, n, _COLSUM_ROWS, _stream(x))
+    with torch.cuda.device(device):
+        code = lib.colsum_bf16(x.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                               out.data_ptr(), m, n, rows, group, stream)
     _build.check(lib, "colsum_bf16", code)
+    colsum.launches += 1
     return out
+
+
+ln_rows.launches = 0
+ln_backward.launches = 0
+colsum.launches = 0
