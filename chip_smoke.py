@@ -10,11 +10,18 @@ backend's refusal of a shape, which its timing records as null):
    (nvidia-smi), TF32 off for the f32 comparisons; every CUDA kernel of the
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
    at once), each kernel's registers and spills printed, and no GEMM
-   instantiation or row kernel (csrc/ln_bwd.cu) allowed to spill.
+   instantiation, row kernel (csrc/ln_bwd.cu) or splat kernel (csrc/splat.cu,
+   splat_tiled.cu) allowed to spill; each splat launch plan of the main
+   paths with the clusters of it the card holds at once
+   (cudaOccupancyMaxActiveClusters).
 2. Kernel parity on the card, each kernel against its plain PyTorch version
-   on the same inputs: the splat (K3) at B=8, E=30000, 128x128x5; the
-   tiled splat (K6) at B=2 of DSEC's shape, both entry points, with and
-   without bin ranges, on bucketed events with hand-placed strays; the LN
+   on the same inputs: the splat (K3) on both routes, each call on the one
+   ``splat_route`` names: the cluster route at B=64, E=30000, 128x128x5,
+   the global route at B=8 of that shape and at DSEC's 440x640x5 (B=2,
+   200000 events), strays past every edge; the tiled splat (K6) at B=2 of
+   DSEC's shape, both entry points, with and without bin ranges, and the
+   2-bin count image with and without bin ranges, on bucketed events with
+   hand-placed strays; the LN
    attention (K1) and LN MLP (K2) sub-blocks in bf16 at (8, 196, 384) and
    (8, 196, 768), 12 heads; the bare attention layer (K4) at (8, 196, 384)
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
@@ -110,7 +117,8 @@ backend's refusal of a shape, which its timing records as null):
    default and under each ``sdpa_kernel`` backend that takes the shape,
    with each of their kernels' registers and spills; the served
    function's samples/s at B=64; K8 at DSEC's and N-Cars' shapes
-   beside K3's ``voxelize_batch``; the rec and cls train steps' ms,
+   beside K3's ``voxelize_batch``; K3 and K6 also from CUDA graphs of 10
+   calls (the card alone); the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
    B=16), the cls and dense pipelines' host time per batch and phase 5d's
    delivered samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
@@ -296,7 +304,42 @@ def phase_environment() -> str:
         for kernel, use in rows.items():
             require(use["spill_stores"] == use["spill_loads"] == 0,
                     f"{kernel} spills ({use})")
+    for source in ("splat", "splat_tiled"):
+        if source in logs:
+            # the splats' plane body (csrc/splat_core.cuh) keeps its sums in
+            # shared memory; neither source's kernels may spill
+            found = {k: u for k, u in PTXAS.items()
+                     if k.startswith(source + ":")}
+            require(f"{source}:splat_cluster_kernel" in found,
+                    f"ptxas reported no plane body in {source}.cu")
+            for kernel, use in found.items():
+                require(use["spill_stores"] == use["spill_loads"] == 0,
+                        f"{kernel} spills ({use})")
+    log_splat_clusters()
     return smi
+
+
+def log_splat_clusters() -> None:
+    """Each splat launch plan of the main paths, with the clusters of it
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    from eventpretrain_tpu_torch.ops.splat import (
+        max_active_clusters,
+        splat_plan,
+    )
+    from eventpretrain_tpu_torch.ops.splat_tiled import splat_tiled_plan
+
+    for what, lib, plan in (
+            (f"K3 {CANVAS[0]}x{CANVAS[1]}x{NUM_BINS}", "splat",
+             splat_plan(*CANVAS, NUM_BINS)),
+            (f"K6 128x128x{NUM_BINS} tile", "splat_tiled",
+             splat_tiled_plan(128, 128, NUM_BINS)),
+            ("K6 128x128x2 tile (count image)", "splat_tiled",
+             splat_tiled_plan(128, 128, 2))):
+        n = max_active_clusters(lib, plan.cluster, plan.smem_bytes, 0)
+        log(f"  {what}: {plan.cluster} CTAs of {plan.cp} channels, "
+            f"{plan.smem_bytes} B shared memory each; {n} clusters "
+            "resident at once")
+        require(n >= 1, f"no cluster of the {what} plan fits the card")
 
 
 PTXAS = {}  # "source:kernel" -> registers and spills (ptxas -v)
@@ -344,11 +387,11 @@ def k5_args(gen, b, l, c, dev):
     return (a[0],) + a[3:]
 
 
-def splat_args(rng, batch, dev):
+def splat_args(rng, batch, dev, grid_hw=CANVAS, capacity=EVENTS):
     from eventpretrain_tpu_torch.ops.events import bilinear_bin_weights
 
-    ev, counts, _ = make_events(rng, batch, sensor_hw=CANVAS,
-                                out_of_frame=True)
+    ev, counts, _ = make_events(rng, batch, sensor_hw=grid_hw,
+                                capacity=capacity, out_of_frame=True)
     ev = torch.from_numpy(ev).to(dev)
     counts = torch.from_numpy(counts).to(dev)
     x = ev[..., 0].to(torch.int32).contiguous()
@@ -432,11 +475,24 @@ def k6_cases(inp) -> list:
         voxelize_batch_tiled,
     )
 
+    from eventpretrain_tpu_torch.ops.events import (
+        polarity_weights_coordvalid,
+    )
+
     hw = dict(height=DSEC_HW[0], width=DSEC_HW[1])
     br = chunk_bin_range(inp["t_range"], inp["chunk_trange"], NUM_BINS)
+    # the 2-bin count image's polarity weights (one CTA a tile), and
+    # random inclusive ranges over its two channels
+    count_w = polarity_weights_coordvalid(inp["events"], *DSEC_HW)
+    gen = torch.Generator().manual_seed(11)
+    br2 = torch.randint(0, 2, br.shape, generator=gen, dtype=torch.int32)
+    br2 = br2.sort(-1).values.to(br.device)
     cases = []
-    for name, bins in (("splat_tiled", None), ("splat_tiled+bins", br)):
-        args = (inp["y"], inp["x"], inp["w"], inp["table"], bins)
+    for name, w, bins in (("splat_tiled", inp["w"], None),
+                          ("splat_tiled+bins", inp["w"], br),
+                          ("splat_tiled count image", count_w, None),
+                          ("splat_tiled count image+bins", count_w, br2)):
+        args = (inp["y"], inp["x"], w, inp["table"], bins)
         cases.append((name, lambda a=args: splat_tiled(*a, **hw),
                       lambda a=args: splat_tiled_reference(*a, **hw)))
     for name, ctr in (("voxelize_batch_tiled", None),
@@ -452,15 +508,54 @@ def k6_cases(inp) -> list:
     return cases
 
 
+def phase_k3_parity(dev) -> tuple[float, float]:
+    """K3 against its plain version on both routes, each call on the route
+    ``splat_route`` names: the cluster route at the served and cls batch
+    (B=64, E=30000, the 128x128x5 canvas), the global route at the served
+    B=8 and at DSEC's 440x640x5 (B=2, 200000 events), strays past every
+    edge in all."""
+    from eventpretrain_tpu_torch.ops.splat import (
+        splat,
+        splat_reference,
+        splat_route,
+    )
+
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for batch, grid_hw, capacity in ((64, CANVAS, EVENTS),
+                                     (8, CANVAS, EVENTS),
+                                     (2, DSEC_HW, DSEC_EVENTS)):
+        y, x, wb = splat_args(rng, batch, dev, grid_hw, capacity)
+        hw = dict(height=grid_hw[0], width=grid_hw[1])
+        route = splat_route(batch, *grid_hw, NUM_BINS)
+        before = dict(splat.launches_by_route)
+        got, ref = splat(y, x, wb, **hw), splat_reference(y, x, wb, **hw)
+        torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in splat.launches_by_route.items()}
+        err = (got - ref).abs().max().item()
+        log(f"splat ({batch}, {NUM_BINS}, {capacity}) -> {tuple(got.shape)}"
+            f" on the {route} route ({took}): max_abs_err {err:.3g} (tol "
+            f"{SPLAT_ATOL}), sum {got.sum().item():.6g} vs "
+            f"{ref.sum().item():.6g}")
+        require(took[route] == 1 and sum(took.values()) == 1,
+                f"splat at {grid_hw} did not take the {route} route")
+        require(err <= SPLAT_ATOL,
+                f"splat ({route} route) disagrees with splat_reference")
+        worst = max(worst, err)
+        del y, x, wb, got, ref
+    return worst, SPLAT_ATOL
+
+
 def phase_k6_parity(dev) -> tuple[float, float]:
-    """K6 against its plain version at B=2 of DSEC's shape."""
+    """K6 against its plain version at B=2 of DSEC's shape: the 5-bin
+    grid and the 2-bin count image, with and without bin ranges."""
     inp = dsec_tiled_inputs(np.random.default_rng(9), 2, dev)
     worst = 0.0
     for name, fn, plain in k6_cases(inp):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        log(f"{name} (2, {NUM_BINS}, {inp['y'].shape[1]}) -> "
+        log(f"{name} (2, {inp['y'].shape[1]}) -> "
             f"{tuple(got.shape)}: max_abs_err {err:.3g} (tol {SPLAT_ATOL}), "
             f"sum {got.sum().item():.6g} vs {ref.sum().item():.6g}")
         require(err <= SPLAT_ATOL, f"{name} disagrees with its plain version")
@@ -531,21 +626,8 @@ def phase_kernel_parity(dev) -> dict:
         fused_mlp,
         fused_mlp_reference,
     )
-    from eventpretrain_tpu_torch.ops.splat import splat, splat_reference
-
-    errs = {}
-    rng = np.random.default_rng(1)
-    y, x, wb = splat_args(rng, 8, dev)
-    hw = dict(height=CANVAS[0], width=CANVAS[1])
-    got, ref = splat(y, x, wb, **hw), splat_reference(y, x, wb, **hw)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    log(f"splat (8, {NUM_BINS}, {EVENTS}) -> {tuple(got.shape)}: "
-        f"max_abs_err {err:.3g} (tol {SPLAT_ATOL}), "
-        f"sum {got.sum().item():.6g} vs {ref.sum().item():.6g}")
-    require(err <= SPLAT_ATOL, "splat disagrees with splat_reference")
-    errs["splat"] = (err, SPLAT_ATOL)
-    errs["splat_tiled"] = phase_k6_parity(dev)
+    errs = {"splat": phase_k3_parity(dev),
+            "splat_tiled": phase_k6_parity(dev)}
 
     gen = torch.Generator().manual_seed(2)
     for c in (384, 768):
@@ -1179,8 +1261,11 @@ def reset_counts() -> None:
         setattr(fn, attr, 0)
     for fn in row_counters().values():
         fn.launches = 0
+    from eventpretrain_tpu_torch.ops.splat import splat
+
     for by_route in (fused_mha.launches_by_route,
-                     fused_mha.launches_bwd_by_route):
+                     fused_mha.launches_bwd_by_route,
+                     splat.launches_by_route):
         for route in by_route:
             by_route[route] = 0
 
@@ -1226,6 +1311,12 @@ def phase_main_path(dev, hub, infer, inputs) -> dict:
     require(logits.shape == (inputs[0].shape[0], NUM_CLASSES), "logit shape")
     require(bool(np.isfinite(logits).all()), "non-finite logits")
     require(launches["splat"] >= 1, "splat not launched by the main path")
+    from eventpretrain_tpu_torch.ops.splat import splat, splat_route
+
+    route = splat_route(inputs[0].shape[0], *CANVAS, NUM_BINS)
+    require(splat.launches_by_route[route] == launches["splat"],
+            f"the served splat left the {route} route "
+            f"({splat.launches_by_route})")
     require(launches["fused_ln_attn_layer"] == DEPTH,
             f"fused_ln_attn_layer launched {launches['fused_ln_attn_layer']}"
             f" times, expected {DEPTH}")
@@ -2465,7 +2556,8 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
     b, c, e = wb.shape
     row = {"name": "splat_tiled", "route": "cuda",
            "source": "eventpretrain_tpu_torch/csrc/splat_tiled.cu",
-           "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:403",
+           "also": ["eventpretrain_tpu_torch/csrc/splat_core.cuh"],
+           "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:403",
            "launches": total["splat_tiled"],
            "launches_by_path": {p: launches[p]["splat_tiled"]
                                 for p in launches},
@@ -2487,6 +2579,7 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         del got, ref
         ms, plain_ms = time_pair(fn, plain)
+        device_ms = graph_ms(fn)
         if bins is None:
             in_range = b * c * e
         else:
@@ -2497,7 +2590,8 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
                   + (0 if bins is None else 4 * br.numel()) + 4 * b * h * w * c)
         bms, bby = bound(in_range, nbytes)
         entry = {"shape": [b, c, e], "bin_range": bins is not None,
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                 "plain_ms": plain_ms,
                  "bound_ms": bms, "bound_by": bby, "flops": in_range,
                  "bytes": nbytes}
         # the library call: index_put_(accumulate=True) of the whole batch,
@@ -2518,12 +2612,13 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
         del tile, ty0, tx0, ok, cell, vals, acc
         if bins is not None:
             row.update({k: entry[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "shape", "flops", "bytes")})
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "flops", "bytes")})
         else:
             row["shapes"].append(entry)
         log(f"time splat_tiled B={b} bin_range={bins is not None}: kernel "
-            f"{ms:.4g} ms, plain {plain_ms:.4g} ms, index_put_ "
+            f"{ms:.4g} ms (graph-timed {device_ms * 1e3:.4g} us), plain "
+            f"{plain_ms:.4g} ms, index_put_ "
             f"{entry['library_ms']:.4g} ms, bound {bms:.4g} ms ({bby}) "
             f"({smi})")
     return row
@@ -2820,7 +2915,11 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
     from eventpretrain_tpu_torch.ops import fused_mlp as km
-    from eventpretrain_tpu_torch.ops.splat import splat, splat_reference
+    from eventpretrain_tpu_torch.ops.splat import (
+        splat,
+        splat_reference,
+        splat_route,
+    )
 
     b = big_inputs[0].shape[0]
     rng = np.random.default_rng(3)
@@ -2961,23 +3060,29 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     acc = torch.zeros((b * CANVAS[0] * CANVAS[1], NUM_BINS), device=dev)
     ms, plain_ms = time_pair(lambda: splat(y, x, wb, **hw),
                              lambda: splat_reference(y, x, wb, **hw))
+    # the card alone, without the wrapper's host work
+    device_ms = graph_ms(lambda: splat(y, x, wb, **hw))
     lib_ms = cuda_ms(lambda: acc.index_put_((cell,), vals, accumulate=True))
     nbytes = (y.numel() + x.numel()) * 4 + wb.numel() * 4 + acc.numel() * 4
     bms, bby = bound(wb.numel(), nbytes)
     err, tol = errs["splat"]
     kernels.append({
         "name": "splat", "route": "cuda", "source": csrc + "splat.cu",
-        "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:227",
+        "also": [csrc + "splat_core.cuh"],
+        "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:227",
         "launches": total["splat"],
         "launches_by_path": {p: launches[p]["splat"] for p in launches},
-        "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+        "kernel_route": splat_route(b, *CANVAS, NUM_BINS),
+        "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms,
         "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
         "library": "index_put_(accumulate=True)",
         "shape": [b, NUM_BINS, EVENTS], "flops": wb.numel(),
         "bytes": nbytes,
     })
-    log(f"time splat B={b}: kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, "
-        f"index_put_ {lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
+    log(f"time splat B={b}: kernel {ms:.4g} ms (graph-timed "
+        f"{device_ms * 1e3:.4g} us), plain {plain_ms:.4g} ms, index_put_ "
+        f"{lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
     kernels.append(k6_row(dense, errs, total, launches, smi))
     for (name, source, also, replaces, shapes, backward, case, work,
          library) in rows:

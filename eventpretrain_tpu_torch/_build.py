@@ -30,6 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # a strided (B, L, H, D) operand of csrc/mha.cu: pointer and four strides
 _STRIDED = [_P, _L, _L, _L, _L]
 # a (B, L, H, D) operand of csrc/mha.cu's one-pass route (onepass::Heads):
@@ -38,10 +39,14 @@ _HEADS = [_P, _L, _L, _L]
 
 # Every exported launcher, with its C argument types (all return int).
 SIGNATURES: dict[str, dict[str, list]] = {
-    "splat": {"splat_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "splat": {
+        "splat_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "splat_cluster_f32": [_P, _P, _P, _P, *[_I] * 8, _P],
+        "splat_cluster_occupancy": [_I, _I, _IP],
+    },
     "splat_tiled": {
-        "splat_tiled_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P],
+        "splat_tiled_cluster_f32": [_P, _P, _P, _P, _P, _P, *[_I] * 12, _P],
+        "splat_tiled_cluster_occupancy": [_I, _I, _IP],
     },
     "ln_gemm": {
         "gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

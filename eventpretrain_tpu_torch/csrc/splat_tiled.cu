@@ -10,100 +10,118 @@
 // carrying the weights as a bf16 hi+lo pair; that is the TPU's way around
 // having no scatter unit, not part of the function.
 //
-// Here one block owns one (sample, tile, bin) plane: it zeroes the tile's
-// tile_h x tile_w f32 plane in shared memory (64 KB at 128x128), finds its
-// tile's chunks in the nondecreasing table by binary search, skips the
-// chunks whose bin range excludes its bin, adds each in-tile event's
-// weight with a shared-memory atomicAdd, and writes the plane once,
-// cropped to H x W. So the output needs no zero-fill and no global atomic,
-// and an event outside its chunk's tile, or past row H or column W, adds
-// nothing, as in the TPU kernel. The sums are exact f32 up to the order of
-// the additions, which varies from run to run.
-//
-// What bounds it: the bytes. The grid's bins of one tile are adjacent
-// blocks, so a tile's coordinates are read from device memory about once
-// and from L2 by the other bins; each weight is read once, each output
-// cell written once (stride C apart: one block writes one channel).
-#include "common.cuh"
+// Here the body of csrc/splat_core.cuh takes a plane per (sample, tile):
+// the tile's tile_h x tile_w cells, its channels cut over a cluster's CTAs
+// (DSEC's 5 bins in two CTAs of 3 and 2 channels, the 2-bin count image in
+// one CTA); where more channels than a cluster of 8 holds, a plane per
+// group of them (ops/splat_tiled.py::splat_tiled_plan). What bounds it on
+// the card is the bytes (the grid written once, 90 MB at DSEC's semseg
+// batch; the coordinates and the weights inside each chunk's bin range)
+// and the shared-memory adds. The first port's body read a tile's
+// coordinates once per bin and wrote the grid one channel at a time (4-byte
+// stores 20 bytes apart); here the block finds its tile's chunks in the
+// nondecreasing table with one block-wide count, each CTA loads only the
+// weight rows of its channels inside each chunk's bin range (a chunk with
+// none costs it nothing), and each CTA writes whole rows of tile_w x C
+// floats, 16 bytes a store, cropped to H x W (the last tile row of DSEC
+// holds 56 of 128 rows). An event outside its chunk's tile, or past row H
+// or column W, adds nothing, as in the TPU kernel. The sums are exact f32
+// up to the order of the additions, which varies from run to run.
+#include <climits>
 
-__global__ void splat_tiled_kernel(const int* __restrict__ y,
-                                   const int* __restrict__ x,
-                                   const float* __restrict__ w,
-                                   const int* __restrict__ table,
-                                   const int* __restrict__ bin_range,
-                                   float* __restrict__ out, int C, int E,
-                                   int n_chunks, int chunk, int H, int W,
-                                   int tile_h, int tile_w, int tiles_x) {
-  extern __shared__ float plane[];
-  const int c = blockIdx.x;
-  const int t = blockIdx.y;
-  const int b = blockIdx.z;
-  const int cells = tile_h * tile_w;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) plane[i] = 0.0f;
+#include "splat_core.cuh"
 
-  // the chunks of tile t: [first with table >= t, first with table > t)
-  const int* tab = table + static_cast<long long>(b) * n_chunks;
-  int lo = 0, hi = n_chunks;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tab[mid] < t) lo = mid + 1; else hi = mid;
+namespace splat {
+
+// A plane is (sample, tile, channel group) p, groups innermost, so a
+// tile's groups run side by side and share its coordinates in L2. The
+// bucketer keeps a tile's chunks contiguous, so its events are one range of
+// slots.
+struct TileSource {
+  const int* table;      // (B, n_chunks) nondecreasing tile of each chunk
+  const int* bin_range;  // (B, n_chunks, 2) inclusive channels, or null
+  int n_chunks, chunk, tile_h, tile_w, tiles_x, tiles, groups;
+
+  // This thread's first word of plane p's sample's table (read before the
+  // block zeroes its part, so the read's latency hides behind the zeroing).
+  __device__ int first(const Args&, int p) const {
+    const int b = p / (groups * tiles);
+    return threadIdx.x < n_chunks
+               ? table[static_cast<long long>(b) * n_chunks + threadIdx.x]
+               : INT_MAX;
   }
-  const int j0 = lo;
-  hi = n_chunks;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (tab[mid] <= t) lo = mid + 1; else hi = mid;
-  }
-  const int j1 = lo;
-  __syncthreads();
 
-  const int ty0 = (t / tiles_x) * tile_h;
-  const int tx0 = (t % tiles_x) * tile_w;
-  const int ylim = min(tile_h, H - ty0);  // rows past H are cropped
-  const int xlim = min(tile_w, W - tx0);
-  const long long base = static_cast<long long>(b) * E;
-  const float* wc = w + (static_cast<long long>(b) * C + c) * E;
-  for (int j = j0; j < j1; ++j) {
-    if (bin_range != nullptr) {
-      const int* br = bin_range + (static_cast<long long>(b) * n_chunks + j) * 2;
-      if (c < br[0] || c > br[1]) continue;  // uniform across the block
+  __device__ Plane plane(const Args& a, const Geom& g, int p,
+                         int head) const {
+    Plane pl;
+    const int grp = p % groups;
+    const int t = (p / groups) % tiles;
+    pl.b = p / (groups * tiles);
+    // tile t's chunks, [first with table >= t, first with table > t): two
+    // counts over the nondecreasing table, by the whole block
+    const int* tab = table + static_cast<long long>(pl.b) * n_chunks;
+    int lo = 0, hi = 0;
+    for (int base = 0; base < n_chunks; base += kThreads) {
+      const int j = base + threadIdx.x;
+      const int v = base == 0 ? head : j < n_chunks ? tab[j] : INT_MAX;
+      lo += __syncthreads_count(v < t);
+      hi += __syncthreads_count(v <= t);
     }
-    for (int k = threadIdx.x; k < chunk; k += blockDim.x) {
-      const long long e = static_cast<long long>(j) * chunk + k;
-      const int ly = y[base + e] - ty0;
-      const int lx = x[base + e] - tx0;
-      if (ly < 0 || ly >= ylim || lx < 0 || lx >= xlim) continue;
-      const float v = wc[e];
-      if (v != 0.0f) atomicAdd(plane + ly * tile_w + lx, v);
-    }
+    pl.lo = lo * chunk;
+    pl.hi = hi * chunk;
+    pl.y0 = (t / tiles_x) * tile_h;
+    pl.x0 = (t % tiles_x) * tile_w;
+    pl.ylim = min(tile_h, a.H - pl.y0);  // rows past H are cropped
+    pl.xlim = min(tile_w, a.W - pl.x0);
+    const int per_group = (a.C + groups - 1) / groups;
+    pl.c0 = grp * per_group;
+    pl.cph = min(per_group, a.C - pl.c0);
+    return pl;
   }
-  __syncthreads();
 
-  for (int i = threadIdx.x; i < ylim * xlim; i += blockDim.x) {
-    const int ly = i / xlim;
-    const int lx = i - ly * xlim;
-    out[((static_cast<long long>(b) * H + ty0 + ly) * W + tx0 + lx) * C + c] =
-        plane[ly * tile_w + lx];
+  // the channels slot e's chunk may touch: its bin range
+  __device__ void clamp(const Args&, const Plane& pl, int e, int& lo,
+                        int& hi) const {
+    if (bin_range == nullptr) return;
+    const int* br = bin_range +
+                    (static_cast<long long>(pl.b) * n_chunks + e / chunk) * 2;
+    lo = max(lo, __ldg(br));
+    hi = min(hi, __ldg(br + 1));
   }
-}
+};
 
-extern "C" int splat_tiled_f32(const void* y, const void* x, const void* w,
-                               const void* table, const void* bin_range,
-                               void* out, int B, int C, int E, int chunk,
-                               int H, int W, int tile_h, int tile_w,
-                               void* stream) {
+}  // namespace splat
+
+// One cluster of `cluster` CTAs a plane of the tile_h x tile_w tile and
+// ceil(C / groups) channels (`groups` planes a tile), each CTA holding `cp`
+// channels in `smem` bytes of dynamic shared memory (at least what that
+// takes).
+extern "C" int splat_tiled_cluster_f32(
+    const void* y, const void* x, const void* w, const void* table,
+    const void* bin_range, void* out, int B, int C, int E, int chunk, int H,
+    int W, int tile_h, int tile_w, int cluster, int cp, int groups, int smem,
+    void* stream) {
   if (B == 0 || C == 0 || H == 0 || W == 0) return 0;
   const int tiles_y = (H + tile_h - 1) / tile_h;
   const int tiles_x = (W + tile_w - 1) / tile_w;
-  const int smem = tile_h * tile_w * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      splat_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(C, tiles_y * tiles_x, B);
-  splat_tiled_kernel<<<grid, 512, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(y), static_cast<const int*>(x),
-      static_cast<const float*>(w), static_cast<const int*>(table),
-      static_cast<const int*>(bin_range), static_cast<float*>(out), C, E,
-      E / chunk, chunk, H, W, tile_h, tile_w, tiles_x);
-  return static_cast<int>(cudaGetLastError());
+  splat::Geom g;
+  g.rows = tile_h;
+  g.cols = tile_w;
+  g.cp = cp;
+  g.vec_in = splat::inputs_vectorizable(y, x, w, E) && chunk % 4 == 0;
+  const splat::Args a{static_cast<const int*>(y), static_cast<const int*>(x),
+                      static_cast<const float*>(w), static_cast<float*>(out),
+                      C, E, H, W};
+  const splat::TileSource src{static_cast<const int*>(table),
+                              static_cast<const int*>(bin_range),
+                              E / chunk, chunk, tile_h, tile_w, tiles_x,
+                              tiles_y * tiles_x, groups};
+  return splat::launch(a, g, src, B * tiles_y * tiles_x * groups, cluster,
+                       (C + groups - 1) / groups, smem,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int splat_tiled_cluster_occupancy(int cluster, int smem,
+                                             int* out) {
+  return splat::max_active_clusters<splat::TileSource>(cluster, smem, out);
 }

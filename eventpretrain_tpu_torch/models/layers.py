@@ -17,8 +17,8 @@ dtype.
 (``fused_ln_attn_layer``) and K2 (``fused_ln_mlp``), forward and backward,
 under the JAX gates of layers.py:343-380: a 2-byte compute dtype, no active
 dropout or drop-path, no attention weights requested, shapes inside
-``supports_*`` (K1's with the backward kernel's shared-memory bound while
-gradients are on). A block that cannot fuse runs the unfused composition,
+``supports_*`` (K1's with the backward kernels' shared-memory bound and
+the LayerNorm backward's width, C <= 768, while gradients are on). A block that cannot fuse runs the unfused composition,
 whose parts take their own kernels under the JAX conditions:
 ``Attention`` takes K4 (``fused_attn_layer``, layers.py:249-276) when no
 attention weights are requested and ``attn_drop`` is 0, as in training
@@ -55,6 +55,7 @@ from eventpretrain_tpu_torch.ops.fused_attn_layer import (
     fused_attn_layer,
     fused_ln_attn_layer,
     supports_fused_attn_layer,
+    supports_fused_ln_attn_layer,
 )
 from eventpretrain_tpu_torch.ops.fused_mha import (
     fused_mha,
@@ -307,7 +308,7 @@ class ViTBlock(nn.Module):
             and self.attn_drop == 0.0
             and (self.drop == 0.0 or deterministic)
             and (self.drop_path_rate == 0.0 or deterministic)
-            and supports_fused_attn_layer(
+            and supports_fused_ln_attn_layer(
                 x.shape[1], x.shape[2], self.num_heads, self.dtype,
                 backward=torch.is_grad_enabled(),
             )

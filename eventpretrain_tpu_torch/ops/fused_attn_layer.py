@@ -60,6 +60,7 @@ from eventpretrain_tpu_torch.ops.common import (
     EPI_BIAS,
     EPI_BIAS_RESIDUAL,
     EPI_F32,
+    LN_BWD_MAX_WIDTH,
     MAX_FUSED_SEQ_LEN,
     check_cuda_operands,
     colsum,
@@ -132,6 +133,17 @@ def supports_fused_attn_layer(seq_len: int, dim: int, num_heads: int,
     if ok and backward:
         ok = attention_bwd_smem_bytes(seq_len, head_dim) <= MAX_BLOCK_SMEM
     return ok
+
+
+def supports_fused_ln_attn_layer(seq_len: int, dim: int, num_heads: int,
+                                 dtype=None, backward: bool = False) -> bool:
+    """K1's gate: :func:`supports_fused_attn_layer`, and with ``backward``
+    also the width the LayerNorm backward of its backward holds
+    (``ln_backward``, C <= ``LN_BWD_MAX_WIDTH``). K4's backward has no
+    LayerNorm, so its gate has no such bound."""
+    return (supports_fused_attn_layer(seq_len, dim, num_heads, dtype,
+                                      backward)
+            and (not backward or dim <= LN_BWD_MAX_WIDTH))
 
 
 def _heads_softmax(qkv, b, l, num_heads, scale):
@@ -276,7 +288,9 @@ def _check_cuda(fn, x, wqkv, bqkv, wo, bo, num_heads, backward, ln=None):
     if x.ndim != 3:
         raise ValueError(f"{fn}: x must be (B, L, C), got {tuple(x.shape)}")
     b, l, c = x.shape
-    if not supports_fused_attn_layer(l, c, num_heads, x.dtype, backward):
+    gate = (supports_fused_attn_layer if ln is None
+            else supports_fused_ln_attn_layer)
+    if not gate(l, c, num_heads, x.dtype, backward):
         raise ValueError(
             f"{fn}: L={l} C={c} heads={num_heads} {x.dtype} is outside the "
             "kernel's gate"
@@ -393,7 +407,7 @@ def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
     autograd, :func:`fused_ln_attn_layer_bwd_reference`. CUDA tensors launch
     the kernels or raise: ``x``, weights and biases bf16, LayerNorm
     parameters f32, all contiguous; shapes inside
-    :func:`supports_fused_attn_layer` (with the backward's bound when
+    :func:`supports_fused_ln_attn_layer` (with the backward's bounds when
     gradients are on). ``launches`` and ``launches_bwd`` count the CUDA
     forward and backward calls.
     """

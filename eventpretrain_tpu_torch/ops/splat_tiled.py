@@ -13,11 +13,17 @@ zero, so the bounds must be conservative.
 
 The TPU kernel splats each chunk into its tile's block with one-hot matrix
 products, carrying the weights as a bf16 hi+lo pair (within ~1e-5 of
-f32). The CUDA kernel (csrc/splat_tiled.cu) sums in exact f32: one block
-per (sample, tile, bin) accumulates the tile's plane in shared memory with
-shared-memory atomics over only its tile's chunks, skipping the chunks
-whose bin range excludes its bin, and writes the plane once, cropped. It
-is bound by the bytes it reads and writes.
+f32). The CUDA kernel (csrc/splat_tiled.cu, on the plane body of
+csrc/splat_core.cuh that K3 shares) sums in exact f32: a thread-block
+cluster per (sample, tile) holds the tile's plane in shared memory, its
+channels cut over the CTAs (:func:`splat_tiled_plan`: DSEC's 128x128x5
+tile in two CTAs of 3 and 2 channels, the 2-bin count image in one); each
+CTA walks the tile's chunks, loads the weights of its channels inside each
+chunk's bin range, adds each in-tile weight into its own shared memory,
+and writes its share of the tile's rows once, whole rows gathered from the
+CTAs, cropped. It is bound by the bytes it reads and writes and by its
+shared-memory adds. :func:`splat_tiled_launch_reference` replays that
+decomposition in PyTorch.
 
 The tile geometry defaults come from ``eventpretrain_tpu_torch.native``,
 the bucketer's module, so the two sides cannot disagree.
@@ -31,11 +37,22 @@ import torch
 
 from eventpretrain_tpu_torch import _build
 from eventpretrain_tpu_torch.native import TILE_CHUNK, TILE_H, TILE_W
-from eventpretrain_tpu_torch.ops.common import check_cuda_operands
+from eventpretrain_tpu_torch.ops.common import _stream, check_cuda_operands
 from eventpretrain_tpu_torch.ops.events import bilinear_bin_weights_windowed
+from eventpretrain_tpu_torch.ops.splat import (
+    SplatPlan,
+    splat_plan,
+    write_rows,
+)
 
-# the kernel's shared-memory plane of one tile, f32, within a block's limit
-SMEM_LIMIT = 232448
+
+def splat_tiled_plan(tile_h: int, tile_w: int, channels: int,
+                     **pins) -> Optional[SplatPlan]:
+    """K6's plan: a ``tile_h x tile_w`` plane of all the channels where a
+    cluster holds it, else of the fewest channel groups that fit; None
+    where not even one channel of a tile fits a CTA. ``pins`` go to
+    :func:`splat_plan`."""
+    return splat_plan(tile_h, tile_w, channels, max_groups=channels, **pins)
 
 
 def _slot_tiles(tile_table: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -73,6 +90,56 @@ def splat_tiled_reference(y: torch.Tensor, x: torch.Tensor,
     return out.view(b, height, width, c)
 
 
+def splat_tiled_launch_reference(y: torch.Tensor, x: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 tile_table: torch.Tensor,
+                                 bin_range: Optional[torch.Tensor] = None, *,
+                                 height: int, width: int, plan: SplatPlan,
+                                 tile_h: int = TILE_H, tile_w: int = TILE_W,
+                                 chunk: int = TILE_CHUNK) -> torch.Tensor:
+    """The kernel's decomposition replayed in PyTorch: per (sample, tile,
+    channel group) plane, the tile's chunks counted in the table; CTA ``r``
+    of ``n`` walks them and adds each in-tile event's weights of its
+    channels ``[r*cp, (r+1)*cp)`` of the group that lie inside the chunk's
+    bin range into its own part; :func:`write_rows` writes the plane's
+    cells from the parts, cropped to the grid."""
+    b, c, e = weights.shape
+    n, cp, groups = plan.cluster, plan.cp, plan.groups
+    width_g = -(-c // groups)
+    tiles_x = -(-width // tile_w)
+    tiles = -(-height // tile_h) * tiles_x
+    ch = torch.arange(c, device=weights.device)[:, None]
+    out = torch.empty((b, height, width, c), dtype=torch.float32,
+                      device=weights.device)
+    for p in range(b * tiles * groups):
+        grp, t, bi = p % groups, p // groups % tiles, p // (groups * tiles)
+        lo = int((tile_table[bi] < t).sum()) * chunk
+        hi = int((tile_table[bi] <= t).sum()) * chunk
+        y0, x0 = t // tiles_x * tile_h, t % tiles_x * tile_w
+        ylim, xlim = min(tile_h, height - y0), min(tile_w, width - x0)
+        c0 = grp * width_g
+        cph = min(width_g, c - c0)
+        ly = y[bi, lo:hi].long() - y0
+        lx = x[bi, lo:hi].long() - x0
+        ok = (ly >= 0) & (ly < ylim) & (lx >= 0) & (lx < xlim)
+        w = weights[bi, :, lo:hi].float()
+        if bin_range is not None:
+            br = bin_range[bi].long().repeat_interleave(chunk, 0)[lo:hi]
+            w = torch.where((ch >= br[:, 0]) & (ch <= br[:, 1]), w, 0.0)
+        parts = []
+        for rank in range(n):
+            mlo = c0 + rank * cp
+            mhi = min(c0 + cph, mlo + cp)
+            part = torch.zeros((tile_h, tile_w, max(mhi - mlo, 0)),
+                               dtype=torch.float32, device=weights.device)
+            part.index_put_((ly[ok], lx[ok]), w[mlo:mhi, ok].t(),
+                            accumulate=True)
+            parts.append(part)
+        out[bi, y0:y0 + ylim, x0:x0 + xlim, c0:c0 + cph] = write_rows(
+            parts, ylim, xlim)
+    return out
+
+
 def splat_tiled(y: torch.Tensor, x: torch.Tensor, weights: torch.Tensor,
                 tile_table: torch.Tensor,
                 bin_range: Optional[torch.Tensor] = None, *, height: int,
@@ -84,7 +151,8 @@ def splat_tiled(y: torch.Tensor, x: torch.Tensor, weights: torch.Tensor,
     CPU tensors take :func:`splat_tiled_reference`. CUDA tensors launch the
     kernel or raise: ``y``, ``x``, ``tile_table (B, E // chunk)`` and
     ``bin_range (B, E // chunk, 2)`` int32, ``weights`` f32, contiguous;
-    ``E`` a multiple of ``chunk``.
+    ``E`` a multiple of ``chunk``; a tile that :func:`splat_tiled_plan`
+    fits.
     """
     if weights.ndim != 3:
         raise ValueError(f"splat_tiled: weights must be (B, C, E), "
@@ -106,13 +174,14 @@ def splat_tiled(y: torch.Tensor, x: torch.Tensor, weights: torch.Tensor,
         return splat_tiled_reference(
             y, x, weights, tile_table, bin_range, height=height, width=width,
             tile_h=tile_h, tile_w=tile_w, chunk=chunk)
-    tiles = -(-height // tile_h) * -(-width // tile_w)
-    if b > 65535 or tiles > 65535:
-        raise ValueError(f"splat_tiled: batch {b} or {tiles} tiles exceed "
-                         "the launch grid")
-    if tile_h * tile_w * 4 > SMEM_LIMIT:
+    plan = splat_tiled_plan(tile_h, tile_w, max(c, 1))
+    if plan is None:
         raise ValueError(f"splat_tiled: a {tile_h}x{tile_w} f32 tile does "
-                         "not fit in a block's shared memory")
+                         "not fit in a cluster's shared memory")
+    planes = b * -(-height // tile_h) * -(-width // tile_w) * plan.groups
+    if planes * plan.cluster >= 2**31:
+        raise ValueError(f"splat_tiled: {planes} planes exceed the launch "
+                         "grid")
     ints = dict(y=y, x=x, tile_table=tile_table)
     if bin_range is not None:
         ints["bin_range"] = bin_range
@@ -123,16 +192,18 @@ def splat_tiled(y: torch.Tensor, x: torch.Tensor, weights: torch.Tensor,
                          "devices")
     out = torch.empty((b, height, width, c), dtype=torch.float32,
                       device=weights.device)
+    if out.numel() == 0:
+        return out
     lib = _build.load("splat_tiled")
     with torch.cuda.device(weights.device):
-        code = lib.splat_tiled_f32(
+        code = lib.splat_tiled_cluster_f32(
             y.data_ptr(), x.data_ptr(), weights.data_ptr(),
             tile_table.data_ptr(),
             None if bin_range is None else bin_range.data_ptr(),
             out.data_ptr(), b, c, e, chunk, height, width, tile_h, tile_w,
-            torch.cuda.current_stream(weights.device).cuda_stream,
-        )
-    _build.check(lib, "splat_tiled_f32", code)
+            plan.cluster, plan.cp, plan.groups, plan.smem_bytes,
+            _stream(weights))
+    _build.check(lib, "splat_tiled_cluster_f32", code)
     splat_tiled.launches += 1
     return out
 

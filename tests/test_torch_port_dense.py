@@ -67,6 +67,8 @@ from eventpretrain_tpu_torch.ops.events import polarity_weights_coordvalid
 from eventpretrain_tpu_torch.ops.reshape import resize
 from eventpretrain_tpu_torch.ops.splat_tiled import (
     splat_tiled,
+    splat_tiled_launch_reference,
+    splat_tiled_plan,
     voxelize_batch_tiled,
 )
 from eventpretrain_tpu_torch.ops.view_augment import (
@@ -227,12 +229,20 @@ def test_splat_tiled_matches_jax_kernel(bucketed, bins):
         jnp.asarray(y), jnp.asarray(x), jnp.asarray(w), jnp.asarray(table),
         None if br is None else jnp.asarray(br), height=H, width=W,
         chunk=CHUNK, interpret=True)
-    got = splat_tiled(
-        torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(w),
-        torch.from_numpy(table), None if br is None else torch.from_numpy(br),
-        height=H, width=W, chunk=CHUNK)
+    args = (torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(w),
+            torch.from_numpy(table),
+            None if br is None else torch.from_numpy(br))
+    got = splat_tiled(*args, height=H, width=W, chunk=CHUNK)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=K6_ATOL)
+    # the kernel's decomposition at its own plan (two CTAs of 3 and 2
+    # channels) and at one channel a CTA
+    for pins in ({}, {"cluster": 5}):
+        got = splat_tiled_launch_reference(
+            *args, height=H, width=W, chunk=CHUNK,
+            plan=splat_tiled_plan(128, 128, NB, **pins))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=K6_ATOL)
 
 
 def test_splat_tiled_refuses_a_layout_that_is_not_chunk_aligned():

@@ -36,7 +36,12 @@ from eventpretrain_tpu_torch.ops.fused_mlp import (
     fused_ln_mlp,
     supports_fused_ln_mlp,
 )
-from eventpretrain_tpu_torch.ops.splat import splat, voxelize_batch
+from eventpretrain_tpu_torch.ops.splat import (
+    splat,
+    splat_launch_reference,
+    splat_plan,
+    voxelize_batch,
+)
 
 
 def _events(rng, b, e, h, w, *, margin=3.0):
@@ -111,6 +116,13 @@ def test_splat_matches_jax_splat_mxu(b, c, e, h, w):
     assert got.shape == (b, h, w, c)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=SPLAT_ATOL)
+    # the cluster route's decomposition at its own plan and over 3 CTAs
+    for plan in (splat_plan(h, w, c), splat_plan(h, w, c, cluster=3)):
+        got = splat_launch_reference(
+            torch.from_numpy(y), torch.from_numpy(x), torch.from_numpy(wts),
+            height=h, width=w, plan=plan)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=SPLAT_ATOL)
 
 
 def _to_torch_params(p: jva.ViewParams) -> tva.ViewParams:
