@@ -11,9 +11,10 @@ backend's refusal of a shape, which its timing records as null):
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
    at once), each kernel's registers and spills printed, and no GEMM
    instantiation, row kernel (csrc/ln_bwd.cu) or splat kernel (csrc/splat.cu,
-   splat_tiled.cu) allowed to spill; each splat launch plan of the main
-   paths with the clusters of it the card holds at once
-   (cudaOccupancyMaxActiveClusters).
+   splat_tiled.cu) or K8 (csrc/voxel_scatter.cu) allowed to spill; each
+   splat launch plan of the main paths with the clusters of it the card
+   holds at once (cudaOccupancyMaxActiveClusters), and K8's resident
+   CTAs.
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) on both routes, each call on the one
    ``splat_route`` names: the cluster route at B=64, E=30000, 128x128x5,
@@ -53,8 +54,10 @@ backend's refusal of a shape, which its timing records as null):
    (8, 196, H16, D32), each direction on the route ``mha_route`` names,
    the backward through autograd equal bit for bit to ``fused_mha_bwd``;
    K8 (``voxelize_batch_scatter``) at B=8, E=30000,
-   128x128x5 with strays, negative fractions and counts 0 and 1, against
-   its plain version and K3's ``voxelize_batch``.
+   128x128x5 with strays, negative fractions, counts 0 and 1 and a hot
+   pixel (10% of a sample's events, its sums exact), against its plain
+   version and K3's ``voxelize_batch``, through the wrapper and into a
+   grid filled with NaN first (the kernel writes every cell).
 3. Slice 1, serving: the ViT-S/16 classification hub (2 classes, N-Cars),
    full width, random weights from seed 0, bf16 on the card, fed synthetic
    raw N-Cars-shaped events (sensor 100x120 on a 128x128 canvas, E=30000,
@@ -99,7 +102,8 @@ backend's refusal of a shape, which its timing records as null):
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
    one-pass route, K4 0), output and gradients against the plain product;
    ``voxelize_batch_scatter`` on a DSEC-shape batch (B=16, 200000 events,
-   440x640x5; K8 1) against its plain version and K3. Then one epoch of
+   440x640x5, a hot pixel; K8 1) against its plain version and K3, and
+   again into a grid of NaN. Then one epoch of
    the cls loop (B=64, 6 batches) and of the semseg loop (B=16, 4 batches)
    through ``train_one_epoch`` and its prefetcher, counted, beside the same
    loop in the training thread: delivered samples/s of both.
@@ -117,8 +121,8 @@ backend's refusal of a shape, which its timing records as null):
    default and under each ``sdpa_kernel`` backend that takes the shape,
    with each of their kernels' registers and spills; the served
    function's samples/s at B=64; K8 at DSEC's and N-Cars' shapes
-   beside K3's ``voxelize_batch``; K3 and K6 also from CUDA graphs of 10
-   calls (the card alone); the rec and cls train steps' ms,
+   beside K3's ``voxelize_batch``; K3, K6 and K8 also from CUDA graphs of
+   10 calls (the card alone); the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
    B=16), the cls and dense pipelines' host time per batch and phase 5d's
    delivered samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
@@ -315,7 +319,22 @@ def phase_environment() -> str:
             for kernel, use in found.items():
                 require(use["spill_stores"] == use["spill_loads"] == 0,
                         f"{kernel} spills ({use})")
+    if "voxel_scatter" in logs:
+        # K8 keeps an event's terms in registers; it may not spill
+        found = {k: u for k, u in PTXAS.items()
+                 if k.startswith("voxel_scatter:")}
+        require("voxel_scatter:voxel_scatter_kernel" in found,
+                "ptxas reported no K8 kernel")
+        for kernel, use in found.items():
+            require(use["spill_stores"] == use["spill_loads"] == 0,
+                    f"{kernel} spills ({use})")
     log_splat_clusters()
+    from eventpretrain_tpu_torch.ops.splat import voxel_scatter_device
+
+    l2_bytes, sms, per_sm = voxel_scatter_device(0)
+    log(f"  K8: {per_sm} CTAs an SM resident at once ({sms} SMs; the plan "
+        f"launches one an SM); L2 {l2_bytes} B")
+    require(per_sm >= 1, "no CTA of K8 fits an SM")
     return smi
 
 
@@ -1119,11 +1138,16 @@ def phase_k7_parity(dev) -> dict:
     return {"fused_mha": fwd, "fused_mha_bwd": bwd}
 
 
-def k8_events(rng, batch: int, capacity: int, sensor_hw):
+def k8_events(rng, batch: int, capacity: int, sensor_hw, hot: bool = False):
     """Raw events for K8: fractional coordinates from 2 before to 2 past the
     sensor (out-of-frame strays, and negative fractions that truncate into
     row or column 0), sorted t, polarity in {0, 1}, every row filled (rows
-    past a count must add nothing); ragged counts, with a 0 and a 1."""
+    past a count must add nothing); ragged counts, with a 0 and a 1. With
+    ``hot``, sample 3 puts 10% of its events on one pixel, to hold the
+    contended adds: its times are multiples of 2^-6 from exactly 0 at the
+    first event to 1 at the last of its count, so every weight is a
+    multiple of 2^-4 and its sums are exact in any order; a lost or
+    misplaced add shows as an error of 1/16 or more."""
     h, w = sensor_hw
     ev = np.empty((batch, capacity, 4), np.float32)
     ev[..., 0] = rng.uniform(-2.0, w + 2.0, (batch, capacity))
@@ -1134,19 +1158,38 @@ def k8_events(rng, batch: int, capacity: int, sensor_hw):
     counts[0] = capacity
     if batch >= 3:
         counts[1], counts[2] = 0, 1
+    if hot and batch >= 4:
+        n = counts[3]
+        hits = rng.choice(n, n // 10, replace=False)
+        ev[3, hits, 0] = w // 2 + 0.5
+        ev[3, hits, 1] = h // 2 + 0.25
+        t = np.sort(rng.integers(0, 65, capacity)) / 64.0
+        t[0], t[n - 1:] = 0.0, 1.0
+        ev[3, :, 2] = t
     return ev, counts
 
 
-def k8_inputs(rng, batch, capacity, grid_hw, dev):
-    ev, counts = k8_events(rng, batch, capacity, grid_hw)
+def k8_inputs(rng, batch, capacity, grid_hw, dev, hot: bool = False):
+    ev, counts = k8_events(rng, batch, capacity, grid_hw, hot)
     return (torch.from_numpy(ev).to(dev), torch.from_numpy(counts).to(dev),
             dict(num_bins=NUM_BINS, height=grid_hw[0], width=grid_hw[1]))
+
+
+def k8_into_nan(ev, counts, kw) -> torch.Tensor:
+    """K8's launch into a grid filled with NaN first (``_voxel_scatter_into``
+    takes the output): a cell the kernel fails to write stays NaN."""
+    from eventpretrain_tpu_torch.ops.splat import _voxel_scatter_into
+
+    out = torch.full((ev.shape[0], kw["height"], kw["width"],
+                      kw["num_bins"]), float("nan"), device=ev.device)
+    return _voxel_scatter_into(ev, counts, out, **kw)
 
 
 def phase_k8_parity(dev) -> tuple[float, float]:
     """K8 against its plain version and against K3's ``voxelize_batch`` (the
     same function through PyTorch bin weights and the splat) at B=8,
-    E=30000 on a 128x128x5 grid."""
+    E=30000 on a 128x128x5 grid with a hot pixel, through the wrapper and
+    into a grid of NaN."""
     from eventpretrain_tpu_torch.ops.splat import (
         voxelize_batch,
         voxelize_batch_scatter,
@@ -1154,22 +1197,28 @@ def phase_k8_parity(dev) -> tuple[float, float]:
     )
 
     ev, counts, kw = k8_inputs(np.random.default_rng(8), 8, EVENTS, CANVAS,
-                               dev)
+                               dev, hot=True)
     got = voxelize_batch_scatter(ev, counts, **kw)
+    nan = k8_into_nan(ev, counts, kw)
     ref = voxelize_batch_scatter_reference(ev, counts, **kw)
     k3 = voxelize_batch(ev, counts, **kw)
     torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
+    err = max((got - ref).abs().max().item(), (nan - ref).abs().max().item())
     err_k3 = (got - k3).abs().max().item()
+    err_hot = (nan[3] - ref[3]).abs().max().item()
     log(f"voxelize_batch_scatter (8, {EVENTS}, 4) -> {tuple(got.shape)}: "
-        f"max_abs_err {err:.3g} vs its plain version, {err_k3:.3g} vs K3's "
-        f"voxelize_batch (tol {SPLAT_ATOL}); sum {got.sum().item():.6g} vs "
+        f"max_abs_err {err:.3g} vs its plain version (also into a grid of "
+        f"NaN), {err_k3:.3g} vs K3's voxelize_batch (tol {SPLAT_ATOL}); hot "
+        f"pixel sample {err_hot:.3g}; sum {got.sum().item():.6g} vs "
         f"{ref.sum().item():.6g}; empty sample {got[1].abs().max().item()}")
     require(err <= SPLAT_ATOL,
             "voxelize_batch_scatter disagrees with its plain version")
     require(err_k3 <= SPLAT_ATOL,
             "voxelize_batch_scatter disagrees with K3's voxelize_batch")
-    require(got[1].abs().max().item() == 0.0, "a count of 0 added events")
+    require(err_hot == 0.0, "the hot pixel's exact sums differ")
+    require(got[1].abs().max().item() == 0.0
+            and nan[1].abs().max().item() == 0.0,
+            "a count of 0 added events")
     return max(err, err_k3), SPLAT_ATOL
 
 
@@ -2081,8 +2130,12 @@ K8_PATH_EVENTS = DSEC_EVENTS
 
 def phase_k8_path(dev) -> dict:
     """``voxelize_batch_scatter`` on a DSEC-shape batch (B=16, 200000
-    events, 440x640x5), counted on its own (K8 1), then held against its
-    plain version and against K3's ``voxelize_batch``."""
+    events, 440x640x5, a hot pixel in sample 3), counted on its own (K8 1),
+    then held against its plain version and against K3's
+    ``voxelize_batch``. The wrapper's grid comes from ``torch.empty``: a
+    block of the same size is filled with NaN and freed just before, so
+    the caching allocator most likely hands it back; K8 is then held again
+    on a grid it is given, filled with NaN (outside the counted run)."""
     from eventpretrain_tpu_torch.ops.splat import (
         voxelize_batch,
         voxelize_batch_scatter,
@@ -2090,21 +2143,34 @@ def phase_k8_path(dev) -> dict:
     )
 
     ev, counts, kw = k8_inputs(np.random.default_rng(12), DENSE_BATCH,
-                               K8_PATH_EVENTS, DSEC_HW, dev)
+                               K8_PATH_EVENTS, DSEC_HW, dev, hot=True)
+    poison = torch.full((DENSE_BATCH, *DSEC_HW, NUM_BINS), float("nan"),
+                        device=dev)
+    poisoned = poison.data_ptr()
+    del poison
     reset_counts()
     got = voxelize_batch_scatter(ev, counts, **kw)
     torch.cuda.synchronize()
     launches = read_counts()
-    err = (got - voxelize_batch_scatter_reference(ev, counts, **kw)
-           ).abs().max().item()
+    nan = k8_into_nan(ev, counts, kw)
+    ref = voxelize_batch_scatter_reference(ev, counts, **kw)
+    err = max((got - ref).abs().max().item(), (nan - ref).abs().max().item())
     err_k3 = (got - voxelize_batch(ev, counts, **kw)).abs().max().item()
+    err_hot = (nan[3] - ref[3]).abs().max().item()
     log(f"K8 path: voxelize_batch_scatter {tuple(ev.shape)} -> "
-        f"{tuple(got.shape)}: max_abs_err {err:.3g} vs its plain version, "
-        f"{err_k3:.3g} vs K3's voxelize_batch (tol {SPLAT_ATOL}); launches "
+        f"{tuple(got.shape)}: max_abs_err {err:.3g} vs its plain version "
+        f"(also into a grid of NaN; the wrapper's grid reused the NaN block: "
+        f"{got.data_ptr() == poisoned}), {err_k3:.3g} vs K3's voxelize_batch "
+        f"(tol {SPLAT_ATOL}); hot pixel sample {err_hot:.3g}; launches "
         f"{launches}")
-    require(bool(torch.isfinite(got).all()), "non-finite voxel grid")
+    require(bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(nan).all()), "non-finite voxel grid")
     require(err <= SPLAT_ATOL and err_k3 <= SPLAT_ATOL,
             "the K8 path's grids disagree with the plain ones")
+    require(err_hot == 0.0, "the K8 path's hot pixel's exact sums differ")
+    require(got[1].abs().max().item() == 0.0
+            and nan[1].abs().max().item() == 0.0,
+            "the K8 path's count of 0 added events")
     require(launches["voxelize_batch_scatter"] == 1
             and sum(launches.values()) == 1,
             "the K8 path did not launch K8 alone, once")
@@ -2855,15 +2921,22 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
     """K8 at DSEC's shape (B=16, 200000 events, 440x640x5) and at N-Cars'
     (B=64, 30000 events, 128x128x5): held against its plain version, then
     timed beside it and beside K3's ``voxelize_batch`` (the same function:
-    PyTorch bin weights, then the splat); no single PyTorch call computes
-    it. The bound counts the bytes this data needs: the events below each
-    count read once (16 bytes), the grid written once."""
+    PyTorch bin weights, then the splat), one call an event pair and from
+    a CUDA graph of 10 calls (``device_ms``, the card alone); no single
+    PyTorch call computes it. The bound counts the bytes this data needs:
+    the events below each count read once (16 bytes), the counts, the grid
+    written once. With ptxas's registers and spills, the plan, and the
+    CTAs of the kernel the card holds at once."""
     from eventpretrain_tpu_torch.ops.splat import (
+        SCATTER_CHUNK,
+        voxel_scatter_device,
+        voxel_scatter_plan,
         voxelize_batch,
         voxelize_batch_scatter,
         voxelize_batch_scatter_reference,
     )
 
+    l2_bytes, sms, per_sm = voxel_scatter_device(dev.index or 0)
     row = {"name": "voxelize_batch_scatter", "route": "cuda",
            "source": "eventpretrain_tpu_torch/csrc/voxel_scatter.cu",
            "also": [], "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:97",
@@ -2872,7 +2945,11 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
                                 for p in launches},
            "max_abs_err": errs["voxelize_batch_scatter"][0],
            "tol": errs["voxelize_batch_scatter"][1],
-           "library": None, "shapes": []}
+           "library": None, "resident_ctas": sms * per_sm,
+           "l2_bytes": l2_bytes,
+           "ptxas": {k: v for k, v in PTXAS.items()
+                     if k.startswith("voxel_scatter:")},
+           "shapes": []}
     rng = np.random.default_rng(14)
     for batch, events, grid in ((DENSE_BATCH, K8_PATH_EVENTS, DSEC_HW),
                                 (TRAIN_BATCH, EVENTS, CANVAS)):
@@ -2889,23 +2966,31 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
                                    "disagrees with its plain version")
         row["max_abs_err"] = max(row["max_abs_err"], err)
         ms, plain_ms = time_pair(fn, plain)
+        device_ms = min(graph_ms(fn), graph_ms(fn))
         k3_ms = cuda_ms(lambda: voxelize_batch(ev, counts, **kw))
         read = int(counts.clamp(max=events).sum())
         nbytes = 16 * read + 4 * batch + 4 * batch * grid[0] * grid[1] * NUM_BINS
         bms, bby = bound(0, nbytes)
+        plan = voxel_scatter_plan(batch, *grid, NUM_BINS, events,
+                                  chunk=SCATTER_CHUNK, l2_bytes=l2_bytes,
+                                  sms=sms)
         entry = {"shape": [batch, events, grid[0], grid[1], NUM_BINS],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bms, "bound_by": bby, "flops": 0,
-                 "bytes": nbytes, "library_ms": None, "k3_voxelize_ms": k3_ms}
+                 "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                 "flops": 0, "bytes": nbytes, "library_ms": None,
+                 "k3_voxelize_ms": k3_ms, "plan": plan.__dict__}
         if "ms" not in row:
             row.update({k: entry[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "shape", "flops", "bytes", "k3_voxelize_ms")})
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "flops", "bytes", "k3_voxelize_ms",
+                "plan")})
         else:
             row["shapes"].append(entry)
         log(f"time voxelize_batch_scatter {entry['shape']}: kernel {ms:.4g} "
-            f"ms, plain {plain_ms:.4g} ms, K3 voxelize_batch {k3_ms:.4g} ms, "
-            f"bound {bms:.4g} ms ({bby}) ({smi})")
+            f"ms one call, {device_ms * 1e3:.4g} us graph-timed "
+            f"({bms / device_ms:.1%} of the bound), plain {plain_ms:.4g} ms, "
+            f"K3 voxelize_batch {k3_ms:.4g} ms, bound {bms:.4g} ms ({bby}); "
+            f"{plan}, {sms * per_sm} CTAs resident ({smi})")
     return row
 
 

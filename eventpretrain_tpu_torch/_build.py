@@ -71,7 +71,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
                          _F, _P],
     },
     "voxel_scatter": {
-        "voxel_scatter_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "voxel_scatter_f32": [_P, _P, _P, _P, *[_I] * 11, _P],
+        "voxel_scatter_occupancy": [_IP],
     },
 }
 

@@ -28,12 +28,17 @@ K8 replaces ``voxelize_batch_pallas`` (pallas_voxel.py:97, ``_voxel_kernel``
 ``voxelize_batch_scatter`` reads ``(B, E, 4)`` events and ``(B,)`` counts
 and computes each event's window, bin and two weights itself
 (csrc/voxel_scatter.cu), where ``voxelize_batch`` computes ``(B, bins, E)``
-weights in PyTorch first and hands them to K3.
+weights in PyTorch first and hands them to K3. Its one launch zeroes each
+grid itself, a few samples ahead of that sample's adds, so the grids it
+adds into stay in L2 (:func:`voxel_scatter_plan`, whose ticket order
+:func:`voxel_scatter_item` models and :func:`voxel_scatter_launch_reference`
+replays on the CPU).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -251,13 +256,14 @@ def voxelize_batch(events: torch.Tensor, counts: torch.Tensor, *,
     return splat(y, x, wb, height=height, width=width)
 
 
-def voxelize_batch_scatter_reference(events: torch.Tensor,
-                                     counts: torch.Tensor, *, num_bins: int,
-                                     height: int,
-                                     width: int) -> torch.Tensor:
-    """Plain PyTorch version of K8: ``_voxel_kernel``'s per-event arithmetic,
-    each event's two weights summed with ``index_put_(accumulate=True)``."""
-    b, e, _ = events.shape
+def voxel_scatter_terms(events: torch.Tensor, counts: torch.Tensor, *,
+                        num_bins: int, height: int, width: int):
+    """``_voxel_kernel``'s per-event arithmetic over ``(B, E)``: each event's
+    left index ``(y * W + x) * num_bins + floor(ts)`` in its sample's grid,
+    its weights ``p * (1 - dts)`` and ``p * dts``, and whether each is
+    added (the event one of its sample's count, in frame, its bin in
+    ``[0, num_bins)``, and for the right weight the next bin too)."""
+    e = events.shape[1]
     n = counts.to(device=events.device, dtype=torch.long)
     t = events[..., 2]
     t0 = t[:, 0]
@@ -277,21 +283,197 @@ def voxelize_batch_scatter_reference(events: torch.Tensor,
     ok = valid & in_frame & (tis >= 0)
     left_ok = ok & (tis < num_bins)
     right_ok = ok & (tis + 1 < num_bins)
+    index = ((y.long() * width + x.long()) * num_bins
+             + tis.clamp(0, num_bins).long())
+    return index, p * (1.0 - dts), p * dts, left_ok, right_ok
+
+
+def voxelize_batch_scatter_reference(events: torch.Tensor,
+                                     counts: torch.Tensor, *, num_bins: int,
+                                     height: int,
+                                     width: int) -> torch.Tensor:
+    """Plain PyTorch version of K8: ``_voxel_kernel``'s per-event arithmetic
+    (:func:`voxel_scatter_terms`), each event's two weights summed with
+    ``index_put_(accumulate=True)``."""
+    b = events.shape[0]
+    index, wl, wr, left_ok, right_ok = voxel_scatter_terms(
+        events, counts, num_bins=num_bins, height=height, width=width)
     num_cells = height * width * num_bins
     base = (torch.arange(b, device=events.device)[:, None] * num_cells
-            + (y.long() * width + x.long()) * num_bins
-            + tis.clamp(0, num_bins).long())
+            + index)
     out = torch.zeros(b * num_cells, dtype=torch.float32,
                       device=events.device)
     idx = torch.cat([base[left_ok], base[right_ok] + 1])
-    val = torch.cat([(p * (1.0 - dts))[left_ok], (p * dts)[right_ok]])
+    val = torch.cat([wl[left_ok], wr[right_ok]])
     out.index_put_((idx,), val.float(), accumulate=True)
     return out.view(b, height, width, num_bins)
 
 
+# csrc/voxel_scatter.cu: the floats a zero item writes (64 KB), and the
+# events an add item takes by default (4 a thread of a 512-thread CTA)
+ZERO_SPAN = 16384
+SCATTER_CHUNK = 2048
+# K8 keeps the grids open at once (zeroed, not yet finished, the in-flight
+# tickets' counted) within a third of the L2: the knee measured at DSEC's
+# shape on an H100 (graph-timed, one CTA an SM: 70.6 us with D + 1 + span
+# = 3 grids of 5.6 MB open, 88.9 with 4, 103.5 with 5)
+L2_SHARE = 3
+
+
+@dataclass(frozen=True)
+class ScatterPlan:
+    """How csrc/voxel_scatter.cu walks a batch: ``zero_items`` spans of
+    ``zero_span`` floats zero a sample's grid, ``add_items`` items of
+    ``chunk`` events add its events; ``lookahead`` (D) samples are zeroed
+    ahead of the one being added; ``ctas`` persistent CTAs take the
+    ``tickets`` items in the order :func:`voxel_scatter_item` gives."""
+
+    batch: int
+    zero_span: int
+    zero_items: int
+    chunk: int
+    add_items: int
+    lookahead: int
+    ctas: int
+
+    @property
+    def tickets(self) -> int:
+        return self.batch * (self.zero_items + self.add_items)
+
+    @property
+    def open_grids(self) -> int:
+        """The most grids zeroed and not finished at once, with ``ctas``
+        tickets in flight: D + 1, and one more for each block of a
+        sample's items the tickets in flight may reach into."""
+        span = -(-(self.ctas - 1) // (self.zero_items + self.add_items))
+        return min(self.batch, self.lookahead + 1 + span)
+
+
+@functools.lru_cache(maxsize=None)
+def voxel_scatter_plan(batch: int, height: int, width: int, bins: int,
+                       events: int, *, chunk: int, l2_bytes: int,
+                       sms: int) -> ScatterPlan:
+    """K8's plan for ``batch`` grids of ``height x width x bins`` f32 from
+    ``events`` slots a sample: one persistent CTA an SM (``sms``; at most
+    one a ticket), and D, the most samples zeroed ahead that keep the open
+    grids (:attr:`ScatterPlan.open_grids`) within ``l2_bytes /
+    L2_SHARE``: 1 at DSEC's 5.6 MB grid on an H100, 45 at N-Cars' 0.33
+    MB, the whole batch where all its grids fit; 0 where even that leaves
+    none to spare. ``chunk`` sets the add items only."""
+    cells = height * width * bins
+    zero_items = -(-cells // ZERO_SPAN)
+    add_items = -(-events // chunk)
+    tickets = batch * (zero_items + add_items)
+    plan = ScatterPlan(batch=batch, zero_span=ZERO_SPAN,
+                       zero_items=zero_items, chunk=chunk,
+                       add_items=add_items, lookahead=0,
+                       ctas=max(1, min(sms, tickets)))
+    grids = (l2_bytes // L2_SHARE) // (4 * cells)
+    if batch > grids:
+        # open_grids is D + 1 + span below the batch
+        return dataclasses.replace(plan, lookahead=max(
+            0, grids - plan.open_grids))
+    return dataclasses.replace(plan, lookahead=batch)
+
+
+def voxel_scatter_item(plan: ScatterPlan, ticket: int) -> tuple[str, int,
+                                                                int]:
+    """The item of ``ticket``, as the kernel computes it (``item_of``):
+    ``("zero", s, i)``, the i-th span of sample s's grid, or ``("add", s,
+    i)``, its events ``[i * chunk, (i + 1) * chunk)``. The zero items of
+    samples 0 .. D-1 come first, then for each sample s the zero items of
+    sample s + D and the add items of s."""
+    d = min(plan.lookahead, plan.batch)
+    z, a = plan.zero_items, plan.add_items
+    if ticket < d * z:
+        return "zero", ticket // z, ticket % z
+    u = ticket - d * z
+    paired = plan.batch - d
+    if u < paired * (z + a):
+        s, r = divmod(u, z + a)
+        return ("zero", s + d, r) if r < z else ("add", s, r - z)
+    s, i = divmod(u - paired * (z + a), a)
+    return "add", paired + s, i
+
+
+def voxel_scatter_ops(index: int, wl: float,
+                      wr: float) -> list[tuple[int, tuple[float, ...]]]:
+    """The reductions csrc/voxel_scatter.cu issues for one event whose left
+    weight ``wl`` goes to float ``index`` of its sample's grid and right
+    weight ``wr`` to ``index + 1`` (each 0.0 where it is not added): a list
+    of (first float, lanes), one entry a ``red``. Both weights non-zero:
+    one ``.v2`` at ``index`` where it is even, one ``.v4`` at ``index - 1``
+    with +0.0 in lanes 0 and 3 where ``index % 4 == 1``, else two scalars.
+    A zero weight is never added."""
+    if wl != 0.0 and wr != 0.0:
+        if index % 2 == 0:
+            return [(index, (wl, wr))]
+        if index % 4 == 1:
+            return [(index - 1, (0.0, wl, wr, 0.0))]
+        return [(index, (wl,)), (index + 1, (wr,))]
+    if wl != 0.0:
+        return [(index, (wl,))]
+    if wr != 0.0:
+        return [(index + 1, (wr,))]
+    return []
+
+
+def voxel_scatter_launch_reference(events: torch.Tensor,
+                                   counts: torch.Tensor, out: torch.Tensor,
+                                   *, num_bins: int, height: int, width: int,
+                                   plan: ScatterPlan) -> torch.Tensor:
+    """csrc/voxel_scatter.cu's walk replayed on the CPU, one item at a time
+    in ticket order, into ``out`` as it is given (a grid of NaN shows a
+    cell no item wrote): a zero item writes its span; an add item takes
+    events ``[i * chunk, min(count, E, (i + 1) * chunk))`` of its sample and
+    issues :func:`voxel_scatter_ops` of each, in event order. Raises if an
+    add lands on a cell its sample's zero items have not written. For
+    small inputs: it loops in Python."""
+    b, e, _ = events.shape
+    index, wl, wr, left_ok, right_ok = voxel_scatter_terms(
+        events, counts, num_bins=num_bins, height=height, width=width)
+    wl = torch.where(left_ok, wl, 0.0).float()
+    wr = torch.where(right_ok, wr, 0.0).float()
+    flat = out.view(b, -1)
+    cells = flat.shape[1]
+    zeroed = torch.zeros_like(flat, dtype=torch.bool)
+    for ticket in range(plan.tickets):
+        kind, s, i = voxel_scatter_item(plan, ticket)
+        if kind == "zero":
+            lo = i * plan.zero_span
+            hi = min(lo + plan.zero_span, cells)
+            flat[s, lo:hi] = 0.0
+            zeroed[s, lo:hi] = True
+            continue
+        n = min(max(int(counts[s]), 0), e)
+        for ev in range(i * plan.chunk, min(n, (i + 1) * plan.chunk)):
+            for first, lanes in voxel_scatter_ops(
+                    int(index[s, ev]), float(wl[s, ev]), float(wr[s, ev])):
+                span = slice(first, first + len(lanes))
+                if not bool(zeroed[s, span].all()):
+                    raise RuntimeError(f"sample {s}: an add before its "
+                                       "zero items")
+                flat[s, span] += torch.tensor(lanes, dtype=flat.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def voxel_scatter_device(device: int) -> tuple[int, int, int]:
+    """The card's L2 bytes, its SMs, and how many CTAs of
+    csrc/voxel_scatter.cu an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.load("voxel_scatter")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.voxel_scatter_occupancy(ctypes.byref(per_sm))
+    _build.check(lib, "voxel_scatter_occupancy", code)
+    props = torch.cuda.get_device_properties(device)
+    return props.L2_cache_size, props.multi_processor_count, per_sm.value
+
+
 def voxelize_batch_scatter(events: torch.Tensor, counts: torch.Tensor, *,
                            num_bins: int, height: int, width: int,
-                           chunk: int = 512) -> torch.Tensor:
+                           chunk: int = SCATTER_CHUNK) -> torch.Tensor:
     """``(B, E, 4)`` xytp events, ``(B,)`` counts -> ``(B, H, W, num_bins)``
     f32 voxel grids, in one pass over the raw events (JAX's
     ``voxelize_batch_pallas``). The window runs from ``t[0]`` to
@@ -301,10 +483,24 @@ def voxelize_batch_scatter(events: torch.Tensor, counts: torch.Tensor, *,
     (``ValueError`` where JAX asserts). CPU tensors take
     :func:`voxelize_batch_scatter_reference`. CUDA tensors launch the kernel
     or raise: ``events`` f32 contiguous, ``counts`` an integer tensor on the
-    same card. ``chunk`` is the number of events each block of the kernel
-    takes; it does not change the result. ``launches`` counts the CUDA
-    calls.
+    same card. The grid comes from ``torch.empty``: the kernel's one launch
+    zeroes each sample's grid itself, a few samples ahead of the adds, so
+    that the grids it adds into stay in L2 (:func:`voxel_scatter_plan`).
+    ``chunk`` is the number of events each add item of the kernel takes; it
+    does not change the result. ``launches`` counts the CUDA calls.
     """
+    _check_scatter_shapes(events, counts, num_bins, height, width)
+    if events.device.type == "cpu":
+        return voxelize_batch_scatter_reference(
+            events, counts, num_bins=num_bins, height=height, width=width)
+    out = torch.empty((events.shape[0], height, width, num_bins),
+                      dtype=torch.float32, device=events.device)
+    return _voxel_scatter_into(events, counts, out, num_bins=num_bins,
+                               height=height, width=width, chunk=chunk)
+
+
+def _check_scatter_shapes(events, counts, num_bins, height, width) -> None:
+    """JAX's grid contract and the operands' shapes, on every device."""
     num_cells = height * width * num_bins
     if num_cells % 128:
         raise ValueError(f"voxelize_batch_scatter: H*W*bins = {num_cells} "
@@ -312,17 +508,22 @@ def voxelize_batch_scatter(events: torch.Tensor, counts: torch.Tensor, *,
     if events.ndim != 3 or events.shape[-1] != 4:
         raise ValueError(f"voxelize_batch_scatter: events must be (B, E, 4), "
                          f"got {tuple(events.shape)}")
+    if counts.shape != (events.shape[0],):
+        raise ValueError(f"voxelize_batch_scatter: counts must be "
+                         f"({events.shape[0]},)")
+
+
+def _voxel_scatter_into(events: torch.Tensor, counts: torch.Tensor,
+                        out: torch.Tensor, *, num_bins: int, height: int,
+                        width: int, chunk: int = SCATTER_CHUNK,
+                        plan: Optional[ScatterPlan] = None) -> torch.Tensor:
+    """K8's launch into ``out``, whatever it holds: the kernel writes every
+    cell. ``plan`` replaces :func:`voxel_scatter_plan`'s (another
+    look-ahead or CTA count, for timing them)."""
+    _check_scatter_shapes(events, counts, num_bins, height, width)
     b, e, _ = events.shape
-    if counts.shape != (b,):
-        raise ValueError(f"voxelize_batch_scatter: counts must be ({b},)")
-    if events.device.type == "cpu":
-        return voxelize_batch_scatter_reference(
-            events, counts, num_bins=num_bins, height=height, width=width)
     if chunk < 1:
         raise ValueError(f"voxelize_batch_scatter: chunk {chunk} < 1")
-    if b > 65535:
-        raise ValueError(f"voxelize_batch_scatter: batch {b} exceeds the "
-                         "launch grid")
     if counts.is_floating_point() or counts.is_complex():
         raise TypeError(f"voxelize_batch_scatter: counts are {counts.dtype}, "
                         "expected an integer dtype")
@@ -330,17 +531,28 @@ def voxelize_batch_scatter(events: torch.Tensor, counts: torch.Tensor, *,
         raise ValueError("voxelize_batch_scatter: events and counts on other "
                          "devices")
     check_cuda_operands("voxelize_batch_scatter", torch.float32,
-                        events=events)
+                        events=events, out=out)
+    if out.shape != (b, height, width, num_bins):
+        raise ValueError(f"voxelize_batch_scatter: out must be "
+                         f"({b}, {height}, {width}, {num_bins})")
+    if plan is None:
+        l2_bytes, sms, _ = voxel_scatter_device(events.device.index)
+        plan = voxel_scatter_plan(b, height, width, num_bins, e, chunk=chunk,
+                                  l2_bytes=l2_bytes, sms=sms)
+    if (plan.tickets >= 2**31 or height * width * num_bins >= 2**31
+            or plan.batch != b or plan.zero_span % 4):
+        raise ValueError(f"voxelize_batch_scatter: plan {plan} does not "
+                         f"take a batch of {b} grids of {height}x{width}x"
+                         f"{num_bins}")
     counts = counts.to(torch.int32).contiguous()
-    out = torch.zeros((b, height, width, num_bins), dtype=torch.float32,
-                      device=events.device)
+    work = torch.empty(b + 1, dtype=torch.int32, device=events.device)
     lib = _build.load("voxel_scatter")
     with torch.cuda.device(events.device):
         code = lib.voxel_scatter_f32(
-            events.data_ptr(), counts.data_ptr(), out.data_ptr(), b, e,
-            height, width, num_bins, chunk,
-            torch.cuda.current_stream(events.device).cuda_stream,
-        )
+            events.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            work.data_ptr(), b, e, height, width, num_bins, plan.zero_span,
+            plan.zero_items, plan.chunk, plan.add_items, plan.lookahead,
+            plan.ctas, _stream(events))
     _build.check(lib, "voxel_scatter_f32", code)
     voxelize_batch_scatter.launches += 1
     return out
