@@ -9,7 +9,9 @@ backend's refusal of a shape, which its timing records as null):
 1. Environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), TF32 off for the f32 comparisons; every CUDA kernel of the
    port built from ``eventpretrain_tpu_torch/csrc`` (one nvcc per source, all
-   at once), each kernel's registers and spills printed, and no GEMM
+   at once) and, beside them, the C++ host code of
+   ``eventpretrain_tpu_torch/native`` (g++, timed), each kernel's registers
+   and spills printed, and no GEMM
    instantiation, row kernel (csrc/ln_bwd.cu) or splat kernel (csrc/splat.cu,
    splat_tiled.cu) or K8 (csrc/voxel_scatter.cu) allowed to spill; each
    splat launch plan of the main paths with the clusters of it the card
@@ -97,6 +99,26 @@ backend's refusal of a shape, which its timing records as null):
    data) with the same replayed drop-path and dropout masks; one
    ``make_semseg_eval_step`` (K6 1, K1/K2 12) and its confusion counts
    against the plain path's; ``cli.finetune_semseg.main`` for one epoch.
+5e. Slice 3b, optical flow at MVSEC's shape: ``dense_hub_vit_small``
+   with 2 outputs at full width (drop-path 0.1, the heads' dropout 0.1),
+   bf16, seed 0; ``SyntheticDenseSource("flow")`` streams (sensor
+   260x346, 30000 events, flow and validity at 260x346) through
+   ``DensePipeline(train=True)`` at B=16 with the u32 codec and
+   ``tiled_raster="auto"`` (the C++ tile bucketer, K6 on 3x3 tiles whose
+   last row and column are partial); 4 ``make_flow_train_step`` steps with
+   the flow CLI's optimizer (pipeline and steps in one counted run: per
+   step K6 1, K3 0, K1/K2 1+1, K4 11+11), finite losses and grad norms;
+   K6 on the first batch's wire data against its plain version, over the
+   whole grid and over the partial tiles, and the batch rebuilt with K6's
+   plain version; the step's ms on a fixed batch; one
+   ``make_flow_eval_step`` (K6 1, K1/K2 12) over a nonempty mask;
+   ``python -m eventpretrain_tpu_torch.cli.finetune_flow --backbone vit
+   --dataset synthetic`` for one epoch.
+5f. The host half: the C++ host code loaded (never forced to numpy), and
+   the host build ms per batch of the cls (B=64), DSEC semseg (B=16) and
+   MVSEC flow (B=16) pipelines with it and with the numpy specifications
+   (``native.BACKEND = "numpy-forced"``), the median of 3 batches each;
+   recorded, not gated.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -121,11 +143,13 @@ backend's refusal of a shape, which its timing records as null):
    default and under each ``sdpa_kernel`` backend that takes the shape,
    with each of their kernels' registers and spills; the served
    function's samples/s at B=64; K8 at DSEC's and N-Cars' shapes
-   beside K3's ``voxelize_batch``; K3, K6 and K8 also from CUDA graphs of
+   beside K3's ``voxelize_batch``; K6 also at MVSEC's shape on the first
+   flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
    10 calls (the card alone); the rec and cls train steps' ms,
    samples/s and peak memory on both paths (and the semseg step's at
-   B=16), the cls and dense pipelines' host time per batch and phase 5d's
-   delivered samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
+   B=16; the flow step's from phase 5e), the cls and dense pipelines'
+   host time per batch, phase 5f's host builds and phase 5d's delivered
+   samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
    each main-path shape from CUDA graphs beside their plain versions, their
    bounds and ``torch.sum`` / ``F.layer_norm``, their launches on every
    main path checked against those of the sub-blocks that call them; then
@@ -276,10 +300,31 @@ def phase_environment() -> str:
     log(f"nvidia-smi: {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the C++ host code builds beside the kernels
+    from eventpretrain_tpu_torch import native
+
+    host = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            host["lib"] = native.library()
+        except RuntimeError as e:
+            host["error"] = e
+        host["s"] = time.perf_counter() - t
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    host_thread.join()
+    if "error" in host:
+        raise host["error"]
+    log(f"host code: {os.path.basename(host['lib']._name)} built and "
+        f"loaded in {host['s']:.1f} s by "
+        f"{native._compiler_version().splitlines()[0]}")
     for name, text in sorted(logs.items()):
         PTXAS.update(_build.ptxas_usage(name, text))
         for line in text.splitlines():
@@ -2242,6 +2287,291 @@ def phase_prefetch_loops(dev) -> tuple[dict, dict]:
     return records, launches
 
 
+# --------------------------------------------------------------- phase 5e
+#
+# slice 3b: optical flow at MVSEC's shape. The 260x346 grid is 89960 cells,
+# over the untiled splat's 65536, so "auto" tiling sends every batch
+# through the C++ tile bucketer and K6 on 3x3 tiles of 128 whose last row
+# and column are partial (260 = 2 * 128 + 4, 346 = 2 * 128 + 90).
+
+MVSEC_HW = (260, 346)
+MVSEC_EVENTS = 30_000
+FLOW_STEPS = 4
+FLOW_DROP = 0.1
+
+
+def build_flow_hub(dev):
+    from eventpretrain_tpu_torch.models.dense_hub import dense_hub_vit_small
+
+    return dense_hub_vit_small(
+        2, NUM_BINS, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(0),
+        drop_path_rate=FLOW_DROP, decode_dropout=FLOW_DROP,
+    )
+
+
+def flow_pipeline(dev, train: bool, batches: int):
+    """MVSEC-shape synthetic streams (sensor 260x346, 30000 events, flow
+    and validity at 260x346) through the dense pipeline at B=16, u32 codec
+    (the gt as f16), tiling on "auto"."""
+    from eventpretrain_tpu_torch.data.dense_pipeline import (
+        DenseDataConfig,
+        DensePipeline,
+        SyntheticDenseSource,
+    )
+
+    source = SyntheticDenseSource(
+        "flow", n=DENSE_BATCH * batches, sensor_hw=MVSEC_HW,
+        num_events=MVSEC_EVENTS, seed=0 if train else 1000)
+    cfg = DenseDataConfig(
+        task="flow", num_bins=NUM_BINS, input_size=TRAIN_INPUT,
+        fix_events_num=MVSEC_EVENTS, val_fix_events_num=MVSEC_EVENTS,
+        sensor_height=MVSEC_HW[0], sensor_width=MVSEC_HW[1],
+        label_size=MVSEC_HW, tiled_raster="auto")
+    pipe = DensePipeline(source, cfg, DENSE_BATCH, train=train, seed=0,
+                         device=dev)
+    require(pipe.tiled, "the MVSEC-shape pipeline does not tile")
+    return pipe
+
+
+def make_flow_trainer(hub, dev, steps_per_epoch: int):
+    """The flow CLI's optimizer and step (cli/finetune_flow.py) with its
+    defaults: lr 1e-3 * 16 / 256 without warmup here, wd 0.05, betas
+    (0.9, 0.999), clip 3.0, loss weights 1 and 0.4, max flow 400."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import make_flow_train_step
+
+    schedule = cosine_warmup_schedule(1e-3 * DENSE_BATCH / 256, 1e-6, 0, 50,
+                                      steps_per_epoch)
+    optimizer = build_optimizer(hub, weight_decay=0.05, betas=(0.9, 0.999))
+    state = TrainState(hub, optimizer, schedule, clip_grad=3.0)
+    step = make_flow_train_step(
+        hub, generator=torch.Generator(dev).manual_seed(0))
+    return state, step
+
+
+def k6_wire_inputs(args, kw, hw):
+    """K6's operands as the dense pipeline's device half builds them from
+    a recorded call's wire data: ``(y, x, weights, tile_table, bin
+    ranges)``."""
+    from eventpretrain_tpu_torch.data.codec import decode_events_u32
+    from eventpretrain_tpu_torch.ops.events import (
+        bilinear_bin_weights_windowed,
+    )
+    from eventpretrain_tpu_torch.ops.splat_tiled import chunk_bin_range
+
+    t_range = kw["t_range"]
+    events = decode_events_u32(args[0], t_range)
+    h, w = hw
+    x = events[..., 0].to(torch.int32).contiguous()
+    y = events[..., 1].to(torch.int32).contiguous()
+    valid = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    wb = bilinear_bin_weights_windowed(events, valid, t_range[:, 0],
+                                       t_range[:, 1], NUM_BINS)
+    br = chunk_bin_range(t_range, kw["tile_chunk_trange"], NUM_BINS)
+    return (y, x, wb.transpose(1, 2).contiguous(),
+            kw["tile_table"].contiguous(), br)
+
+
+def k6_partial_tile_check(args, kw, hw) -> float:
+    """K6 on a recorded batch of the dense pipeline (its own wire data)
+    against its plain version, and again restricted to the partial tiles
+    of the last tile row and column: the largest difference."""
+    from eventpretrain_tpu_torch.ops.splat_tiled import (
+        splat_tiled,
+        splat_tiled_reference,
+    )
+
+    y, x, wb, table, br = k6_wire_inputs(args, kw, hw)
+    h, w = hw
+    err = 0.0
+    for bins in (br, None):
+        got = splat_tiled(y, x, wb, table, bins, height=h, width=w)
+        ref = splat_tiled_reference(y, x, wb, table, bins, height=h,
+                                    width=w)
+        torch.cuda.synchronize()
+        edge = torch.cat([(got - ref)[:, 256:].flatten(),
+                          (got - ref)[:, :, 256:].flatten()])
+        require(ref[:, 256:].abs().sum() > 0 and ref[:, :, 256:].abs().sum()
+                > 0, "no event fell in the partial tiles")
+        err = max(err, (got - ref).abs().max().item(),
+                  edge.abs().max().item())
+    return err
+
+
+def phase_flow_training(dev):
+    """``FLOW_STEPS`` flow train steps, each batch built by the pipeline
+    inside the counted run (so K6 counts too); K6 on the first batch's wire
+    data against its plain version, partial tiles included, and the
+    pipeline's grid against the same batch rebuilt with K6's plain
+    version; then the step's host-clock ms on a fixed batch."""
+    hub = build_flow_hub(dev)
+    state, step = make_flow_trainer(hub, dev, FLOW_STEPS)
+    pipe = flow_pipeline(dev, True, FLOW_STEPS)
+    reset_counts()
+    t0 = time.perf_counter()
+    batches, metrics = [], []
+    with record_wire() as wire:
+        for batch in pipe:
+            batches.append(batch)
+            metrics.append(step(state, batch))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    args, kw = wire.calls[0]
+    k6_err = k6_partial_tile_check(args, kw, MVSEC_HW)
+    rebuilt = wire.rebuild_plain(0)
+    evg_err = (rebuilt["evg"] - batches[0]["evg"]).abs().max().item()
+    for k in ("flow", "valid", "event_mask"):
+        require(torch.equal(rebuilt[k], batches[0][k]),
+                f"the flow batch's {k} differs on K6's plain version")
+    build_ms = pipe.host_seconds / pipe.batches * 1e3
+    b0 = batches[0]
+    log(f"flow batches: {len(batches)} x evg {tuple(b0['evg'].shape)}, flow "
+        f"{tuple(b0['flow'].shape)}, event pixels "
+        f"{float(b0['event_mask'].mean()):.3f} of the grid; host build "
+        f"{build_ms:.1f} ms per batch; pipeline + {FLOW_STEPS} steps "
+        f"{wall:.1f} s; K6 at {MVSEC_HW[0]}x{MVSEC_HW[1]} vs its plain "
+        f"version (partial tiles included): max_abs_err {k6_err:.3g}, the "
+        f"pipeline's grid {evg_err:.3g} (tol {SPLAT_ATOL})")
+    losses = [m["loss"] for m in metrics]
+    log("flow loss: " + " ".join(f"{v:.5f}" for v in losses))
+    log("flow decode L1: " + " ".join(f"{m['decode_l1']:.4f}"
+                                      for m in metrics))
+    log("flow grad norm: " + " ".join(f"{m['grad_norm']:.4g}"
+                                      for m in metrics))
+    log(f"flow launches over {FLOW_STEPS} steps {launches}")
+    require(k6_err <= SPLAT_ATOL and evg_err <= SPLAT_ATOL,
+            "K6 at MVSEC's shape disagrees with its plain version")
+    require(all(np.isfinite(losses)), "non-finite flow loss")
+    require(all(np.isfinite([m["grad_norm"] for m in metrics])),
+            "non-finite flow grad norm")
+    per_step = {"splat_tiled": 1, "splat": 0,
+                "fused_ln_attn_layer": 1, "fused_ln_attn_layer_bwd": 1,
+                "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1,
+                "fused_attn_layer": CLS_K4_BLOCKS,
+                "fused_attn_layer_bwd": CLS_K4_BLOCKS,
+                "fused_mlp": 0, "fused_mlp_bwd": 0}
+    for name, want in per_step.items():
+        require(launches[name] == want * FLOW_STEPS,
+                f"{name}: {launches[name]} launches over {FLOW_STEPS} flow "
+                f"steps, expected {want} per step")
+    q1, med, q3 = statistics.quantiles(
+        host_ms(lambda: step(state, b0), reps=REPS // 2, warmup=2), n=4)
+    rec = {"model": "dense_hub_vit_small, 2 outputs", "batch": DENSE_BATCH,
+           "sensor": list(MVSEC_HW), "events": MVSEC_EVENTS,
+           "step_ms": med, "step_ms_q1": q1, "step_ms_q3": q3,
+           "samples_per_s": DENSE_BATCH / med * 1e3,
+           "host_batch_ms": build_ms, "losses": losses,
+           "drop_path_rate": FLOW_DROP, "k6_max_abs_err": k6_err}
+    log(f"flow step B={DENSE_BATCH} at {MVSEC_HW[0]}x{MVSEC_HW[1]}: "
+        f"{med:.4g} ms (q1 {q1:.4g}, q3 {q3:.4g})")
+    return dict(hub=hub, state=state, step=step, batches=batches,
+                wire=wire.calls, launches=launches, record=rec,
+                k6_err=k6_err)
+
+
+def phase_flow_eval(dev, flow) -> dict:
+    """One ``make_flow_eval_step`` on a validation batch built by the
+    pipeline, counted on its own: finite sums over a nonempty mask."""
+    from eventpretrain_tpu_torch.train.steps import make_flow_eval_step
+
+    reset_counts()
+    val = next(iter(flow_pipeline(dev, False, 1)))
+    m = make_flow_eval_step(flow["hub"])(val)
+    torch.cuda.synchronize()
+    ev = read_counts()
+    m = {k: float(v) for k, v in m.items()}
+    log(f"flow eval step B={DENSE_BATCH}: {m['count']:.0f} pixels counted, "
+        f"AEE {m['epe_sum'] / max(m['count'], 1):.4f}, outliers "
+        f"{100 * m['outlier_sum'] / max(m['count'], 1):.2f}%; launches {ev}")
+    require(m["count"] > 0, "the flow eval step counted no pixel")
+    require(all(np.isfinite(list(m.values()))), "non-finite flow eval sums")
+    for name, want in (("splat_tiled", 1), ("fused_ln_attn_layer", DEPTH),
+                       ("fused_ln_mlp", DEPTH)):
+        require(ev[name] == want, f"flow eval: {name} launched {ev[name]} "
+                                  f"times, expected {want}")
+    require(sum(ev.values()) == 1 + 2 * DEPTH,
+            "the flow eval launched another kernel")
+    flow["record"]["eval"] = m
+    return {"flow_eval": ev}
+
+
+def phase_flow_cli(dev) -> None:
+    """``python -m eventpretrain_tpu_torch.cli.finetune_flow --dataset
+    synthetic --backbone vit`` for one epoch (JAX's smoke source: a 64x64
+    sensor, so the untiled splat K3), in its own process."""
+    out = os.path.join("build", "chip_smoke_flow")
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "eventpretrain_tpu_torch.cli.finetune_flow",
+         "--backbone", "vit", "--dataset", "synthetic", "--batch_size",
+         str(DENSE_BATCH), "--epochs", "1", "--output_dir", out,
+         "--print_freq", "1", "--device", str(dev)],
+        capture_output=True, text=True, timeout=600)
+    log(done.stdout.strip())
+    if done.returncode != 0:
+        log(done.stderr)
+    require(done.returncode == 0, "cli.finetune_flow failed")
+    with open(os.path.join(out, "log.txt")) as f:
+        record = json.loads(f.read().splitlines()[-1])
+    log(f"cli.finetune_flow --backbone vit: one epoch in "
+        f"{time.perf_counter() - t0:.1f} s, AEE "
+        f"{record['synthetic_aee']:.4f}")
+    require(np.isfinite(record["synthetic_aee"]), "non-finite CLI AEE")
+    require(np.isfinite(record["train_loss"]), "non-finite CLI loss")
+
+
+# --------------------------------------------------------------- phase 5f
+#
+# The host half under every pipeline: the C++ host code (packing, the
+# fused stream augment, tile bucketing, the u32 encoding) against its numpy
+# specifications, on each training pipeline's batch.
+
+HOST_BATCHES = 3
+
+
+def phase_host(dev) -> dict:
+    """The native library built and loaded (not forced to numpy); each
+    training pipeline's host build ms per batch with the C++ host code and
+    with the numpy specifications (``native.BACKEND = "numpy-forced"``):
+    cls (B=64), DSEC semseg (B=16) and MVSEC flow (B=16). Recorded, not
+    gated."""
+    from eventpretrain_tpu_torch import native
+
+    require(native.BACKEND == "native", "the host code was forced to numpy")
+    lib = native.library()
+    log(f"host code: native backend, {lib._name}")
+    out = {"library": os.path.basename(lib._name)}
+    for key, make, batch in (("cls", cls_pipeline, TRAIN_BATCH),
+                             ("semseg", dense_pipeline, DENSE_BATCH),
+                             ("flow", flow_pipeline, DENSE_BATCH)):
+        rec = {"batch": batch}
+        for backend in ("native", "numpy-forced"):
+            native.BACKEND = backend
+            try:
+                pipe = make(dev, True, HOST_BATCHES)
+                per = []
+                for _ in pipe:
+                    per.append(pipe.host_seconds * 1e3 - sum(per))
+            finally:
+                native.BACKEND = "native"
+            rec[f"{backend}_ms"] = statistics.median(per)
+            rec[f"{backend}_ms_each"] = per
+        rec["numpy_over_native"] = rec["numpy-forced_ms"] / rec["native_ms"]
+        log(f"host build {key} B={batch}: native {rec['native_ms']:.1f} ms, "
+            f"numpy {rec['numpy-forced_ms']:.1f} ms per batch (median of "
+            f"{HOST_BATCHES}; {rec['numpy_over_native']:.1f}x)")
+        out[key] = rec
+    torch.cuda.synchronize()
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -2589,37 +2919,21 @@ def row_rows(dev, errs, launches, smi) -> list:
     return out
 
 
-def k6_row(dense, errs, total, launches, smi) -> dict:
-    """K6 on the main path's own inputs (the first semseg batch's wire
-    data, B=16): held against its plain version, then timed beside it, one
-    ``index_put_`` of the whole batch, and its bound. The bound counts the
-    bytes this data needs: the coordinates of every slot, the weights of
-    the channels inside each chunk's bin range, the table and the ranges,
-    and the grid written once."""
-    from eventpretrain_tpu_torch.data.codec import decode_events_u32
+def k6_row(dense, flow, errs, total, launches, smi) -> dict:
+    """K6 on the main paths' own inputs: the first semseg batch's wire data
+    (B=16, DSEC's 440x640), with and without bin ranges, and the first flow
+    batch's (B=16, MVSEC's 260x346, partial tiles), with them; each held
+    against its plain version, then timed beside it, one ``index_put_`` of
+    the whole batch, and its bound. The bound counts the bytes this data
+    needs: the coordinates of every slot, the weights of the channels
+    inside each chunk's bin range, the table and the ranges, and the grid
+    written once."""
     from eventpretrain_tpu_torch.native import TILE_CHUNK
-    from eventpretrain_tpu_torch.ops.events import (
-        bilinear_bin_weights_windowed,
-    )
     from eventpretrain_tpu_torch.ops.splat_tiled import (
-        chunk_bin_range,
         splat_tiled,
         splat_tiled_reference,
     )
 
-    args, kw = dense["wire"][0]
-    t_range, table = kw["t_range"], kw["tile_table"].contiguous()
-    events = decode_events_u32(args[0], t_range)
-    h, w = DSEC_HW
-    x = events[..., 0].to(torch.int32).contiguous()
-    y = events[..., 1].to(torch.int32).contiguous()
-    valid = (x >= 0) & (x < w) & (y >= 0) & (y < h)
-    wb = bilinear_bin_weights_windowed(events, valid, t_range[:, 0],
-                                       t_range[:, 1], NUM_BINS)
-    wb = wb.transpose(1, 2).contiguous()
-    br = chunk_bin_range(t_range, kw["tile_chunk_trange"], NUM_BINS)
-    hw = dict(height=h, width=w)
-    b, c, e = wb.shape
     row = {"name": "splat_tiled", "route": "cuda",
            "source": "eventpretrain_tpu_torch/csrc/splat_tiled.cu",
            "also": ["eventpretrain_tpu_torch/csrc/splat_core.cuh"],
@@ -2630,63 +2944,77 @@ def k6_row(dense, errs, total, launches, smi) -> dict:
            "max_abs_err": errs["splat_tiled"][0],
            "tol": errs["splat_tiled"][1],
            "library": "index_put_(accumulate=True)", "shapes": []}
-    for bins in (br, None):
-        def fn(bins=bins):
-            return splat_tiled(y, x, wb, table, bins, **hw)
+    for path, (args, kw), (h, w), modes in (
+            ("semseg_train", dense["wire"][0], DSEC_HW, (True, False)),
+            ("flow_train", flow["wire"][0], MVSEC_HW, (True,))):
+        y, x, wb, table, br = k6_wire_inputs(args, kw, (h, w))
+        hw = dict(height=h, width=w)
+        b, c, e = wb.shape
+        for with_bins in modes:
+            bins = br if with_bins else None
 
-        def plain(bins=bins):
-            return splat_tiled_reference(y, x, wb, table, bins, **hw)
+            def fn(bins=bins):
+                return splat_tiled(y, x, wb, table, bins, **hw)
 
-        got, ref = fn(), plain()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        require(err <= SPLAT_ATOL, f"splat_tiled at B={b} disagrees with its "
-                                   "plain version")
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        del got, ref
-        ms, plain_ms = time_pair(fn, plain)
-        device_ms = graph_ms(fn)
-        if bins is None:
-            in_range = b * c * e
-        else:
-            ch = torch.arange(c, device=br.device)[None, None]
-            in_range = int(((ch >= br[..., :1]) & (ch <= br[..., 1:]))
-                           .sum()) * TILE_CHUNK
-        nbytes = (8 * b * e + 4 * in_range + 4 * table.numel()
-                  + (0 if bins is None else 4 * br.numel()) + 4 * b * h * w * c)
-        bms, bby = bound(in_range, nbytes)
-        entry = {"shape": [b, c, e], "bin_range": bins is not None,
-                 "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                 "plain_ms": plain_ms,
-                 "bound_ms": bms, "bound_by": bby, "flops": in_range,
-                 "bytes": nbytes}
-        # the library call: index_put_(accumulate=True) of the whole batch,
-        # on the cells and weights the plain version selects (the bin
-        # ranges skip only zero weights: the same function either way)
-        tiles_x = -(-w // 128)
-        tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
-        ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
-        yl, xl = y.long(), x.long()
-        ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
-              & (xl < tx0 + 128) & (yl < h) & (xl < w))
-        cell = ((torch.arange(b, device=y.device)[:, None] * h + yl) * w
-                + xl)[ok]
-        vals = wb.transpose(1, 2)[ok]
-        acc = torch.zeros((b * h * w, c), device=y.device)
-        entry["library_ms"] = cuda_ms(
-            lambda: acc.index_put_((cell,), vals, accumulate=True))
-        del tile, ty0, tx0, ok, cell, vals, acc
-        if bins is not None:
-            row.update({k: entry[k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "shape", "flops", "bytes")})
-        else:
-            row["shapes"].append(entry)
-        log(f"time splat_tiled B={b} bin_range={bins is not None}: kernel "
-            f"{ms:.4g} ms (graph-timed {device_ms * 1e3:.4g} us), plain "
-            f"{plain_ms:.4g} ms, index_put_ "
-            f"{entry['library_ms']:.4g} ms, bound {bms:.4g} ms ({bby}) "
-            f"({smi})")
+            def plain(bins=bins):
+                return splat_tiled_reference(y, x, wb, table, bins, **hw)
+
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            require(err <= SPLAT_ATOL, f"splat_tiled at B={b} on {h}x{w} "
+                                       "disagrees with its plain version")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del got, ref
+            ms, plain_ms = time_pair(fn, plain)
+            device_ms = graph_ms(fn)
+            if bins is None:
+                in_range = b * c * e
+            else:
+                ch = torch.arange(c, device=br.device)[None, None]
+                in_range = int(((ch >= br[..., :1]) & (ch <= br[..., 1:]))
+                               .sum()) * TILE_CHUNK
+            nbytes = (8 * b * e + 4 * in_range + 4 * table.numel()
+                      + (0 if bins is None else 4 * br.numel())
+                      + 4 * b * h * w * c)
+            bms, bby = bound(in_range, nbytes)
+            entry = {"shape": [b, c, e], "sensor": [h, w], "path": path,
+                     "launches_per_step": launches[path]["splat_tiled"]
+                     / (DENSE_STEPS if path == "semseg_train"
+                        else FLOW_STEPS),
+                     "bin_range": bins is not None,
+                     "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": bby, "flops": in_range,
+                     "bytes": nbytes}
+            # the library call: index_put_(accumulate=True) of the whole
+            # batch, on the cells and weights the plain version selects
+            # (the bin ranges skip only zero weights: the same function
+            # either way)
+            tiles_x = -(-w // 128)
+            tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
+            ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
+            yl, xl = y.long(), x.long()
+            ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
+                  & (xl < tx0 + 128) & (yl < h) & (xl < w))
+            cell = ((torch.arange(b, device=y.device)[:, None] * h + yl)
+                    * w + xl)[ok]
+            vals = wb.transpose(1, 2)[ok]
+            acc = torch.zeros((b * h * w, c), device=y.device)
+            entry["library_ms"] = cuda_ms(
+                lambda: acc.index_put_((cell,), vals, accumulate=True))
+            del tile, ty0, tx0, ok, cell, vals, acc
+            if path == "semseg_train" and bins is not None:
+                row.update({k: entry[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape", "sensor", "flops", "bytes")})
+            else:
+                row["shapes"].append(entry)
+            log(f"time splat_tiled B={b} {h}x{w} bin_range="
+                f"{bins is not None}: kernel {ms:.4g} ms (graph-timed "
+                f"{device_ms * 1e3:.4g} us), plain {plain_ms:.4g} ms, "
+                f"index_put_ {entry['library_ms']:.4g} ms, bound "
+                f"{bms:.4g} ms ({bby}) ({smi})")
     return row
 
 
@@ -2995,7 +3323,7 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, loops, smi) -> None:
+                 dense, flow, host, loops, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -3168,7 +3496,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     log(f"time splat B={b}: kernel {ms:.4g} ms (graph-timed "
         f"{device_ms * 1e3:.4g} us), plain {plain_ms:.4g} ms, index_put_ "
         f"{lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
-    kernels.append(k6_row(dense, errs, total, launches, smi))
+    kernels.append(k6_row(dense, flow, errs, total, launches, smi))
     for (name, source, also, replaces, shapes, backward, case, work,
          library) in rows:
         ln = name.startswith("fused_ln")
@@ -3282,11 +3610,16 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
             f"{loops[loop]['delivered_samples_per_s_no_prefetch']:.4g} "
             f"without ({smi})")
 
+    # slice 3b's flow step (phase 5e) and the host half (phase 5f)
+    e2e["flow_train"] = {**flow["record"], "card": smi}
+    e2e["host_build"] = {**host, "card": smi}
+
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
     log_profile("serve B=64", e2e["serve"]["profile"])
     for key, run, calls in (("rec_train", train, 3), ("cls_train", cls, 5),
-                            ("semseg_train", dense, 5)):
+                            ("semseg_train", dense, 5),
+                            ("flow_train", flow, 5)):
         step, state = run["step"], run["state"]
         batch = run["batches"][0]
         e2e[key]["profile"] = device_profile(lambda: step(state, batch),
@@ -3338,13 +3671,20 @@ def main() -> int:
     launches.update(phase_dense_eval(dev, dense))
     phase_semseg_cli(dev)
     mark("semseg finetuning")
+    flow = phase_flow_training(dev)
+    launches["flow_train"] = flow["launches"]
+    launches.update(phase_flow_eval(dev, flow))
+    phase_flow_cli(dev)
+    mark("flow finetuning")
+    host = phase_host(dev)
+    mark("host half")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, loops, smi)
+                 dense, flow, host, loops, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ the wrapped tail batch with ``num_valid``), ``NCarsSource`` :366-388 and
 ``SyntheticClsSource`` :391-420. The host draws every random number with
 the JAX pipeline's ``numpy.random.Generator`` calls in the same order, so
 one seed gives the same windows, augmented streams and views. The stream
-augment runs the JAX pipeline's numpy fallback (cls_pipeline.py:276-286;
-the fused C++ augment comes with the infrastructure slice); the seeds the
-native augment would take are still drawn, so the stream of draws is the
-JAX pipeline's.
+augment and the packing are the C++ passes of
+``eventpretrain_tpu_torch.native`` (cls_pipeline.py:258-286), fed the
+seeds drawn here, so the batches are the JAX pipeline's word for word when
+its library builds too; with ``native.BACKEND = "numpy-forced"`` they are
+its numpy fallback's. Loads run on the pool of ``data/io_pool.py``.
 
 Not ported yet: EvRep, the coordinate rescale of N-ImageNet and the DVS
 datasets (``rescale_to_input``), fixed-sensor sources and the other
@@ -23,7 +24,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -36,12 +36,16 @@ from eventpretrain_tpu_torch.data.codec import (
 )
 from eventpretrain_tpu_torch.data.event_transforms import (
     erase_and_add_events,
-    pack_event_batch,
     random_window,
 )
+from eventpretrain_tpu_torch.data.io_pool import make_pool, map_loads
 from eventpretrain_tpu_torch.data.representations import (
     build_representation,
     normalize_representation,
+)
+from eventpretrain_tpu_torch.native import (
+    augment_pack_event_batch,
+    pack_event_batch,
 )
 from eventpretrain_tpu_torch.ops.view_augment import (
     ViewParams,
@@ -121,8 +125,11 @@ class ClsPipeline:
         self.drop_last = train if drop_last is None else drop_last
         self.num_workers = num_workers
         self.device = torch.device(device)
-        self._pack_buffer = None
-        self._enc_buffer = None
+        # two of each host buffer, used in turns (as JAX does): a batch's
+        # wire arrays are not written again while the next one is built
+        self._pack_buffers = [None, None]
+        self._enc_buffers = [None, None]
+        self._buf_i = 0
         self.host_seconds = 0.0
         self.batches = 0
 
@@ -176,24 +183,28 @@ class ClsPipeline:
         samples = [self._load_sample(item) for item in loaded]
         hws = [s[2] for s in samples]
         labels = [s[3] for s in samples]
+        buf = self._pack_buffers[self._buf_i]
         if self._augmenting():
-            # the seeds of the native augment (cls_pipeline.py:263): drawn
-            # though the numpy augment below does not read them
-            self.rng.integers(0, 2 ** 63, len(samples))
             # the JAX pipeline erases and adds under --val_event_noise too
             # (cls_pipeline.py:276-286); add_noise_events is not called
-            streams = [
-                erase_and_add_events(
-                    self.rng, ev[a:b].astype(np.float64), hw
-                ).astype(np.float32)
-                for ev, (a, b), hw, _ in samples
-            ]
+            seeds = self.rng.integers(0, 2 ** 63, len(samples))
+            done = augment_pack_event_batch(
+                [s[0] for s in samples], [s[1] for s in samples], hws, cap,
+                seeds, out=buf)
+            if done is None:  # "numpy-forced": the numpy specification
+                streams = [
+                    erase_and_add_events(
+                        self.rng, ev[a:b].astype(np.float64), hw
+                    ).astype(np.float32)
+                    for ev, (a, b), hw, _ in samples
+                ]
+                done = pack_event_batch(streams, cap, out=buf)
+            packed, counts = done
         else:
             streams = [ev[a:b].astype(np.float64).astype(np.float32)
                        for ev, (a, b), _, _ in samples]
-        packed, counts = pack_event_batch(streams, cap,
-                                          out=self._pack_buffer)
-        self._pack_buffer = packed
+            packed, counts = pack_event_batch(streams, cap, out=buf)
+        self._pack_buffers[self._buf_i] = packed
         return packed, counts, hws, labels
 
     def __iter__(self) -> Iterator[dict]:
@@ -207,8 +218,7 @@ class ClsPipeline:
         if self.train:
             self.rng.shuffle(order)
         bs = self.batch_size
-        pool = (ThreadPoolExecutor(self.num_workers)
-                if self.num_workers > 0 else None)
+        pool = make_pool(self.num_workers)
         try:
             for b in range(len(self)):
                 t0 = time.perf_counter()
@@ -217,20 +227,21 @@ class ClsPipeline:
                 if len(idx) < bs:
                     idx = np.concatenate([idx, order[:bs - len(idx)]])
                 # loads draw no random numbers, so a pool keeps the stream
-                if pool is None:
-                    loaded = [self.source.load(int(i)) for i in idx]
-                else:
-                    loaded = list(pool.map(
-                        lambda i: self.source.load(int(i)), idx))
+                loaded = map_loads(self.source.load, idx, pool)
+                self._buf_i ^= 1
                 packed, counts, hws, labels = self._host_batch(loaded, cap)
                 params = self._sample_view(hws)
-                events, t_range, self._enc_buffer = encode_for_transfer(
+                i = self._buf_i
+                events, t_range, self._enc_buffers[i] = encode_for_transfer(
                     packed, counts, cfg.compact_transfer,
-                    out=self._enc_buffer, codec=cfg.transfer_codec,
+                    out=self._enc_buffers[i], codec=cfg.transfer_codec,
                 )
                 self.host_seconds += time.perf_counter() - t0
                 self.batches += 1
                 dev = self.device
+                # the host buffers are read here and not after: a copy to
+                # the card from pageable memory returns once it is done,
+                # and on the CPU the rasterisation below makes new tensors
                 evg = _device_preprocess(
                     torch.from_numpy(events).to(dev),
                     torch.from_numpy(counts).to(dev),

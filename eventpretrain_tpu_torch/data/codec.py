@@ -3,9 +3,11 @@ the device.
 
 Counterpart of eventpretrain_tpu/data/codec.py: the numpy encoders
 (``encode_events_u16`` :39, ``encode_for_transfer`` :89,
-``encode_events_u32`` :115, ``encode_events_u32_full`` :160) word for word,
-and the device decoders (``decode_events_u16`` :77, ``decode_events_u32``
-:193) in torch, bit for bit.
+``encode_events_u32`` :115, which runs the C++ encoder of
+``eventpretrain_tpu_torch.native`` unless the numpy one is forced,
+``encode_events_u32_full`` :160) word for word, and the device decoders
+(``decode_events_u16`` :77, ``decode_events_u32`` :193) in torch, bit for
+bit.
 
 * u16, 8 B/event: x and y in fixed point with 4 fractional bits (65535 is
   the out-of-range sentinel), t normalised to [0, 65535] over each
@@ -69,7 +71,17 @@ def encode_events_u32(packed: np.ndarray, counts: np.ndarray,
                       out: np.ndarray | None = None,
                       ) -> tuple[np.ndarray, np.ndarray]:
     """(B, E, 4) f32 xytp + (B,) counts -> ((B, E) uint32, (B, 2) f32
-    t-range). Word layout: x[0:11] | y[11:21] | t[21:31] | sign(p)[31]."""
+    t-range). Word layout: x[0:11] | y[11:21] | t[21:31] | sign(p)[31].
+
+    Runs the C++ encoder (``native.encode_events_u32_native``, word for
+    word this loop) unless the caller forced the numpy specification
+    below (``native.BACKEND = "numpy-forced"``), as codec.py:124-133
+    does."""
+    from eventpretrain_tpu_torch.native import encode_events_u32_native
+
+    native = encode_events_u32_native(packed, counts, out=out)
+    if native is not None:
+        return native
     b, e, _ = packed.shape
     if out is None or out.shape != (b, e) or out.dtype != np.uint32:
         out = np.empty((b, e), np.uint32)

@@ -1,32 +1,36 @@
-"""Dense-task input pipeline, semantic segmentation: host stream augment,
-packing, tile bucketing and encoding; device decode, rasterisation, view
-and label augments, normalisation.
+"""Dense-task input pipeline, semantic segmentation and optical flow: host
+stream augment, packing, tile bucketing and encoding; device decode,
+rasterisation, view and label augments, normalisation.
 
 Counterpart of eventpretrain_tpu/data/dense_pipeline.py:
-``DenseDataConfig`` :48-71, ``_device_preprocess`` :73-141 (its semseg
-branch), ``DensePipeline`` :144-333 (semseg) and ``SyntheticDenseSource``
-:521-568. The host draws every random number with the JAX pipeline's
-``numpy.random.Generator`` calls in the same order, so one seed gives the
-same order, augmented streams and views. The stream augment runs the JAX
-pipeline's numpy fallback (dense_pipeline.py:220-250; the fused C++ augment
-comes with the infrastructure slice); the seeds the native augment would
-take are still drawn, so the stream of draws is the JAX pipeline's. The
-tile bucketing is the numpy specification of the JAX C++ bucketer
-(``eventpretrain_tpu_torch.native``).
+``DenseDataConfig`` :48-71, ``_device_preprocess`` :73-141, ``DensePipeline``
+:144-333 and ``SyntheticDenseSource`` :521-568 (``MvsecSource`` is in
+``data/mvsec.py``). The host draws every random number with the JAX
+pipeline's ``numpy.random.Generator`` calls in the same order, so one seed
+gives the same order, augmented streams and views. The stream augment, the
+packing and the tile bucketing are the C++ passes of
+``eventpretrain_tpu_torch.native`` (dense_pipeline.py:220-300), fed the
+seeds drawn here, so the batches are the JAX pipeline's word for word when
+its library builds too; with ``native.BACKEND = "numpy-forced"`` they are
+its numpy fallback's.
 
 ``tiled_raster="auto"`` routes every sensor grid over 65536 cells (DSEC's
-440x640) through host tile bucketing and the tiled splat (K6), on every
-device; JAX does so on a TPU only (dense_pipeline.py:156-166), and
-elsewhere runs the exact scatter, which computes the same grid.
+440x640, MVSEC's 260x346) through host tile bucketing and the tiled splat
+(K6), on every device; JAX does so on a TPU only
+(dense_pipeline.py:156-166), and elsewhere runs the exact scatter, which
+computes the same grid.
 
 JAX's ``stream_augment``, ``resize_mode`` and ``transfer_codec`` fields,
 which no caller sets, are constants here: the training stream augment is
 on, the event grid resizes bilinearly (the reference dense datasets
 hardcode it), and the untiled route takes the u32 codec.
 
-Not ported yet: the flow task (``resize_flow``, the flow label augments
-and ``MvsecSource`` come with slice 3b (flow)), and the DSEC and DDD17
-readers (they need ``h5py`` and ``PIL``; ``DsecSource``/``Ddd17Source``).
+Flow ground truth travels as f16 under ``compact_transfer`` (about 1e-3
+relative, as in JAX) and as f32 without it; the validity mask as uint8
+either way (dense_pipeline.py:210-219).
+
+Not ported yet: the DSEC and DDD17 readers (``DsecSource``,
+``Ddd17Source``; they need ``h5py`` and ``PIL``).
 """
 
 from __future__ import annotations
@@ -45,18 +49,22 @@ from eventpretrain_tpu_torch.data.codec import (
 )
 from eventpretrain_tpu_torch.data.event_transforms import (
     erase_and_add_events,
-    pack_event_batch,
 )
 from eventpretrain_tpu_torch.data.representations import (
     build_representation,
     normalize_representation,
 )
 from eventpretrain_tpu_torch.native import (
+    augment_pack_event_batch,
     bucket_pack_event_batch,
     bucket_pack_event_batch_u32,
+    pack_event_batch,
 )
+from eventpretrain_tpu_torch.ops.reshape import resize
 from eventpretrain_tpu_torch.ops.view_augment import (
     ViewParams,
+    apply_flow_label_augment,
+    apply_flow_valid_augment,
     apply_semseg_label_augment,
     apply_view_augment,
     identity_view_params,
@@ -66,12 +74,12 @@ from eventpretrain_tpu_torch.ops.view_augment import (
 # the largest grid the untiled splat takes in JAX (pallas_voxel.py:170-175)
 MAX_UNTILED_CELLS = 256 * 256
 
-_FLOW = "the flow task is not ported yet; it comes with slice 3b (flow)"
+TASKS = ("semseg", "flow")
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseDataConfig:
-    task: str                      # 'semseg' ('flow': slice 3b (flow))
+    task: str                      # 'semseg' | 'flow'
     num_bins: int = 5
     input_size: int = 224
     fix_events_num: int = 200_000
@@ -99,16 +107,24 @@ def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
                        labels: torch.Tensor, params: ViewParams, *,
                        num_bins: int, height: int, width: int, out_size: int,
                        task: str, label_h: int, label_w: int,
+                       valid: Optional[torch.Tensor] = None,
                        t_range: Optional[torch.Tensor] = None,
                        tile_table: Optional[torch.Tensor] = None,
                        tile_chunk_trange: Optional[torch.Tensor] = None,
                        ) -> dict:
     """f32 events (B, E, 4), or their u16 (B, E, 4) / u32 (B, E) words with
-    ``t_range``, and ``(B, H, W)`` label maps -> ``{'evg': (B, S, S, C) f32,
-    'label': (B, label_h, label_w) int64}``. ``tile_table`` marks a
-    tile-bucketed layout, rasterised by K6."""
-    if task != "semseg":
-        raise NotImplementedError(_FLOW)
+    ``t_range``, and the labels -> the batch. ``tile_table`` marks a
+    tile-bucketed layout, rasterised by K6.
+
+    semseg: ``labels`` (B, H, W) class ids -> ``{'evg': (B, S, S, C) f32,
+    'label': (B, label_h, label_w) int64}``. flow: ``labels`` (B, H, W, 2)
+    and ``valid`` (B, H, W) -> ``{'evg', 'flow': (B, label_h, label_w, 2)
+    f32, 'valid': (B, label_h, label_w) f32, 'event_mask'}``, the last the
+    pixels where events fell in the unaugmented grid (nearest-resized to
+    the label size), which the eval step's sparse mask reads
+    (dense_pipeline.py:120-135)."""
+    if task not in TASKS:
+        raise ValueError(f"task {task!r}: expected one of {TASKS}")
     if events.dtype in (torch.int16, torch.uint16):
         events = decode_events_u16(events, t_range)
     elif events.dtype in (torch.int32, torch.uint32):
@@ -116,20 +132,34 @@ def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
     elif events.dtype != torch.float32:
         raise TypeError(f"events of {events.dtype}: expected f32 xytp or "
                         "the u16/u32 transfer words")
-    evg = build_representation(
+    evg_org = build_representation(
         events, counts, num_bins=num_bins, height=height, width=width,
         tile_table=tile_table, t_range=t_range,
         chunk_trange=tile_chunk_trange,
     )
-    evg = apply_view_augment(evg, params, (out_size, out_size), "bilinear",
-                             negate_on_tflip=num_bins in (5, 6))
+    evg = apply_view_augment(evg_org, params, (out_size, out_size),
+                             "bilinear", negate_on_tflip=num_bins in (5, 6))
     # the ECDP/MEM normalisation follows the view augment, as in the
     # reference dense datasets
-    evg = normalize_representation(evg, num_bins)
-    # labels travel as uint8 and widen on the device
-    label = apply_semseg_label_augment(labels.to(torch.int32), params,
-                                       (label_h, label_w))
-    return {"evg": evg, "label": label.long()}
+    out = {"evg": normalize_representation(evg, num_bins)}
+    if task == "semseg":
+        # labels travel as uint8 and widen on the device
+        label = apply_semseg_label_augment(labels.to(torch.int32), params,
+                                           (label_h, label_w))
+        out["label"] = label.long()
+        return out
+    # the wire's f16 gt and u8 valid widen before the resampling augments
+    out["flow"] = apply_flow_label_augment(labels.float(), params,
+                                           (label_h, label_w))
+    out["valid"] = apply_flow_valid_augment(valid.float(), params,
+                                            (label_h, label_w))
+    grid = evg_org.float()
+    presence = ((grid * grid).sum(dim=-1) > 0).float()
+    if tuple(presence.shape[1:]) != (label_h, label_w):
+        presence = resize(presence[..., None], (label_h, label_w),
+                          "nearest")[..., 0]
+    out["event_mask"] = presence
+    return out
 
 
 class DensePipeline:
@@ -141,8 +171,8 @@ class DensePipeline:
 
     def __init__(self, source, cfg: DenseDataConfig, batch_size: int,
                  train: bool, seed: int = 0, device="cuda"):
-        if cfg.task != "semseg":
-            raise NotImplementedError(_FLOW)
+        if cfg.task not in TASKS:
+            raise ValueError(f"task {cfg.task!r}: expected one of {TASKS}")
         self.source = source
         self.cfg = cfg
         self.batch_size = batch_size
@@ -150,8 +180,11 @@ class DensePipeline:
         self.rng = np.random.default_rng(seed)
         self.device = torch.device(device)
         self.tiled = uses_tiled_raster(cfg)
-        self._pack_buffer = None
-        self._enc_buffer = None
+        # two of each host buffer, used in turns (as JAX does): a batch's
+        # wire arrays are not written again while the next one is built
+        self._pack_buffers = [None, None]
+        self._enc_buffers = [None, None]
+        self._buf_i = 0
         self.host_seconds = 0.0
         self.batches = 0
 
@@ -160,57 +193,79 @@ class DensePipeline:
 
     def _host_batch(self, idx: np.ndarray, cap: int):
         """Loads, stream augment and packing, in the JAX pipeline's order
-        of draws: ``(packed, counts, labels)``."""
+        of draws: ``(packed, counts, targets)``, ``targets`` holding the
+        stacked semseg maps (``labels``), or the flow fields (``labels``)
+        and validity masks (``valid``)."""
         cfg = self.cfg
-        streams, labels = [], []
+        streams, labels, valids = [], [], []
         for i in idx:
             item = self.source.load(int(i))
             streams.append(np.asarray(item["events"]))
-            # class ids and the 255 ignore label fit in uint8, the wire
-            # dtype; wider maps travel as int32 (dense_pipeline.py:196-207)
-            lab = np.asarray(item["label"])
-            labels.append(
-                lab if lab.dtype == np.uint8 else
-                lab.astype(np.uint8) if (lab.min() >= 0 and lab.max() <= 255)
-                else lab.astype(np.int32))
+            if cfg.task == "semseg":
+                # class ids and the 255 ignore label fit in uint8, the wire
+                # dtype; wider maps travel as int32 (dense_pipeline.py:
+                # 196-207)
+                lab = np.asarray(item["label"])
+                labels.append(
+                    lab if lab.dtype == np.uint8 else
+                    lab.astype(np.uint8) if (lab.min() >= 0
+                                             and lab.max() <= 255)
+                    else lab.astype(np.int32))
+            else:
+                # f16 gt under compact_transfer; the 0/1 mask as uint8
+                labels.append(np.asarray(
+                    item["flow"],
+                    np.float16 if cfg.compact_transfer else np.float32))
+                valids.append(np.asarray(item["valid"]).astype(np.uint8))
+        buf = self._pack_buffers[self._buf_i]
         if self.train:
-            # the seeds of the native augment (dense_pipeline.py:230):
-            # drawn though the numpy augment below does not read them
-            self.rng.integers(0, 2 ** 63, len(idx))
-            streams = [
-                erase_and_add_events(
-                    self.rng, s.astype(np.float64),
-                    (cfg.sensor_height, cfg.sensor_width),
-                ).astype(np.float32) if s.shape[0] > 0 else
-                s.astype(np.float32)
-                for s in streams
-            ]
-        packed, counts = pack_event_batch(streams, cap,
-                                          out=self._pack_buffer)
-        self._pack_buffer = packed
-        return packed, counts, np.stack(labels)
+            hw = (cfg.sensor_height, cfg.sensor_width)
+            seeds = self.rng.integers(0, 2 ** 63, len(idx))
+            done = augment_pack_event_batch(
+                streams, [(0, s.shape[0]) for s in streams],
+                [(float(hw[0]), float(hw[1]))] * len(idx), cap, seeds,
+                out=buf)
+            if done is None:  # "numpy-forced": the numpy specification
+                streams = [
+                    erase_and_add_events(
+                        self.rng, s.astype(np.float64), hw
+                    ).astype(np.float32) if s.shape[0] > 0 else
+                    s.astype(np.float32)
+                    for s in streams
+                ]
+                done = pack_event_batch(streams, cap, out=buf)
+            packed, counts = done
+        else:
+            packed, counts = pack_event_batch(streams, cap, out=buf)
+        self._pack_buffers[self._buf_i] = packed
+        targets = {"labels": np.stack(labels)}
+        if valids:
+            targets["valid"] = np.stack(valids)
+        return packed, counts, targets
 
     def _encode(self, packed: np.ndarray, counts: np.ndarray) -> dict:
         """The transfer layout: bucketed (u32 words, or f32 with
         ``compact_transfer=False``) with its table and time spans, or the
         prefix layout of ``encode_for_transfer``."""
         cfg = self.cfg
+        i = self._buf_i
         if not self.tiled:
-            events, t_range, self._enc_buffer = encode_for_transfer(
-                packed, counts, cfg.compact_transfer, out=self._enc_buffer,
-                codec="u32")
+            events, t_range, self._enc_buffers[i] = encode_for_transfer(
+                packed, counts, cfg.compact_transfer,
+                out=self._enc_buffers[i], codec="u32")
             return {"events": events, "t_range": t_range}
         hw = dict(height=cfg.sensor_height, width=cfg.sensor_width)
         if cfg.compact_transfer:
             # a bucketed layout always takes the u32 codec, whose sentinels
             # and explicit-window encoder the tiled contract needs
             enc, table, t_range, chunk_tr = bucket_pack_event_batch_u32(
-                packed, counts, out=self._enc_buffer, **hw)
-            self._enc_buffer = enc
+                packed, counts, out=self._enc_buffers[i], **hw)
+            self._enc_buffers[i] = enc
             events = enc.view(np.int32)
         else:
             events, table, t_range, chunk_tr = bucket_pack_event_batch(
-                packed, counts, **hw)
+                packed, counts, out=self._enc_buffers[i], **hw)
+            self._enc_buffers[i] = events
         return {"events": events, "t_range": t_range, "tile_table": table,
                 "tile_chunk_trange": chunk_tr}
 
@@ -232,7 +287,8 @@ class DensePipeline:
             num_valid = len(idx)
             if len(idx) < bs:
                 idx = np.concatenate([idx, order[:bs - len(idx)]])
-            packed, counts, labels = self._host_batch(idx, cap)
+            self._buf_i ^= 1
+            packed, counts, targets = self._host_batch(idx, cap)
             if self.train:
                 params = sample_view_params(
                     self.rng, len(idx), cfg.sensor_height, cfg.sensor_width,
@@ -240,15 +296,17 @@ class DensePipeline:
             else:
                 params = identity_view_params(
                     len(idx), cfg.sensor_height, cfg.sensor_width, dev)
-            wire = self._encode(packed, counts)
+            wire = {**self._encode(packed, counts), **targets,
+                    "counts": counts}
             self.host_seconds += time.perf_counter() - t0
             self.batches += 1
-            # copied even to the CPU: the host buffers are reused
+            # copied even to the CPU, where the host buffers would be
+            # aliased; a copy to the card from pageable memory returns once
+            # it is done, so the buffers are free again when it returns
             t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 dev, copy=True) for k, v in wire.items()}
             batch = _device_preprocess(
-                t.pop("events"), torch.from_numpy(counts).to(dev),
-                torch.from_numpy(labels).to(dev), params,
+                t.pop("events"), t.pop("counts"), t.pop("labels"), params,
                 num_bins=cfg.num_bins, height=cfg.sensor_height,
                 width=cfg.sensor_width, out_size=cfg.input_size,
                 task=cfg.task, label_h=label_h, label_w=label_w, **t,

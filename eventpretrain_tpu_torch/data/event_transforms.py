@@ -6,9 +6,10 @@ windowing and the erase-and-add and noise augments, draw for draw with the
 same ``numpy.random.Generator`` calls, so a seed gives the JAX package's
 streams) and of the numpy path of
 eventpretrain_tpu/native/__init__.py:76-115 (``pack_event_batch``). The
-JAX package packs and augments in C++ when its library builds
-(``native/event_pack.cpp``); these are its numpy specifications, which the
-port runs on the host.
+pipelines pack and augment with the C++ passes of
+``eventpretrain_tpu_torch.native``, as the JAX package does; the pack here
+is their numpy specification, and it and ``erase_and_add_events`` run
+under ``native.BACKEND = "numpy-forced"``.
 
 Events are ``(N, 4)`` float arrays ``[x, y, t, p]`` sorted by ``t``.
 """

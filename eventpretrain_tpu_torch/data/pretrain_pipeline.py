@@ -3,11 +3,11 @@
 Counterpart of eventpretrain_tpu/data/pretrain_pipeline.py:41-141 and
 144-273: per-image directories hold precomputed noisy event voxel grids and
 temporal-difference sub-frames. The host loads arrays (sequentially, or on
-a thread pool whose loads draw no random numbers) and samples one
-``ViewParams`` per sample with numpy, draw for draw as in JAX; the device
-applies the coupled augments to the whole batch: the grid nearest
-(negated on time-flip for 5/6-bin signed grids) and the sub-frame bicubic
-(sign-flipped on time-flip). The contrastive phases' CLIP embeddings come
+the pool of ``data/io_pool.py``, whose loads draw no random numbers) and
+samples one ``ViewParams`` per sample with numpy, draw for draw as in
+JAX; the device applies the coupled augments to the whole batch: the grid
+nearest (negated on time-flip for 5/6-bin signed grids) and the sub-frame
+bicubic (sign-flipped on time-flip). The contrastive phases' CLIP embeddings come
 with slice 4.
 """
 
@@ -15,12 +15,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from eventpretrain_tpu_torch.data.io_pool import make_pool, map_loads
 from eventpretrain_tpu_torch.ops.view_augment import (
     apply_frame_augment,
     apply_view_augment,
@@ -57,11 +57,6 @@ class PretrainPipeline:
     def __len__(self) -> int:
         return len(self.source) // self.batch_size
 
-    def _loads(self, idx, pool: Optional[ThreadPoolExecutor]):
-        if pool is None:
-            return [self.source.load(int(i)) for i in idx]
-        return list(pool.map(lambda i: self.source.load(int(i)), idx))
-
     def __iter__(self) -> Iterator[dict]:
         cfg = self.cfg
         order = np.arange(len(self.source))
@@ -70,13 +65,12 @@ class PretrainPipeline:
         bs = self.batch_size
         tdtype = (torch.bfloat16 if cfg.transfer_dtype == "bfloat16"
                   else torch.float32)
-        pool = (ThreadPoolExecutor(self.num_workers)
-                if self.num_workers > 0 else None)
+        pool = make_pool(self.num_workers)
         try:
             for b in range(len(self)):
                 idx = order[b * bs:(b + 1) * bs]
                 evgs, frames = [], []
-                for item in self._loads(idx, pool):
+                for item in map_loads(self.source.load, idx, pool):
                     evg = np.asarray(item["evg"], np.float32)
                     if cfg.num_bins == 1:
                         evg = evg.sum(axis=-1, keepdims=True)

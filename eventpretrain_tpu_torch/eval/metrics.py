@@ -1,8 +1,8 @@
 """Task metrics.
 
-Counterpart of eventpretrain_tpu/eval/metrics.py:21-99
+Counterpart of eventpretrain_tpu/eval/metrics.py:21-126
 (``topk_accuracy``, ``confusion_matrix``, ``miou_from_confusion``,
-``macc_from_confusion``); ``flow_error`` comes with slice 3b (flow).
+``macc_from_confusion``, ``flow_error``).
 """
 
 from __future__ import annotations
@@ -77,3 +77,20 @@ def macc_from_confusion(confusion: torch.Tensor) -> torch.Tensor:
     diag = torch.diagonal(confusion)
     return (100.0 * diag / torch.clamp_min(confusion.sum(dim=1),
                                            1e-12)).mean()
+
+
+def flow_error(predict: torch.Tensor, target: torch.Tensor,
+               valid: Optional[torch.Tensor] = None,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(AEE, outliers in percent)`` over the valid pixels
+    (metrics.py:102-126): ``predict``, ``target`` (..., H, W, 2), ``valid``
+    (..., H, W), where 1 marks a valid pixel, or None for all of them. An
+    outlier's end-point error is over 3 and over 5% of the flow's
+    length."""
+    epe = torch.sqrt(((predict - target) ** 2).sum(dim=-1))
+    mag = torch.sqrt((target ** 2).sum(dim=-1))
+    w = torch.ones_like(epe) if valid is None else (valid == 1).to(epe.dtype)
+    total = torch.clamp_min(w.sum(), 1.0)
+    aee = (epe * w).sum() / total
+    outlier = ((epe > 3.0) & (epe / torch.clamp_min(mag, 1e-12) > 0.05))
+    return aee, (outlier.to(epe.dtype) * w).sum() / total * 100.0

@@ -1,11 +1,10 @@
 """Token <-> frame reshapes and the resize (channels-last).
 
-Counterpart of eventpretrain_tpu/ops/reshape.py:16-82. Images are
+Counterpart of eventpretrain_tpu/ops/reshape.py:16-95. Images are
 ``(B, H, W, C)`` and token streams ``(B, L, D)``. The flattening order
 inside a patch token is ``(p, q, c)``, as in the JAX package and the
 reference's ``bchpwq->bhwpqc`` einsum, so reconstruction targets and
-predictions keep the reference layout. ``resize_flow`` comes with the flow
-slice.
+predictions keep the reference layout.
 """
 
 from __future__ import annotations
@@ -129,3 +128,15 @@ def resize(x: torch.Tensor, size: tuple[int, int],
         wx = _resize_weights(w, out_w, method, x.device).to(x.dtype)
         x = torch.einsum("pw,...hwc->...hpc", wx, x)
     return x
+
+
+def resize_flow(x: torch.Tensor, size: tuple[int, int],
+                mode: str = "bilinear") -> torch.Tensor:
+    """Resize a flow field ``(..., H, W, 2)`` and rescale its vectors
+    (reshape.py:82): u by ``size[1] / W``, v by ``size[0] / H``, as
+    scalars of ``x``'s dtype."""
+    org_h, org_w = x.shape[-3], x.shape[-2]
+    out = resize(x, size, mode)
+    scale = torch.tensor([size[1] / org_w, size[0] / org_h],
+                         dtype=out.dtype, device=out.device)
+    return out * scale

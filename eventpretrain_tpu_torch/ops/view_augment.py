@@ -1,8 +1,7 @@
 """Batched view augmentation (crop -> resize -> hflip -> time-flip), plain
 PyTorch.
 
-Counterpart of eventpretrain_tpu/ops/view_augment.py:27-274 (the flow
-label augments come with slice 3b (flow)). Parameters
+Counterpart of eventpretrain_tpu/ops/view_augment.py:27-313. Parameters
 are drawn on the host with numpy, draw for draw as in JAX
 (``sample_view_params``), and held as per-sample tensors; crop and resize
 of a whole batch are two dense contractions with per-sample ``(out,
@@ -197,3 +196,36 @@ def apply_semseg_label_augment(labels: torch.Tensor, params: ViewParams,
             tflip=torch.zeros_like(params.tflip)),
         out_size, "nearest", negate_on_tflip=False)
     return out[..., 0]
+
+
+def apply_flow_label_augment(flows: torch.Tensor, params: ViewParams,
+                             out_size: tuple[int, int], *,
+                             use_tflip: bool = True) -> torch.Tensor:
+    """Augment flow fields ``(B, H, W, 2)`` coupled to an event view
+    (view_augment.py:277-305): the same crop and a nearest resize, the
+    vectors scaled by ``(out_w / crop_w, out_h / crop_h)``; a horizontal
+    flip mirrors the field and negates u, a time flip negates both
+    components."""
+    out_h, out_w = out_size
+    no = torch.zeros_like(params.hflip)
+    out = apply_view_augment(flows, params._replace(hflip=no, tflip=no),
+                             out_size, "nearest", negate_on_tflip=False)
+    cw, ch = params.crop_w.float(), params.crop_h.float()
+    # tensor by tensor: a python number over a tensor is its reciprocal
+    # times the number in torch, an ulp off JAX's quotient
+    scale = torch.stack([torch.full_like(cw, out_w) / cw,
+                         torch.full_like(ch, out_h) / ch], dim=-1)
+    out = out * scale[:, None, None, :].to(out.dtype)
+    mirror = torch.tensor([-1.0, 1.0], dtype=out.dtype, device=out.device)
+    out = torch.where(params.hflip.view(-1, 1, 1, 1), out.flip(2) * mirror,
+                      out)
+    if use_tflip:
+        out = torch.where(params.tflip.view(-1, 1, 1, 1), -out, out)
+    return out
+
+
+def apply_flow_valid_augment(valid: torch.Tensor, params: ViewParams,
+                             out_size: tuple[int, int]) -> torch.Tensor:
+    """Augment flow validity masks ``(B, H, W)`` as label maps
+    (view_augment.py:308-313)."""
+    return apply_semseg_label_augment(valid, params, out_size)

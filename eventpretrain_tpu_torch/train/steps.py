@@ -1,12 +1,12 @@
 """The stage-1 train step, the classification finetune steps and the
-semantic-segmentation finetune steps.
+dense finetune steps (semantic segmentation and optical flow).
 
 Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
 :101-160, ``make_cls_train_step`` :298-345, ``make_cls_eval_step``
-:348-385, ``make_semseg_train_step`` :607-648 and
-``make_semseg_eval_step`` :651-675, with ``_valid_row_mask`` :29-42. The
-contrastive and joint steps come with slice 4, the flow steps with the
-flow slice.
+:348-385, ``make_semseg_train_step`` :607-648, ``make_semseg_eval_step``
+:651-675, ``make_flow_train_step`` :679-717 and ``make_flow_eval_step``
+:720-761, with ``_valid_row_mask`` :29-42. The contrastive and joint
+steps come with slice 4.
 """
 
 from __future__ import annotations
@@ -28,13 +28,14 @@ from eventpretrain_tpu_torch.objectives.cls import (
     cls_loss,
     per_sample_cls_loss,
 )
+from eventpretrain_tpu_torch.objectives.flow import flow_l1_loss
 from eventpretrain_tpu_torch.objectives.rec import reconstruct_loss
 from eventpretrain_tpu_torch.objectives.semseg import semseg_loss
 from eventpretrain_tpu_torch.ops.masking import (
     make_mask_from_noise,
     masking_noise,
 )
-from eventpretrain_tpu_torch.ops.reshape import resize
+from eventpretrain_tpu_torch.ops.reshape import resize, resize_flow
 from eventpretrain_tpu_torch.train.state import TrainState
 
 
@@ -194,14 +195,7 @@ def make_semseg_train_step(hub, *, num_classes: int,
     """
 
     def step(state: TrainState, batch: dict) -> dict:
-        hub.train()
-        paths = DropPathSource(generator, batch.get("drop_path_keep"))
-        drops = DropPathSource(generator, batch.get("dropout_keep"))
-        set_drop_path_source(hub, paths)
-        set_dropout_source(hub, drops)
-        _, _, decode, aux = hub(batch["evg"])
-        _check_replayed(paths, "drop_path_keep")
-        _check_replayed(drops, "dropout_keep")
+        decode, aux = _dense_train_forward(hub, batch, generator)
         label = batch["label"]
         size = tuple(label.shape[1:3])
         d_ce, d_dice = semseg_loss(resize(decode, size, sample_mode), label,
@@ -215,6 +209,22 @@ def make_semseg_train_step(hub, *, num_classes: int,
                 "decode_dice": d_dice.detach(), "grad_norm": grad_norm}
 
     return step
+
+
+def _dense_train_forward(hub, batch: dict,
+                         generator: Optional[torch.Generator]):
+    """The dense hub in training mode on ``batch['evg']``, drop-path and
+    the heads' dropout drawn from ``generator`` or replayed from
+    ``drop_path_keep`` / ``dropout_keep``: ``(decode, aux)`` logits."""
+    hub.train()
+    paths = DropPathSource(generator, batch.get("drop_path_keep"))
+    drops = DropPathSource(generator, batch.get("dropout_keep"))
+    set_drop_path_source(hub, paths)
+    set_dropout_source(hub, drops)
+    _, _, decode, aux = hub(batch["evg"])
+    _check_replayed(paths, "drop_path_keep")
+    _check_replayed(drops, "dropout_keep")
+    return decode, aux
 
 
 def make_semseg_eval_step(hub, *, num_classes: int,
@@ -239,5 +249,79 @@ def make_semseg_eval_step(hub, *, num_classes: int,
             valid = valid[:, None, None]
         return confusion_matrix(pred, label, num_classes, ignore_label,
                                 valid=valid)
+
+    return step
+
+
+def make_flow_train_step(hub, *, max_flow: float = 400.0,
+                         w_decode: float = 1.0, w_aux: float = 0.4,
+                         sample_mode: str = "bilinear",
+                         generator: Optional[torch.Generator] = None
+                         ) -> Callable:
+    """``step(state, batch) -> metrics``: the optical-flow finetune step
+    (steps.py:679-717) of a dense hub with two output channels. Both
+    heads' fields are resized to the label resolution with their vectors
+    rescaled (``resize_flow``); the loss is ``w_decode`` times the decode
+    head's L1 plus ``w_aux`` times the auxiliary head's, over the pixels
+    whose ``valid`` is at least 0.5 and whose flow is shorter than
+    ``max_flow``; :class:`TrainState` applies one AdamW update.
+
+    ``batch = {'evg': (B, H, W, C), 'flow': (B, Hl, Wl, 2), 'valid': (B,
+    Hl, Wl)}``, with the masks drawn or replayed as in
+    :func:`make_semseg_train_step`. ``metrics`` holds ``loss``,
+    ``decode_l1`` and ``grad_norm`` as device tensors."""
+
+    def step(state: TrainState, batch: dict) -> dict:
+        decode, aux = _dense_train_forward(hub, batch, generator)
+        flow, valid = batch["flow"], batch["valid"]
+        size = tuple(flow.shape[1:3])
+        d_l1 = flow_l1_loss(resize_flow(decode, size, sample_mode), flow,
+                            valid, max_flow)
+        a_l1 = flow_l1_loss(resize_flow(aux, size, sample_mode), flow,
+                            valid, max_flow)
+        loss = w_decode * d_l1 + w_aux * a_l1
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "decode_l1": d_l1.detach(),
+                "grad_norm": grad_norm}
+
+    return step
+
+
+def make_flow_eval_step(hub, *, sample_mode: str = "bilinear",
+                        sparse_mask: bool = True) -> Callable:
+    """``step(batch) -> {'epe_sum', 'outlier_sum', 'count'}`` of the batch
+    (steps.py:720-761), f32 device tensors to sum over batches: AEE is
+    ``epe_sum / count`` and the outlier share ``outlier_sum / count``. Eval
+    mode, no gradients; the decode head's field is resized to the label
+    resolution. A pixel counts where ``valid >= 0.5``, where events fell
+    (``batch['event_mask'] > 0``, the pipeline's mask of the unaugmented
+    grid; without one and with ``sparse_mask``, the nonzero pixels of
+    ``evg`` nearest-resized), and in a real row of a wrapped tail batch."""
+
+    @torch.no_grad()
+    def step(batch: dict) -> dict:
+        hub.eval()
+        _, _, decode, _ = hub(batch["evg"])
+        target = batch["flow"].float()
+        size = tuple(target.shape[1:3])
+        decode = resize_flow(decode, size, sample_mode).float()
+        valid = batch["valid"] >= 0.5
+        if "event_mask" in batch:
+            valid = valid & (batch["event_mask"] > 0)
+        elif sparse_mask:
+            evg = batch["evg"].float()
+            presence = ((evg * evg).sum(dim=-1) > 0).float()[..., None]
+            valid = valid & (resize(presence, size, "nearest")[..., 0] > 0)
+        vmask = _valid_row_mask(batch, valid.shape[0], valid.device)
+        if vmask is not None:
+            valid = valid & vmask[:, None, None]
+        w = valid.float()
+        epe = torch.sqrt(((decode - target) ** 2).sum(dim=-1))
+        mag = torch.sqrt((target ** 2).sum(dim=-1))
+        outlier = (epe > 3.0) & (epe / torch.clamp_min(mag, 1e-12) > 0.05)
+        return {"epe_sum": (epe * w).sum(),
+                "outlier_sum": (outlier.float() * w).sum(),
+                "count": w.sum()}
 
     return step

@@ -10,12 +10,15 @@ short training trajectories of a tiny dense hub (depth 4, C=64, 2 heads,
 ``export_torch_state_dict(params, batch_stats)`` ->
 ``load_jax_state_dict``, the eval step and the CLI. Drop-path masks are
 drawn with numpy and replayed on both sides, as in the cls tests; the
-heads' dropout is 0 where JAX's draws would have to be reproduced. The JAX
-pipeline runs its numpy fallbacks (``native.BACKEND = "numpy-forced"``),
-the ones the port copies. Every test passes ``device="cpu"``.
+heads' dropout is 0 where JAX's draws would have to be reproduced. Both
+pipelines run their C++ host code (JAX's library built here from JAX's
+source, the port's from its copy), so one seed gives the same batches; one
+case forces both to their numpy specifications (``native.BACKEND =
+"numpy-forced"``), which also agree. Every test passes ``device="cpu"``.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -99,11 +102,30 @@ B = 4
 LABEL_HW = (12, 20)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """JAX's C++ library, built in this process's own directory when no
+    other test of the process built it (JAX names its temporary file alike
+    in every process, so parallel workers' builds may race)."""
+    if jnative._LIB is None:
+        old = os.environ.get("XDG_CACHE_HOME")
+        os.environ["XDG_CACHE_HOME"] = str(tmp_path_factory.mktemp("jnat"))
+        try:
+            jnative._get_lib()
+        finally:
+            if old is None:
+                del os.environ["XDG_CACHE_HOME"]
+            else:
+                os.environ["XDG_CACHE_HOME"] = old
+    assert jnative.BACKEND == "native" and tnative.BACKEND == "native"
+
+
+@pytest.fixture
 def numpy_native(monkeypatch):
-    """The JAX pipeline's numpy fallbacks, the ones the port copies."""
+    """Both packages' numpy specifications of their C++ host code."""
     monkeypatch.setattr(jnative, "_LIB", None)
     monkeypatch.setattr(jnative, "BACKEND", "numpy-forced")
+    monkeypatch.setattr(tnative, "BACKEND", "numpy-forced")
 
 
 def _make_batch(counts, cap, rng, strays=True):
@@ -330,8 +352,9 @@ def test_semseg_label_augment_matches_jax():
     labels = rng.integers(0, NUM_CLASSES, (3, 40, 60)).astype(np.int32)
     labels[:, :5] = IGNORE
     jp, tp = _view_params(rng, 3, 40, 60)
+    augment = jax.jit(j_label_augment, static_argnums=2)
     for size in ((40, 60), (24, 36), (50, 70)):
-        want = np.asarray(j_label_augment(jnp.asarray(labels), jp, size))
+        want = np.asarray(augment(jnp.asarray(labels), jp, size))
         got = apply_semseg_label_augment(torch.from_numpy(labels), tp, size)
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -360,10 +383,21 @@ def _pipelines(tiled, compact, train):
                          ids=["tiled_u32", "tiled_f32", "untiled_u32"])
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
 def test_dense_pipeline_batches_match_jax(tiled, compact, train):
-    """Two batches of the numpy-forced JAX pipeline and the port's from one
-    seed: the same order, stream augment and views. Labels exactly; the
-    grids within 1e-4 of their scale (JAX's tiled grid goes through the
-    hi+lo kernel, the untiled one through the f32 scatter)."""
+    """Two batches of the JAX pipeline and the port's from one seed, both
+    on their C++ host code: the same order, stream augment and views.
+    Labels exactly; the grids within 1e-4 of their scale (JAX's tiled grid
+    goes through the hi+lo kernel, the untiled one through the f32
+    scatter)."""
+    _check_dense_pipelines(tiled, compact, train)
+
+
+def test_dense_pipeline_batches_match_jax_numpy_specification(numpy_native):
+    """The same, both pipelines on their numpy host code (erase-and-add
+    from the pipeline's generator, the numpy pack and bucketer)."""
+    _check_dense_pipelines("on", True, True)
+
+
+def _check_dense_pipelines(tiled, compact, train):
     jpipe, tpipe = _pipelines(tiled, compact, train)
     assert tpipe.tiled == (tiled == "on")
     n = 0
@@ -387,9 +421,13 @@ def test_auto_tiling_routes_by_grid_size_on_every_device():
         assert tdp.uses_tiled_raster(c) == want, hw
     off = tdp.DenseDataConfig(task="semseg", tiled_raster="off")
     assert not tdp.uses_tiled_raster(off)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tdp.DensePipeline(tdp.SyntheticDenseSource("flow"),
-                          tdp.DenseDataConfig(task="flow"), 2, True,
+    flow = tdp.DensePipeline(tdp.SyntheticDenseSource("flow"),
+                             tdp.DenseDataConfig(task="flow"), 2, True,
+                             device="cpu")
+    assert flow.tiled  # the flow task is ported
+    with pytest.raises(ValueError, match="task"):
+        tdp.DensePipeline(tdp.SyntheticDenseSource("semseg"),
+                          tdp.DenseDataConfig(task="depth"), 2, True,
                           device="cpu")
 
 

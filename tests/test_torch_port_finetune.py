@@ -11,12 +11,15 @@ drop-path 0.1) carried across with ``export_torch_state_dict`` ->
 cannot be reproduced, so drop-path masks are drawn with numpy and replayed
 on both sides: the port through ``drop_path_keep``, JAX by replacing
 ``eventpretrain_tpu.models.layers.drop_path``, which ``DropPath`` looks up
-at call time. The JAX pipeline runs its numpy fallbacks
-(``native.BACKEND = "numpy-forced"``), the ones the port copies. Every test
-passes ``device="cpu"``.
+at call time. Both pipelines run their C++ host code (JAX's library built
+here from JAX's source, the port's from its copy), so one seed gives the
+same batches; one case forces both to their numpy specifications
+(``native.BACKEND = "numpy-forced"``), which also agree. Every test passes
+``device="cpu"``.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +44,7 @@ from eventpretrain_tpu.train.steps import (
     make_cls_eval_step as j_make_eval,
     make_cls_train_step as j_make_train,
 )
+from eventpretrain_tpu_torch import native as tnative
 from eventpretrain_tpu_torch.ckpt.bridge import (
     load_jax_state_dict,
     load_torch_checkpoint,
@@ -69,17 +73,36 @@ SITES = 4
 B = 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """JAX's C++ library, built in this process's own directory when no
+    other test of the process built it (JAX names its temporary file alike
+    in every process, so parallel workers' builds may race)."""
+    if jnative._LIB is None:
+        old = os.environ.get("XDG_CACHE_HOME")
+        os.environ["XDG_CACHE_HOME"] = str(tmp_path_factory.mktemp("jnat"))
+        try:
+            jnative._get_lib()
+        finally:
+            if old is None:
+                del os.environ["XDG_CACHE_HOME"]
+            else:
+                os.environ["XDG_CACHE_HOME"] = old
+    assert jnative.BACKEND == "native" and tnative.BACKEND == "native"
+
+
+@pytest.fixture
 def numpy_native(monkeypatch):
-    """The JAX pipeline's numpy fallbacks, the ones the port copies."""
+    """Both packages' numpy specifications of their C++ host code."""
     monkeypatch.setattr(jnative, "_LIB", None)
     monkeypatch.setattr(jnative, "BACKEND", "numpy-forced")
+    monkeypatch.setattr(tnative, "BACKEND", "numpy-forced")
 
 
 @pytest.fixture(scope="module")
 def jax_params():
     hub = j_hub(NUM_CLASSES, **TINY)
-    v = hub.init(jax.random.key(0), jnp.zeros((1, 32, 32, 5)))
+    v = jax.jit(hub.init)(jax.random.key(0), jnp.zeros((1, 32, 32, 5)))
     return v["params"]
 
 
@@ -98,6 +121,34 @@ class _ReplayDropPath:
 
     def __call__(self, key, x, rate):
         keep = jnp.asarray(self.masks[self.calls]).reshape(
+            (x.shape[0],) + (1,) * (x.ndim - 1))
+        self.calls += 1
+        return jnp.where(keep, x / (1.0 - rate), 0.0)
+
+
+class _BatchReplayDropPath:
+    """``_ReplayDropPath`` for a compiled step that serves every batch: the
+    keep masks ride in the batch, on an extra channel of ``evg``, and the
+    step's ``preprocess_fn`` takes them off (traced values, not constants
+    of one trace)."""
+
+    def __init__(self):
+        self.masks = None
+        self.calls = 0
+
+    @staticmethod
+    def pack(evg, keep):
+        extra = np.zeros(evg.shape[:-1] + (1,), np.float32)
+        extra[:, :keep.shape[0], 0, 0] = keep.T
+        return np.concatenate([evg, extra], axis=-1)
+
+    def preprocess(self, evg):
+        self.masks = evg[:, :SITES, 0, -1].T > 0.5  # (S, B)
+        self.calls = 0
+        return evg[..., :-1]
+
+    def __call__(self, key, x, rate):
+        keep = self.masks[self.calls].reshape(
             (x.shape[0],) + (1,) * (x.ndim - 1))
         self.calls += 1
         return jnp.where(keep, x / (1.0 - rate), 0.0)
@@ -145,7 +196,7 @@ def test_event_transforms_match_jax_draw_for_draw():
                                     (100, 120)) is short
 
 
-def test_pack_event_batch_matches_jax_numpy_path():
+def test_pack_event_batch_matches_jax_numpy_path(numpy_native):
     rng = np.random.default_rng(1)
     streams = [rng.normal(size=(n, 4)) for n in (10, 0, 37)]
     want, wc = jnative.pack_event_batch(streams, 20)
@@ -232,6 +283,18 @@ PIPE_ATOL = 1e-5
 @pytest.mark.parametrize("codec", ["u32", "u16", "f32"])
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
 def test_cls_pipeline_batches_match_jax(codec, train):
+    """Both pipelines on their C++ host code: the fused augment and pack
+    from the seeds each draws, the C++ u32 encoder."""
+    _check_cls_pipelines(codec, train)
+
+
+def test_cls_pipeline_batches_match_jax_numpy_specification(numpy_native):
+    """Both pipelines on their numpy host code (erase-and-add from the
+    pipeline's generator, the numpy pack and encoder)."""
+    _check_cls_pipelines("u32", True)
+
+
+def _check_cls_pipelines(codec, train):
     jcfg, tcfg = _cfgs(codec)
     jsrc, tsrc = _sources()
     for i in range(len(tsrc)):
@@ -450,9 +513,9 @@ def test_bf16_attention_map_forward_through_k5_matches_jax(jax_params):
     b = _batch(2)
     jhub = j_hub(NUM_CLASSES, dtype=jnp.bfloat16, **TINY)
     with force_fused():
-        _, want, want_attn = jhub.apply({"params": jax_params},
-                                        jnp.asarray(b["evg"]),
-                                        return_attn=True)
+        _, want, want_attn = jax.jit(lambda p, x: jhub.apply(
+            {"params": p}, x, return_attn=True))(jax_params,
+                                                 jnp.asarray(b["evg"]))
     hub = _carry(jax_params, torch.bfloat16).eval()
     with torch.no_grad():
         _, got, attn = hub(torch.from_numpy(b["evg"]), return_attn=True)
@@ -491,15 +554,16 @@ def test_f32_cls_trajectory_matches_jax(monkeypatch, jax_params, clip):
     state = TrainState(hub, opt, toptim.cosine_warmup_schedule(*_schedule()),
                        clip_grad=clip)
     step = make_cls_train_step(hub, smoothing=0.1)
+    # one compiled JAX step for the three: each batch carries its masks
+    replay = _BatchReplayDropPath()
+    monkeypatch.setattr(jlayers, "drop_path", replay)
+    jstep = j_make_train(jhub, smoothing=0.1,
+                         preprocess_fn=replay.preprocess)
     for i in range(3):
         b = _batch(10 + i)
-        replay = _ReplayDropPath(b["keep"])
-        monkeypatch.setattr(jlayers, "drop_path", replay)
-        # a fresh jit per step: the replayed masks are traced in
-        jstep = j_make_train(jhub, smoothing=0.1)
-        jstate, jm = jstep(jstate, {"evg": jnp.asarray(b["evg"]),
-                                    "label": jnp.asarray(b["label"])},
-                           jax.random.key(i))
+        jstate, jm = jstep(jstate, {
+            "evg": jnp.asarray(replay.pack(b["evg"], b["keep"])),
+            "label": jnp.asarray(b["label"])}, jax.random.key(i))
         assert replay.calls == SITES
         tm = step(state, _tb(b))
         if clip < 1.0:

@@ -100,3 +100,22 @@ def test_k7_k8_slice_modules_are_covered(module):
     prefetch) are among those the import check above loads with jax
     blocked."""
     assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("module", [
+    "native", "data.io_pool", "data.mvsec", "objectives.flow",
+    "cli.finetune_flow",
+])
+def test_host_half_and_flow_slice_modules_are_covered(module):
+    """Slice 3b's modules (the C++ host code's bindings, the load pool, the
+    MVSEC reader, the flow objective and CLI) are among those the import
+    check above loads with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
+def test_host_code_source_ships_with_the_package():
+    from eventpretrain_tpu_torch import native
+
+    assert native.SOURCE == PKG / "native" / "event_pack.cpp"
+    assert native.SOURCE.is_file()
+    assert native.BUILD_DIR == ROOT / "build" / "host_native"

@@ -76,9 +76,9 @@ def _port_hub(dtype=torch.float32):
 @pytest.fixture(scope="module")
 def jax_params():
     hub = _jax_hub()
-    v = hub.init(jax.random.key(0), jnp.zeros((1, 32, 32, 5)),
-                 jnp.arange(LEN_KEEP)[None], jnp.arange(NUM_PATCHES)[None],
-                 method=hub.forward_rec)
+    v = jax.jit(lambda *a: hub.init(*a, method=hub.forward_rec))(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 5)),
+        jnp.arange(LEN_KEEP)[None], jnp.arange(NUM_PATCHES)[None])
     # a nonzero mask token, so its gradient path is exercised too
     p = jax.tree.map(lambda a: a, v["params"])
     p["decoder"]["mask_token"] = jnp.asarray(
@@ -284,15 +284,23 @@ def test_hub_carries_across_strictly(jax_params):
 FWD_ATOL = 1e-4
 
 
+@pytest.fixture(scope="module")
+def jax_forward_rec():
+    """JAX's ``forward_rec`` of the tiny hub, compiled once for the
+    module."""
+    jhub = _jax_hub()
+    return jax.jit(lambda p, *a: jhub.apply({"params": p}, *a,
+                                            method=jhub.forward_rec))
+
+
 @pytest.mark.parametrize("norm_pix,mask_ratio", [(True, 0.75), (False, 0.75),
                                                  (True, 0.0)])
-def test_forward_rec_and_loss_match_jax(jax_params, norm_pix, mask_ratio):
-    jhub = _jax_hub()
+def test_forward_rec_and_loss_match_jax(jax_params, jax_forward_rec,
+                                        norm_pix, mask_ratio):
     b = _batch(1)
-    outs_j = jhub.apply({"params": jax_params}, jnp.asarray(b["evg"]),
-                        jnp.asarray(b["ids_keep"]),
-                        jnp.asarray(b["ids_restore"]),
-                        method=jhub.forward_rec)
+    outs_j = jax_forward_rec(jax_params, jnp.asarray(b["evg"]),
+                             jnp.asarray(b["ids_keep"]),
+                             jnp.asarray(b["ids_restore"]))
     hub = _carry(jax_params)
     tb = _tb(b)
     with torch.no_grad():
@@ -345,7 +353,7 @@ def test_adamw_update_matches_optax(jax_params):
     tx = joptim.build_optimizer(jax_params, learning_rate=lambda s: 1e-3,
                                 weight_decay=0.05, layer_decay=0.75,
                                 num_layers=4)
-    updates, _ = tx.update(grads, tx.init(jax_params), jax_params)
+    updates, _ = jax.jit(tx.update)(grads, tx.init(jax_params), jax_params)
     want = export_torch_state_dict(optax.apply_updates(jax_params, updates))
     hub = _carry(jax_params)
     flat_g = export_torch_state_dict(grads)
@@ -447,7 +455,7 @@ def test_bf16_fused_step_matches_jax_kernels(jax_params):
         return j_loss(pred, jb["frame"], jb["mask"], patch_size=PATCH)
 
     with force_fused():
-        want_loss, want_g = jax.value_and_grad(loss_fn)(jax_params)
+        want_loss, want_g = jax.jit(jax.value_and_grad(loss_fn))(jax_params)
     want_g = export_torch_state_dict(want_g)
     hub = _carry(jax_params, torch.bfloat16)
     tb = _tb(b)
