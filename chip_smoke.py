@@ -29,8 +29,9 @@ backend's refusal of a shape, which its timing records as null):
    (8, 196, 768), 12 heads; the bare attention layer (K4) at (8, 196, 384)
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
    (8, 196, 512); their backward kernels with the same ``dy`` at K1
-   (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12, K2 C=768,
-   512, 384, K4 C=384, 768 and K5 C=384, 512; their GEMM alone
+   (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12,
+   (8, 196, 768) H=12, K2 (8, 49, 768), (8, 196, 512), (8, 196, 384),
+   (8, 196, 768), K4 C=384, 768 and K5 C=384, 512; their GEMM alone
    (csrc/ln_gemm.cu) against its plain version ``gemm_reference``: every
    launch of K1/K4 at (64, 196, 384), K2/K5 at (64, 196, 512) and K2 at
    (64, 49, 768), forward and backward, and every layout and epilogue at a
@@ -38,7 +39,8 @@ backend's refusal of a shape, which its timing records as null):
    for bit, and the LayerNorm rows those GEMMs read (``ln_rows``) against
    ``ln_forward``; the row and column reductions of the K1/K2/K4/K5
    backward alone (``ln_backward`` against ``ln_backward_reference`` at
-   (12544, 384), (12544, 512), (3136, 768), (3001, 64), (3001, 768), and
+   (12544, 384), (12544, 512), (3136, 768), (3001, 64), (3001, 768),
+   (12544, 768), and
    ``colsum`` against the f32 column sum at N = C, 3C, 4C of each; dx and
    the bias sums within one bf16 step + 1e-5 of scale, dgamma and dbeta
    1e-4 of scale, each equal bit for bit on a repeat; ``ln_rows`` again at
@@ -119,6 +121,23 @@ backend's refusal of a shape, which its timing records as null):
    MVSEC flow (B=16) pipelines with it and with the numpy specifications
    (``native.BACKEND = "numpy-forced"``), the median of 3 batches each;
    recorded, not gated.
+5g. Slice 4a, the contrastive stages on precomputed CLIP token
+   embeddings: ``pretrain_hub_base`` with its projection heads (width
+   4096) at full width, bf16, seed 0, filled from phase 5's rec checkpoint
+   as ``--init_from`` fills it; B=64 batches of
+   ``SyntheticPretrainSource(size=224)`` with its 197x512 ``clip_emb``
+   through ``PretrainPipeline``. A frozen trunk block under enabled
+   gradients: K1/K2 forward, no saved tensor. Stage 2: 10 ``adj`` steps
+   (the trunk frozen but its norm_layer; per step K1/K2 12+12 forward, 0
+   backward), every frozen parameter unchanged bit for bit; stage 3: 10
+   ``con`` steps from stage 2's weights, global InfoNCE (K1/K2 12+12 both
+   ways); each on the kernel path and the plain path from the same init
+   and batches, both loss curves and their gap (2%); 2 ``con`` steps
+   against the queue at the CLI's default length 65536 (a 39.5 GB buffer),
+   its losses, pointer and peak memory; 4 ``rec+con`` steps with replayed
+   masks on both paths (K1/K2 32+32 both ways: 12 at L=49, 8 of the
+   decoder, 12 at (196, 768)); ``cli.pretrain.main`` for one epoch of
+   ``adj`` from phase 5's checkpoint, then one of ``con`` from adj's.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -145,12 +164,15 @@ backend's refusal of a shape, which its timing records as null):
    function's samples/s at B=64; K8 at DSEC's and N-Cars' shapes
    beside K3's ``voxelize_batch``; K6 also at MVSEC's shape on the first
    flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
-   10 calls (the card alone); the rec and cls train steps' ms,
-   samples/s and peak memory on both paths (and the semseg step's at
-   B=16; the flow step's from phase 5e), the cls and dense pipelines'
+   10 calls (the card alone); K1/K2 also at the contrastive stages'
+   (64, 196, 768) H12, forward and backward, beside ``sdpa``; the rec and
+   cls train steps' ms, samples/s and peak memory on both paths (and the
+   semseg step's at B=16, the adj, con and rec+con steps' at B=64, 5
+   steps a turn; the flow step's from phase 5e), the cls and dense pipelines'
    host time per batch, phase 5f's host builds and phase 5d's delivered
    samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
-   each main-path shape from CUDA graphs beside their plain versions, their
+   each main-path shape (the dense ViT-B's (12544, 768) among them) from
+   CUDA graphs beside their plain versions, their
    bounds and ``torch.sum`` / ``F.layer_norm``, their launches on every
    main path checked against those of the sub-blocks that call them; then
    a ``torch.profiler`` window over each kernel path for its device time by
@@ -759,9 +781,10 @@ def phase_backward_parity(dev) -> dict:
     gen = torch.Generator().manual_seed(5)
     errs = {}
     cases = [("fused_ln_attn_layer_bwd", l, c, h)
-             for l, c, h in ((49, 768, 12), (196, 512, 16), (196, 384, 12))]
-    cases += [("fused_ln_mlp_bwd", 196 if c != 768 else 49, c, 0)
-              for c in (768, 512, 384)]
+             for l, c, h in ((49, 768, 12), (196, 512, 16), (196, 384, 12),
+                             (196, 768, 12))]
+    cases += [("fused_ln_mlp_bwd", l, c, 0)
+              for l, c in ((49, 768), (196, 512), (196, 384), (196, 768))]
     cases += [("fused_attn_layer_bwd", 196, c, 12) for c in (384, 768)]
     cases += [("fused_mlp_bwd", 196, c, 0) for c in (384, 512)]
     for name, l, c, h in cases:
@@ -954,7 +977,7 @@ def phase_gemm_parity(dev) -> tuple[float, float, float]:
 # another order, within 1e-4 of their scale. Each output must come out
 # equal bit for bit on a repeat.
 ROW_SHAPES = ((12544, 384), (12544, 512), (3136, 768), (3001, 64),
-              (3001, 768))
+              (3001, 768), (12544, 768))
 ROW_SLACK = 1e-5
 ROW_SUM_REL_TOL = 1e-4
 
@@ -2572,6 +2595,335 @@ def phase_host(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 5g
+#
+# slice 4a: stages 2 and 3 of the paper on precomputed CLIP token
+# embeddings. pretrain_hub_base with its projection heads (width 4096),
+# from phase 5's rec checkpoint: the dense encode runs K1/K2 at ViT-B's
+# (64, 196, 768) H12, forward only in stage 2 (the trunk frozen but its
+# norm_layer), forward and backward in stage 3; the joint step adds the
+# masked encoder (L=49) and the decoder (L=196, C=512).
+
+CON_STEPS = 10
+QUEUE_STEPS = 2
+QUEUE_LENGTH = 65536  # the CLI's default
+JOINT_STEPS = 4
+REC_CHECKPOINT = os.path.join("build", "chip_smoke_pretrain",
+                              "checkpoint.pth")
+# the joint step's blocks: the masked encoder, the decoder, the dense
+# encoder
+JOINT_BLOCKS = DEPTH + 8 + DEPTH
+
+
+def build_con_hub(dev, with_decoder: bool):
+    """ViT-B/16 with the projection heads (and the decoder), bf16, seed 0,
+    filled from phase 5's rec checkpoint as ``--init_from`` fills it."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.pretrain import init_from_checkpoint
+    from eventpretrain_tpu_torch.models.pretrain_hub import pretrain_hub_base
+
+    hub = pretrain_hub_base(with_decoder=with_decoder, with_heads=True,
+                            dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            input_size=TRAIN_INPUT)
+    copied = init_from_checkpoint(hub, load_torch_checkpoint(REC_CHECKPOINT))
+    require(copied == len(hub.backbone.state_dict()) + (
+        len(hub.pretrain_rec_decoder.state_dict()) if with_decoder else 0),
+        f"--init_from filled {copied} tensors, not the backbone's (and the "
+        "decoder's)")
+    return hub
+
+
+def con_batches(dev, phase: str, steps: int) -> list[dict]:
+    """``steps`` B=64 batches of the synthetic source (197x512 CLIP token
+    embeddings) through the pipeline for ``phase``; the joint phase's with
+    an explicit random masking (replayed on both paths)."""
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        PretrainDataConfig,
+        PretrainPipeline,
+        SyntheticPretrainSource,
+    )
+    from eventpretrain_tpu_torch.ops.masking import random_masking
+
+    source = SyntheticPretrainSource(n=TRAIN_BATCH * steps, size=TRAIN_INPUT,
+                                     seed=0)
+    cfg = PretrainDataConfig(pr_phase=phase, input_size=TRAIN_INPUT,
+                             transfer_dtype="bfloat16")
+    gen = torch.Generator(dev).manual_seed(0)
+    batches = list(PretrainPipeline(source, cfg, TRAIN_BATCH, seed=0,
+                                    device=dev))
+    for batch in batches:
+        require(tuple(batch["clip_emb"].shape) == (TRAIN_BATCH, 197, 512),
+                f"clip_emb {tuple(batch['clip_emb'].shape)}")
+        if phase == "rec+con":
+            ids_keep, mask, ids_restore = random_masking(
+                gen, TRAIN_BATCH, (TRAIN_INPUT // 16) ** 2, 0.75, device=dev)
+            batch.update(ids_keep=ids_keep, mask=mask,
+                         ids_restore=ids_restore)
+    return batches
+
+
+def make_con_trainer(hub, phase: str, use_queue: bool = False):
+    """The CLI's optimizer and the phase's step (cli/pretrain.py) with its
+    defaults (lr 1e-3 * 64 / 256, wd 0.05, betas (0.9, 0.95), T 0.07); the
+    warmup is one epoch of 10 steps, so the steps move the weights."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import (
+        make_con_step,
+        make_rec_and_con_step,
+    )
+
+    schedule = cosine_warmup_schedule(1e-3 * TRAIN_BATCH / 256, 0.0, 1, 400,
+                                      CON_STEPS)
+    state = TrainState(hub, build_optimizer(hub, weight_decay=0.05), schedule)
+    if phase == "rec+con":
+        step = make_rec_and_con_step(hub, patch_size=16,
+                                     num_patches=hub.num_patches,
+                                     use_queue=use_queue)
+    else:
+        step = make_con_step(hub, use_queue=use_queue)
+    return state, step
+
+
+def require_launches(what: str, launches: dict, steps: int,
+                     want: dict) -> None:
+    """Each counted wrapper launched ``want[name]`` times a step (0 where
+    ``want`` has no entry), and the row kernels as their sub-blocks
+    imply."""
+    for name, n in launches.items():
+        require(n == want.get(name, 0) * steps,
+                f"{what}: {name} launched {n} times in {steps} steps, "
+                f"expected {want.get(name, 0)} a step")
+    rows = row_launches_expected(launches)
+    require(launches.rows == rows,
+            f"{what}: row kernels {launches.rows}, expected {rows}")
+
+
+def loss_gap(what: str, kern: list, plain: list, bound: float) -> float:
+    lk = [m["loss"] for m in kern]
+    lp = [m["loss"] for m in plain]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    log(f"{what} loss, kernel path: " + " ".join(f"{v:.5f}" for v in lk))
+    log(f"{what} loss, plain path:  " + " ".join(f"{v:.5f}" for v in lp))
+    log(f"{what} grad norm, kernel path: "
+        + " ".join(f"{m['grad_norm']:.4g}" for m in kern))
+    log(f"{what}: largest loss gap {gap:.3g} of the plain loss (bound "
+        f"{bound})")
+    require(all(np.isfinite([*lk, *lp])), f"non-finite {what} loss")
+    require(all(np.isfinite([m["grad_norm"] for m in kern + plain])),
+            f"non-finite {what} grad norm")
+    require(gap <= bound, f"{what}: the kernel path's loss leaves the plain "
+                          "path's")
+    return gap
+
+
+def check_frozen_block(dev, hub) -> None:
+    """A frozen trunk block under enabled gradients, on an input that needs
+    none: K1/K2 launch forward only and autograd keeps no saved tensor.
+    Counted on its own, before the main path's counts are reset."""
+    saved = []
+    x = torch.randn((TRAIN_BATCH, hub.num_patches, hub.embed_dim),
+                    generator=torch.Generator().manual_seed(3)).to(
+                        dev, hub.compute_dtype)
+    reset_counts()
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t.shape) or t, lambda t: t):
+        y = hub.backbone.vit_block[0](x)
+    torch.cuda.synchronize()
+    got = read_counts()
+    log(f"frozen trunk block under enabled gradients: {len(saved)} saved "
+        f"tensors, requires_grad {y.requires_grad}, launches "
+        f"K1 {got['fused_ln_attn_layer']} + {got['fused_ln_attn_layer_bwd']}"
+        f", K2 {got['fused_ln_mlp']} + {got['fused_ln_mlp_bwd']}")
+    require(not saved and not y.requires_grad,
+            "the frozen trunk block kept saved tensors")
+    require(got["fused_ln_attn_layer"] == got["fused_ln_mlp"] == 1,
+            "the frozen trunk block did not run K1/K2")
+
+
+# The kernel and plain paths start from the same weights and see the same
+# batches; both compute in bf16 but round in other places. The InfoNCE
+# loss is a mean over 64 * 196 tokens of a log-softmax of cosines / 0.07:
+# the rounded q moves each logit by ~1e-2, and the mean by ~1e-3 of itself;
+# bound the gap at 2%, as the rec path's.
+CON_LOSS_GAP_REL = 2e-2
+
+
+def phase_con_training(dev) -> dict:
+    """Stage 2 (10 adj steps), stage 3 (10 con steps, global InfoNCE, from
+    stage 2's weights), each on the kernel path and the plain path from the
+    same init and batches; 2 con steps against the queue at the CLI's
+    default length; 4 joint rec+con steps with replayed masks on both
+    paths. Each kernel-path run is counted on its own."""
+    from eventpretrain_tpu_torch.objectives.contrastive import init_queue
+    from eventpretrain_tpu_torch.train.optim import freeze_except_norm
+
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    # adj and con batches hold the same keys: evg and clip_emb
+    batches = con_batches(dev, "con", CON_STEPS)
+    joint_batches = con_batches(dev, "rec+con", JOINT_STEPS)
+    log(f"contrastive batches: {len(batches)} x evg "
+        f"{tuple(batches[0]['evg'].shape)}, clip_emb "
+        f"{tuple(batches[0]['clip_emb'].shape)} "
+        f"{batches[0]['clip_emb'].dtype}; {len(joint_batches)} joint "
+        f"batches in {time.perf_counter() - t0:.1f} s")
+
+    # stage 2: the trunk frozen but its norm_layer
+    hub = build_con_hub(dev, with_decoder=False)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    for h in (hub, plain_hub):
+        freeze_except_norm(h)
+    check_frozen_block(dev, hub)
+    frozen = {n: p.detach().clone() for n, p in hub.named_parameters()
+              if not p.requires_grad}
+    norm0 = hub.backbone.norm_layer.weight.detach().clone()
+    state, step = make_con_trainer(hub, "adj")
+    pstate, pstep = make_con_trainer(plain_hub, "adj")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    log(f"adj launches over {CON_STEPS} steps {launches}")
+    require_launches("adj", launches, CON_STEPS,
+                     {"fused_ln_attn_layer": DEPTH, "fused_ln_mlp": DEPTH})
+    moved = [n for n, p in hub.named_parameters()
+             if n in frozen and not torch.equal(p, frozen[n])]
+    require(not moved, f"adj moved frozen parameters: {moved[:4]}")
+    require(not torch.equal(hub.backbone.norm_layer.weight, norm0),
+            "adj did not train the backbone's norm_layer")
+    log(f"adj: {len(frozen)} frozen parameters unchanged bit for bit, "
+        f"norm_layer trained")
+    gap = loss_gap("adj", kern, plain, CON_LOSS_GAP_REL)
+    out["launches"]["adj_train"] = launches
+    out["adj"] = dict(step=step, state=state, pstep=pstep, pstate=pstate,
+                      batches=batches, loss_gap=gap,
+                      losses=[m["loss"] for m in kern])
+
+    # stage 3 from stage 2's weights, the whole model training
+    con_hub = copy.deepcopy(hub)
+    for p in con_hub.parameters():
+        p.requires_grad_(True)
+    plain_con = copy.deepcopy(con_hub)
+    set_fused(plain_con, False)
+    state, step = make_con_trainer(con_hub, "con")
+    pstate, pstep = make_con_trainer(plain_con, "con")
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    log(f"con launches over {CON_STEPS} steps {launches}")
+    require_launches("con", launches, CON_STEPS, {
+        "fused_ln_attn_layer": DEPTH, "fused_ln_attn_layer_bwd": DEPTH,
+        "fused_ln_mlp": DEPTH, "fused_ln_mlp_bwd": DEPTH})
+    gap = loss_gap("con", kern, plain, CON_LOSS_GAP_REL)
+    out["launches"]["con_train"] = launches
+    out["con"] = dict(step=step, state=state, pstep=pstep, pstate=pstate,
+                      batches=batches, loss_gap=gap,
+                      losses=[m["loss"] for m in kern])
+
+    # the queue at the CLI's default length, on the stage-3 kernel hub
+    from eventpretrain_tpu_torch.train.steps import make_con_step
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state.queue = init_queue(torch.Generator(dev).manual_seed(1),
+                             con_hub.embed_dim, con_hub.num_patches,
+                             QUEUE_LENGTH, device=dev)
+    qstep = make_con_step(con_hub, use_queue=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = run_steps(qstep, state, batches[:QUEUE_STEPS])
+    q_s = (time.perf_counter() - t0) / QUEUE_STEPS
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    buf_gib = state.queue.buffer.numel() * 4 / 2**30
+    log(f"con --use_queue --queue_length {QUEUE_LENGTH}: losses "
+        + " ".join(f"{m['loss']:.5f}" for m in qm)
+        + f" (ln(1 + K) = {np.log(1 + QUEUE_LENGTH):.4f}), ptr "
+        f"{state.queue.ptr}, {q_s * 1e3:.1f} ms a step; the buffer "
+        f"{buf_gib:.2f} GiB, peak {peak:.2f} GiB allocated ({base / 2**30:.2f}"
+        f" GiB before it); launches {launches}")
+    require(all(np.isfinite([m["loss"] for m in qm])), "non-finite queue loss")
+    require(state.queue.ptr == QUEUE_STEPS * TRAIN_BATCH,
+            f"the queue's pointer is {state.queue.ptr}")
+    require_launches("con queue", launches, QUEUE_STEPS, {
+        "fused_ln_attn_layer": DEPTH, "fused_ln_attn_layer_bwd": DEPTH,
+        "fused_ln_mlp": DEPTH, "fused_ln_mlp_bwd": DEPTH})
+    out["launches"]["con_queue"] = launches
+    out["queue"] = {"queue_length": QUEUE_LENGTH, "steps": QUEUE_STEPS,
+                    "losses": [m["loss"] for m in qm], "step_s": q_s,
+                    "buffer_gib": buf_gib, "peak_gib": peak,
+                    "resident_before_gib": base / 2**30}
+    state.queue = None
+    del qstep
+    torch.cuda.empty_cache()
+
+    # the joint step, masks replayed
+    joint = build_con_hub(dev, with_decoder=True)
+    plain_joint = copy.deepcopy(joint)
+    set_fused(plain_joint, False)
+    state, step = make_con_trainer(joint, "rec+con")
+    pstate, pstep = make_con_trainer(plain_joint, "rec+con")
+    reset_counts()
+    kern = run_steps(step, state, joint_batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, joint_batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    log(f"rec+con launches over {JOINT_STEPS} steps {launches}")
+    log("rec+con rec / con losses, kernel path: " + " ".join(
+        f"{m['rec_loss']:.4f}/{m['con_loss']:.4f}" for m in kern))
+    require_launches("rec+con", launches, JOINT_STEPS, {
+        "fused_ln_attn_layer": JOINT_BLOCKS,
+        "fused_ln_attn_layer_bwd": JOINT_BLOCKS,
+        "fused_ln_mlp": JOINT_BLOCKS, "fused_ln_mlp_bwd": JOINT_BLOCKS})
+    gap = loss_gap("rec+con", kern, plain, CON_LOSS_GAP_REL)
+    out["launches"]["rec_con_train"] = launches
+    out["rec_con"] = dict(step=step, state=state, pstep=pstep, pstate=pstate,
+                          batches=joint_batches, loss_gap=gap,
+                          losses=[m["loss"] for m in kern])
+    return out
+
+
+def phase_con_cli(dev) -> None:
+    """``cli.pretrain.main`` (what ``python -m
+    eventpretrain_tpu_torch.cli.pretrain`` runs) for one epoch of adj from
+    phase 5's rec checkpoint, then one of con from adj's."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    prev = REC_CHECKPOINT
+    for phase in ("adj", "con"):
+        out = os.path.join("build", f"chip_smoke_{phase}")
+        t0 = time.perf_counter()
+        state = pretrain_main([
+            "--pr_phase", phase, "--dataset", "synthetic", "--model_size",
+            "base", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--output_dir", out, "--print_freq", "2", "--init_from", prev,
+            "--input_size", str(TRAIN_INPUT), "--device", str(dev),
+        ])
+        prev = os.path.join(out, "checkpoint.pth")
+        sd = load_torch_checkpoint(prev)
+        log(f"cli.pretrain --pr_phase {phase}: {state.step} steps in "
+            f"{time.perf_counter() - t0:.1f} s, checkpoint of {len(sd)} "
+            "tensors")
+        require(state.step == 4, f"the {phase} CLI ran {state.step} steps")
+        require(set(sd) == set(state.module.state_dict()),
+                "the checkpoint's keys are not the hub's")
+        require("emb_h_proj.1.running_mean" in sd,
+                "the checkpoint lacks the projectors' BatchNorm statistics")
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -2703,11 +3055,12 @@ def time_pair(fn, plain, calls: int = 1) -> tuple[float, float]:
     return min(k1, k2), min(p1, p2)
 
 
-def timed_steps(paths: dict, batches: list) -> tuple[dict, dict]:
+def timed_steps(paths: dict, batches: list, reps: int = REPS // 2
+                ) -> tuple[dict, dict]:
     """Host-clock ms of ``step(state, batch)`` calls on each path in turns
-    (plain, kernel, kernel, plain), each call a real update of its own
-    path's state; and the peak device memory a step adds above what is
-    resident, in GiB."""
+    (plain, kernel, kernel, plain), ``reps`` a turn, each call a real
+    update of its own path's state; and the peak device memory a step adds
+    above what is resident, in GiB."""
     runs = {True: [], False: []}
     peak = {}
     for fused in (False, True, True, False):
@@ -2721,7 +3074,7 @@ def timed_steps(paths: dict, batches: list) -> tuple[dict, dict]:
             calls[0] += 1
             return step(state, batches[calls[0] % len(batches)])
 
-        runs[fused] += host_ms(one_step, reps=REPS // 2, warmup=2)
+        runs[fused] += host_ms(one_step, reps=reps, warmup=2)
         peak[fused] = max(peak.get(fused, 0.0),
                           (torch.cuda.max_memory_allocated() - base) / 2**30)
     return runs, peak
@@ -2805,7 +3158,7 @@ def gemm_rows(dev, kind, b, l, c, backward, smi) -> list:
 # The row kernels' shapes on the main paths at B=64, (M, C): the rec
 # step's decoder and ViT-B encoder, ViT-S (cls, and the dense hub's block
 # 0); a column sum runs at N = C, 3C and 4C of each
-ROW_TIMED = ((12544, 512), (3136, 768), (12544, 384))
+ROW_TIMED = ((12544, 512), (3136, 768), (12544, 384), (12544, 768))
 PEAK_F32 = 67e12  # the card's f32 rate outside the tensor cores
 
 
@@ -2867,7 +3220,7 @@ def row_rows(dev, errs, launches, smi) -> list:
         ("ln_rows", "eventpretrain_tpu/ops/fused_attn_layer.py:322 (K1 "
          "_ln_fwd_kernel's LN, pallas_common.py:68; K2 fused_mlp.py:261; "
          "both backwards' recompute :341, :284)", ln_rows_case,
-         [(12544, 384), (3136, 768), (12544, 512)],
+         [(12544, 384), (3136, 768), (12544, 512), (12544, 768)],
          "F.layer_norm (bf16 weight and bias)"),
     ]
     out = []
@@ -3323,7 +3676,7 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, smi) -> None:
+                 dense, flow, host, loops, con, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -3425,10 +3778,11 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # (name, source, also, replaces, shapes, backward, case, work, library):
     # the first shape is the row's; the others follow in "shapes". K1/K2
     # forward keep slice 1's shape (ViT-S, L=196, C=384) and add the rec
-    # path's two; their backward rows are the rec path's decoder and
-    # encoder blocks. K4 runs in the cls train step (ViT-S, and ViT-B for
-    # the CLI's --finetune run), K5 in the attention-map forward (ViT-S)
-    # and up to the widest C of its gate.
+    # path's two and the contrastive stages' dense ViT-B (L=196, C=768);
+    # their backward rows are the rec path's decoder and encoder blocks
+    # and the dense ViT-B of stage 3. K4 runs in the cls train step (ViT-S,
+    # and ViT-B for the CLI's --finetune run), K5 in the attention-map
+    # forward (ViT-S) and up to the widest C of its gate.
     csrc = "eventpretrain_tpu_torch/csrc/"
     attn = [csrc + "ln_gemm.cu"]
     attn_bwd = [csrc + "ln_gemm.cu", csrc + "ln_bwd.cu", csrc + "attention.cu"]
@@ -3436,18 +3790,20 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         ("fused_ln_attn_layer", csrc + "attention.cu",
          attn + [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_attn_layer.py:357",
-         [(196, 384, 12), (49, 768, 12), (196, 512, 16)], False, k1_case,
-         k1_work, None),
+         [(196, 384, 12), (49, 768, 12), (196, 512, 16), (196, 768, 12)],
+         False, k1_case, k1_work, None),
         ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:386",
-         [(196, 512, 16), (49, 768, 12)], True, k1_case, k1_work, None),
+         [(196, 512, 16), (49, 768, 12), (196, 768, 12)], True, k1_case,
+         k1_work, None),
         ("fused_ln_mlp", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:329",
-         [(196, 384, 0), (49, 768, 0), (196, 512, 0)], False, k2_case,
-         k2_work, None),
+         [(196, 384, 0), (49, 768, 0), (196, 512, 0), (196, 768, 0)], False,
+         k2_case, k2_work, None),
         ("fused_ln_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:356 (C<=512), :416 (C=768)",
-         [(196, 512, 0), (49, 768, 0)], True, k2_case, k2_work, None),
+         [(196, 512, 0), (49, 768, 0), (196, 768, 0)], True, k2_case,
+         k2_work, None),
         ("fused_attn_layer", csrc + "attention.cu", attn,
          "eventpretrain_tpu/ops/fused_attn_layer.py:202",
          [(196, 384, 12), (196, 768, 12)], False, k4_case, k1_work, mha),
@@ -3594,6 +3950,22 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         log(f"{key} step B={batch}: kernel "
             f"{e2e[key]['step_ms']:.4g} ms, plain "
             f"{e2e[key]['plain_step_ms']:.4g} ms ({smi})")
+    # the contrastive stages' steps (phase 5g), fewer steps a turn: 5
+    for key, run in (("adj_train", con["adj"]), ("con_train", con["con"]),
+                     ("rec_con_train", con["rec_con"])):
+        paths = {True: (run["step"], run["state"]),
+                 False: (run["pstep"], run["pstate"])}
+        step_runs, peak = timed_steps(paths, run["batches"], reps=REPS // 4)
+        e2e[key] = {"model": "pretrain_hub_base", "batch": TRAIN_BATCH,
+                    "reps": REPS // 2, "card": smi,
+                    "loss_gap": run["loss_gap"],
+                    "resident_gib": torch.cuda.memory_allocated() / 2**30,
+                    **step_record(step_runs, peak, TRAIN_BATCH)}
+        log(f"{key} step B={TRAIN_BATCH}: kernel "
+            f"{e2e[key]['step_ms']:.4g} ms ({e2e[key]['peak_step_gib']:.3g} "
+            f"GiB above resident), plain {e2e[key]['plain_step_ms']:.4g} ms "
+            f"({e2e[key]['plain_peak_step_gib']:.3g} GiB) ({smi})")
+    e2e["con_train"]["queue"] = {**con["queue"], "card": smi}
     e2e["cls_train"]["host_batch_ms"] = cls["host_ms"]
     e2e["cls_train"]["drop_path_rate"] = CLS_DROP_PATH
     e2e["semseg_train"]["host_batch_ms"] = dense["host_ms"]
@@ -3619,7 +3991,10 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     log_profile("serve B=64", e2e["serve"]["profile"])
     for key, run, calls in (("rec_train", train, 3), ("cls_train", cls, 5),
                             ("semseg_train", dense, 5),
-                            ("flow_train", flow, 5)):
+                            ("flow_train", flow, 5),
+                            ("adj_train", con["adj"], 3),
+                            ("con_train", con["con"], 3),
+                            ("rec_con_train", con["rec_con"], 3)):
         step, state = run["step"], run["state"]
         batch = run["batches"][0]
         e2e[key]["profile"] = device_profile(lambda: step(state, batch),
@@ -3678,13 +4053,17 @@ def main() -> int:
     mark("flow finetuning")
     host = phase_host(dev)
     mark("host half")
+    con = phase_con_training(dev)
+    launches.update(con["launches"])
+    phase_con_cli(dev)
+    mark("contrastive stages")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, smi)
+                 dense, flow, host, loops, con, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

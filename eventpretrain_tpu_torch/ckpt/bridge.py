@@ -7,9 +7,12 @@ writes it as a ``.pth`` (``save_torch_checkpoint``: ``{"model": ...,
 strict ``load_state_dict``: a missing or unexpected key raises. Buffers the
 exporter omits (``pos_embed``) are non-persistent here. BatchNorm running
 statistics (``running_mean``, ``running_var``, flax's ``batch_stats``) are
-buffers of the port's dense heads and load with the parameters; only
+buffers of the port's dense heads and projectors and load with the
+parameters (``export_torch_state_dict(params, batch_stats)``); only
 ``num_batches_tracked``, which the port's flax-style BatchNorm does not
-keep, is skipped when a file carries it.
+keep, is skipped when a file carries it. A JAX ``QueueState`` (the
+contrastive stages' queue, a (C, L, K) buffer and a pointer) crosses as
+its two arrays (``load_jax_queue``).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from eventpretrain_tpu_torch.objectives.contrastive import QueueState
 
 
 def load_torch_checkpoint(path: str) -> dict:
@@ -40,3 +45,11 @@ def load_jax_state_dict(module: nn.Module, flat: Mapping) -> nn.Module:
     }
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def load_jax_queue(buffer, ptr, device="cpu") -> QueueState:
+    """A JAX ``QueueState``'s ``buffer`` (C, L, K) and ``ptr`` (numpy or
+    any array ``np.asarray`` takes) as the port's: an f32 buffer of its
+    own on ``device`` and a host int pointer."""
+    buf = torch.from_numpy(np.array(buffer, np.float32)).to(device)
+    return QueueState(buffer=buf, ptr=int(np.asarray(ptr)))

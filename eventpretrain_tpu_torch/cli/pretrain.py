@@ -1,20 +1,36 @@
-"""Stage-1 pretrain entry point: difference-guided masked modeling.
+"""Pretrain entry point: the three stages of the paper on the ViT hubs.
 
-Counterpart of eventpretrain_tpu/cli/pretrain.py for ``--pr_phase rec`` on
-the ViT hubs, with the JAX CLI's flags and defaults for the epochs, the
-lr, weight decay and warmup, and the masking; ``--device`` picks the card
-(default) or the CPU. On ``cuda`` the hub computes in bf16 (``--bf16``,
-the default), which routes every block of the encoder and decoder through
-the K1/K2 kernels, forward and backward. The other phases raise
-``NotImplementedError``; the other backbones and resuming wait for their
-slices.
+Counterpart of eventpretrain_tpu/cli/pretrain.py for ``--pr_phase`` rec
+(stage 1, difference-guided masked modeling), adj (stage 2,
+backbone-fixed feature transition: the backbone frozen but its
+``norm_layer``), con (stage 3, focus-aimed contrast, the whole model
+trains) and rec+con (both objectives, summed), with the JAX CLI's flags
+and defaults; ``--device`` picks the card (default) or the CPU. On
+``cuda`` the hub computes in bf16 (``--bf16``, the default), which routes
+every block of the encoder and decoder through the K1/K2 kernels; stage 2
+runs them forward only. The contrastive phases read precomputed CLIP
+token embeddings (EF-ImageNet's ``<image>_clip_emb.pt``, or the synthetic
+source's) and pair the backbone's 196 tokens with CLIP ViT-B/16's 14x14
+grid, so they need ``--input_size 224``.
 
     python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase rec \\
         --dataset synthetic --model_size base --epochs 1
+    python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase adj \\
+        --model_size base --init_from results/pretrain/checkpoint.pth
 
-At the end of each ``--save_model_freq`` epochs and of the run it writes
-``<output_dir>/checkpoint.pth`` as ``{"model": state_dict, "epoch": ...}``,
-the key space the serve loader and ``load_jax_state_dict`` read.
+``--init_from <file>.pth`` chains the stages: it fills every parameter
+and buffer of the hub that the file holds under the reference key space
+(the projectors' BatchNorm statistics among them) and leaves the rest at
+their init, as ``init_variables_from(..., strict_backbone=False)`` does,
+and seeds a ``--use_queue`` queue from the file's ``queue`` and
+``queue_ptr``. At the end of each ``--save_model_freq`` epochs and of the
+run it writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
+"epoch": ...}`` (with the queue's ``queue`` and ``queue_ptr``), which
+the next stage's ``--init_from``, the serve loader and
+``load_jax_state_dict`` read. The phases ``adj-n``, ``con-n`` (CLIP in
+the loop), ``ecdp`` and ``ecdp-ef``, ``--accum_iter``, ``--data_parallel``,
+``--visualize`` and an orbax ``--init_from`` raise ``NotImplementedError``
+naming the slice that brings them; JAX's other flags are not parsed.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ import time
 
 import torch
 
+from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
 from eventpretrain_tpu_torch.data.pretrain_pipeline import (
     EFImageNetSource,
     PretrainDataConfig,
@@ -36,16 +53,42 @@ from eventpretrain_tpu_torch.models.pretrain_hub import (
     pretrain_hub_base,
     pretrain_hub_small,
 )
+from eventpretrain_tpu_torch.objectives.contrastive import (
+    QueueState,
+    init_queue,
+)
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
 from eventpretrain_tpu_torch.train.optim import (
     build_optimizer,
     cosine_warmup_schedule,
+    freeze_except_norm,
 )
 from eventpretrain_tpu_torch.train.state import TrainState
-from eventpretrain_tpu_torch.train.steps import make_rec_step
+from eventpretrain_tpu_torch.train.steps import (
+    make_con_step,
+    make_rec_and_con_step,
+    make_rec_step,
+)
 
 PHASES = ["rec", "rec-n", "adj", "_adj", "adj-n", "con", "con-n", "rec+con",
           "ecdp", "ecdp-ef"]
+# cli/pretrain.py:198-205; adj-n, con-n and the ECDP phases are refused
+PHASE_ALIASES = {"rec-n": "rec", "_adj": "adj"}
+CON_PHASES = ("adj", "con", "rec+con")
+_REFUSED_PHASES = {
+    "adj-n": "slice 4b (CLIP in the loop on raw N-ImageNet events)",
+    "con-n": "slice 4b (CLIP in the loop on raw N-ImageNet events)",
+    "ecdp": "slice 5 (the ECDP baseline)",
+    "ecdp-ef": "slice 5 (the ECDP baseline)",
+}
+# flags of the JAX CLI that the port does not have yet: (type, default,
+# the slice that brings them); any other value is refused
+_NOT_PORTED = {
+    "accum_iter": (int, 1, "slice 4b (optax.MultiSteps accumulation)"),
+    "data_parallel": (bool, False, "slice 6 (torch.distributed; with it "
+                      "the local queue and BatchNorm scopes)"),
+    "visualize": (bool, False, "slice 6 (viz/panels.py)"),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,6 +107,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm_pix_loss", action="store_true", default=True)
     p.add_argument("--no-norm_pix_loss", dest="norm_pix_loss",
                    action="store_false")
+    p.add_argument("--use_queue", action="store_true")
+    p.add_argument("--queue_length", type=int, default=65536)
+    p.add_argument("--queue_scope", default="auto",
+                   choices=["auto", "global", "local"],
+                   help="without --data_parallel every scope is one queue "
+                        "fed by the whole batch ('global')")
+    p.add_argument("--bn_scope", default="auto",
+                   choices=["auto", "global", "local"],
+                   help="without --data_parallel every scope is the whole "
+                        "batch's BatchNorm statistics ('global')")
+    p.add_argument("--temperature", type=float, default=0.07)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=400)
     p.add_argument("--warmup_epochs", type=float, default=40)
@@ -82,6 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-use_feature_fusion", dest="use_feature_fusion",
                    action="store_false")
     p.add_argument("--crop_min", type=float, default=0.8)
+    p.add_argument("--init_from", default=None,
+                   help="stage chaining: a .pth checkpoint in the reference "
+                        "key space (this CLI's own checkpoint.pth)")
     p.add_argument("--output_dir", default="./results/pretrain")
     p.add_argument("--save_model_freq", type=int, default=20)
     p.add_argument("--seed", type=int, default=0)
@@ -91,16 +148,80 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--device", default="cuda",
                    help="the port's device: cuda (the card) or cpu")
+    for name, (typ, default, _) in _NOT_PORTED.items():
+        if typ is bool:
+            p.add_argument(f"--{name}", action="store_true")
+        else:
+            p.add_argument(f"--{name}", type=typ, default=default)
     return p
+
+
+def _refuse_unported(args) -> None:
+    if args.pr_phase in _REFUSED_PHASES:
+        raise NotImplementedError(
+            f"--pr_phase {args.pr_phase} is not ported yet; it comes with "
+            f"{_REFUSED_PHASES[args.pr_phase]}")
+    for name, (_, default, slice_) in _NOT_PORTED.items():
+        if getattr(args, name) != default:
+            raise NotImplementedError(
+                f"--{name} is not ported yet; it comes with {slice_}")
+    if args.init_from and not args.init_from.endswith((".pth", ".pt",
+                                                       ".bin")):
+        raise NotImplementedError(
+            f"--init_from {args.init_from}: only .pth files in the reference "
+            "key space are read; the other dialects (orbax directories) "
+            "come with slice 6")
+
+
+def init_from_checkpoint(hub: torch.nn.Module, sd: dict) -> int:
+    """Copy each tensor of ``sd`` whose key the hub's state dict has into
+    it (parameters and buffers: the projectors' BatchNorm statistics);
+    keys either side lacks are left alone, a shape that differs raises
+    (torch_import.py:316-344 with ``strict_backbone=False``). Returns the
+    count copied."""
+    own = hub.state_dict()
+    copied = 0
+    with torch.no_grad():
+        for key, value in sd.items():
+            if key not in own:
+                continue
+            if tuple(value.shape) != tuple(own[key].shape):
+                raise ValueError(f"--init_from: {key} is {tuple(value.shape)}"
+                                 f", the hub's {tuple(own[key].shape)}")
+            own[key].copy_(value)
+            copied += 1
+    return copied
+
+
+def make_queue(args, hub, device, sd) -> QueueState:
+    """The queue (cli/pretrain.py:465-503): ``queue_length`` a multiple of
+    the batch, random normalised keys drawn from seed + 1 on ``device``,
+    or the checkpoint's ``queue`` and ``queue_ptr`` where it has them."""
+    if args.queue_length % args.batch_size:
+        raise ValueError(f"--queue_length {args.queue_length} must be a "
+                         f"multiple of --batch_size {args.batch_size}")
+    if sd is not None and "queue" in sd:
+        buf = sd["queue"].to(device=device, dtype=torch.float32)
+        want = (hub.embed_dim, hub.num_patches, args.queue_length)
+        if tuple(buf.shape) != want:
+            raise ValueError(f"--init_from: queue is {tuple(buf.shape)}, "
+                             f"expected {want}")
+        ptr = int(sd["queue_ptr"].reshape(-1)[0]) if "queue_ptr" in sd else 0
+        print(f"queue buffer seeded from {args.init_from}")
+        return QueueState(buffer=buf.contiguous(), ptr=ptr)
+    return init_queue(torch.Generator(device).manual_seed(args.seed + 1),
+                      hub.embed_dim, hub.num_patches, args.queue_length,
+                      device=device)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.pr_phase not in ("rec", "rec-n"):
-        raise NotImplementedError(
-            f"--pr_phase {args.pr_phase}: the port has the rec phase only")
+    args.pr_phase = PHASE_ALIASES.get(args.pr_phase, args.pr_phase)
+    _refuse_unported(args)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    need_decoder = args.pr_phase in ("rec", "rec+con")
+    contrastive = args.pr_phase in CON_PHASES
 
     if args.dataset == "synthetic":
         source = SyntheticPretrainSource(
@@ -110,25 +231,42 @@ def main(argv=None):
     else:
         if not args.data_root:
             raise SystemExit("--data_root required for ef_imagenet")
-        source = EFImageNetSource(args.data_root)
+        source = EFImageNetSource(args.data_root, pr_phase=args.pr_phase)
     cfg = PretrainDataConfig(
-        num_bins=args.num_bins, input_size=args.input_size,
-        crop_min=args.crop_min,
+        pr_phase=args.pr_phase, num_bins=args.num_bins,
+        input_size=args.input_size, crop_min=args.crop_min,
         transfer_dtype="bfloat16" if args.bf16 else "float32",
     )
 
     factory = {"small": pretrain_hub_small, "base": pretrain_hub_base}
     hub = factory[args.model_size](
-        num_bins=args.num_bins, frame_chans=args.frame_chans, dtype=dtype,
+        num_bins=args.num_bins, frame_chans=args.frame_chans,
+        with_decoder=need_decoder, with_heads=contrastive, dtype=dtype,
         device=device,
         generator=torch.Generator().manual_seed(args.seed),
         input_size=args.input_size, drop_path_rate=args.drop_path_rate,
         drop_rate=args.drop_rate, attn_drop_rate=args.attn_drop_rate,
         use_feature_fusion=args.use_feature_fusion,
     )
+    if contrastive and hub.num_patches != 196:
+        # token-level InfoNCE pairs the event tokens 1:1 with CLIP
+        # ViT-B/16's 14x14 token grid (cli/pretrain.py:355-366)
+        raise ValueError(
+            f"--pr_phase {args.pr_phase} pairs event tokens with CLIP's "
+            f"tokens; --input_size must be 224 (got {args.input_size} -> "
+            f"{hub.num_patches} patches, need 196)")
+    sd = None
+    if args.init_from:
+        sd = load_torch_checkpoint(args.init_from)
+        n = init_from_checkpoint(hub, sd)
+        print(f"init_from {args.init_from}: {n} of {len(hub.state_dict())} "
+              "tensors")
+    if args.pr_phase == "adj":
+        freeze_except_norm(hub)
     n_params = sum(p.numel() for p in hub.parameters())
-    print(f"model params: {n_params / 1e6:.2f}M ({dtype} compute, "
-          f"f32 parameters, {device})")
+    n_train = sum(p.numel() for p in hub.parameters() if p.requires_grad)
+    print(f"model params: {n_params / 1e6:.2f}M, {n_train / 1e6:.2f}M "
+          f"trainable ({dtype} compute, f32 parameters, {device})")
 
     steps_per_epoch = max(len(source) // args.batch_size, 1)
     lr = args.lr if args.lr is not None else args.blr * args.batch_size / 256
@@ -139,13 +277,22 @@ def main(argv=None):
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
         num_layers=12, layer_grafted=args.use_layer_grafted,
     )
-    state = TrainState(hub, optimizer, schedule)
-    step = make_rec_step(
-        hub, patch_size=hub.patch_size, num_patches=hub.num_patches,
-        mask_ratio=args.mask_ratio, masking_strategy=args.masking_strategy,
-        norm_pix_loss=args.norm_pix_loss,
-        generator=torch.Generator(device).manual_seed(args.seed),
-    )
+    queue = (make_queue(args, hub, device, sd)
+             if contrastive and args.use_queue else None)
+    state = TrainState(hub, optimizer, schedule, queue=queue)
+    generator = torch.Generator(device).manual_seed(args.seed)
+    con = dict(use_queue=args.use_queue, temperature=args.temperature,
+               queue_mode="global", generator=generator)
+    rec = dict(patch_size=hub.patch_size, num_patches=hub.num_patches,
+               mask_ratio=args.mask_ratio,
+               masking_strategy=args.masking_strategy,
+               norm_pix_loss=args.norm_pix_loss)
+    if args.pr_phase == "rec":
+        step = make_rec_step(hub, **rec, generator=generator)
+    elif args.pr_phase in ("adj", "con"):
+        step = make_con_step(hub, **con)
+    else:
+        step = make_rec_and_con_step(hub, **rec, **con)
 
     os.makedirs(args.output_dir, exist_ok=True)
     path = os.path.join(args.output_dir, "checkpoint.pth")
@@ -163,9 +310,19 @@ def main(argv=None):
         with open(os.path.join(args.output_dir, "log.txt"), "a") as f:
             f.write(json.dumps(record) + "\n")
         if (epoch + 1) % args.save_model_freq == 0 or epoch + 1 == args.epochs:
-            sd = {k: v.detach().cpu() for k, v in hub.state_dict().items()}
-            torch.save({"model": sd, "epoch": epoch}, path)
+            save_checkpoint(path, state, epoch)
     return state
+
+
+def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
+    """``{"model": state_dict, "epoch"}`` on the CPU; the queue, where the
+    state has one, as the reference's ``queue`` (C, L, K) and
+    ``queue_ptr`` (1,) buffers."""
+    sd = {k: v.detach().cpu() for k, v in state.module.state_dict().items()}
+    if state.queue is not None:
+        sd["queue"] = state.queue.buffer.detach().cpu()
+        sd["queue_ptr"] = torch.tensor([state.queue.ptr], dtype=torch.long)
+    torch.save({"model": sd, "epoch": epoch}, path)
 
 
 if __name__ == "__main__":

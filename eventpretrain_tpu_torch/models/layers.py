@@ -18,7 +18,10 @@ dtype.
 under the JAX gates of layers.py:343-380: a 2-byte compute dtype, no active
 dropout or drop-path, no attention weights requested, shapes inside
 ``supports_*`` (K1's with the backward kernels' shared-memory bound and
-the LayerNorm backward's width, C <= 768, while gradients are on). A block that cannot fuse runs the unfused composition,
+the LayerNorm backward's width, C <= 768, where autograd records the
+block: gradients on and its input or a parameter requiring one, so a
+frozen trunk under enabled gradients is held to the forward's gate only
+and saves nothing). A block that cannot fuse runs the unfused composition,
 whose parts take their own kernels under the JAX conditions:
 ``Attention`` takes K4 (``fused_attn_layer``, layers.py:249-276) when no
 attention weights are requested and ``attn_drop`` is 0, as in training
@@ -34,8 +37,8 @@ multi-head core through K7 when ``supports_fused_mha`` holds and the compute
 dtype is bf16 (the port's CUDA kernels take bf16 only), and the plain
 product otherwise. JAX's module docstring calls K7 the default TPU path,
 but its code makes it opt-in, and no hub or CLI sets the flag; the port
-follows the code. ``GroupedBatchNorm`` and ``ProjectorMlp`` are not ported
-yet.
+follows the code. ``GroupedBatchNorm`` and ``ProjectorMlp`` (layers.py:444,
+510) are the contrastive stages' projection heads.
 
 Stochastic depth draws its per-sample keep masks from a
 :class:`DropPathSource`: an explicit ``torch.Generator`` on the
@@ -51,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eventpretrain_tpu_torch.ops.common import grad_needed
 from eventpretrain_tpu_torch.ops.fused_attn_layer import (
     fused_attn_layer,
     fused_ln_attn_layer,
@@ -250,7 +254,7 @@ class Attention(nn.Module):
         if (fused and not return_attn and self.attn_drop_rate == 0.0
                 and supports_fused_attn_layer(
                     n, c, self.num_heads, dt,
-                    backward=torch.is_grad_enabled())):
+                    backward=grad_needed(x, *self.parameters()))):
             out = fused_attn_layer(
                 x.to(dt).contiguous(), self.qkv.weight.to(dt),
                 self.packed_qkv_bias(), self.proj.weight.to(dt),
@@ -310,7 +314,7 @@ class ViTBlock(nn.Module):
             and (self.drop_path_rate == 0.0 or deterministic)
             and supports_fused_ln_attn_layer(
                 x.shape[1], x.shape[2], self.num_heads, self.dtype,
-                backward=torch.is_grad_enabled(),
+                backward=grad_needed(x, *self.parameters()),
             )
         )
 
@@ -359,6 +363,92 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return F.gelu(layer_norm(x, self.norm), approximate="none")
+
+
+class GroupedBatchNorm(nn.Module):
+    """BatchNorm over (N, C) rows with statistics per contiguous row group
+    (layers.py:444-507): ``groups`` = 1 is global-batch statistics, G the
+    statistics of each of G equal row blocks (per-device BatchNorm under
+    data parallelism). Computes in f32 and returns f32. In training the
+    variance is the mean of squared deviations (two passes: projector
+    activations with a large mean lose digits to ``E[x^2] - mean^2``), and
+    the running buffers move as flax's do, momentum 0.99 on the biased
+    variance, averaged over the groups; in eval the running buffers
+    normalise. ``affine=False`` has neither ``weight`` nor ``bias``."""
+
+    def __init__(self, num_features: int, groups: int = 1,
+                 affine: bool = True, momentum: float = 0.99,
+                 eps: float = 1e-5, *, device=None):
+        super().__init__()
+        self.groups = groups
+        self.momentum = momentum
+        self.eps = eps
+        f32 = dict(dtype=torch.float32, device=device)
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features, **f32))
+            self.bias = nn.Parameter(torch.zeros(num_features, **f32))
+        else:
+            self.weight = self.bias = None
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, **f32))
+        self.register_buffer("running_var", torch.ones(num_features, **f32))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feat = x.shape[-1]
+        if self.training:
+            xg = x.float().reshape(self.groups, -1, feat)
+            mean = xg.mean(dim=1, keepdim=True)                # (G, 1, C)
+            var = ((xg - mean) ** 2).mean(dim=1, keepdim=True)
+            xn = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean.mean(dim=(0, 1)))
+                self.running_var.mul_(m).add_((1 - m) * var.mean(dim=(0, 1)))
+        else:
+            xn = (x.float() - self.running_mean) * torch.rsqrt(
+                self.running_var + self.eps)
+        if self.weight is not None:
+            xn = xn * self.weight + self.bias
+        return xn
+
+
+class ProjectorMlp(nn.Sequential):
+    """Bias-free Linears with BatchNorm and ReLU between them and an
+    affine-free BatchNorm at the end, over (B, L, C) tokens (layers.py:
+    510-556; the reference's ``_build_mlp_2d``). The BatchNorms normalise
+    over the B*L rows per feature. Layer ``i`` is the Linear at index
+    ``3i``, its BatchNorm at ``3i + 1`` and its ReLU at ``3i + 2``, the
+    reference's ``nn.Sequential`` indices, so the exporter's
+    ``emb_h_proj.{3i}.weight`` and ``.{3i+1}.running_mean`` load strictly.
+    The Linears compute in ``dtype``, each BatchNorm in f32, its output cast
+    back to ``dtype``."""
+
+    def __init__(self, in_dim: int, num_layers: int, mlp_dim: int,
+                 out_dim: int, bn_groups: int = 1, *, dtype=torch.float32,
+                 device=None):
+        layers: list[nn.Module] = []
+        dim = in_dim
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            dim2 = out_dim if last else mlp_dim
+            layers.append(Linear(dim, dim2, bias=False, dtype=dtype,
+                                 device=device))
+            layers.append(GroupedBatchNorm(dim2, bn_groups, affine=not last,
+                                           device=device))
+            if not last:
+                layers.append(nn.ReLU())
+            dim = dim2
+        super().__init__(*layers)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            if isinstance(layer, GroupedBatchNorm):
+                x = layer(x.reshape(-1, x.shape[-1])).reshape(x.shape).to(
+                    self.compute_dtype)
+            else:
+                x = layer(x)
+        return x
 
 
 @torch.no_grad()

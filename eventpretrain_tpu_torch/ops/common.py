@@ -56,6 +56,15 @@ LN_BWD_MAX_WIDTH = 768
 ROW_MAX_RANGES = 16 * 16
 
 
+def grad_needed(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will record a call on ``tensors``: gradients are
+    enabled and one of them requires a gradient. A call that is not
+    recorded saves nothing and never runs a backward, so the sub-blocks'
+    backward bounds apply only where this holds (a frozen trunk under
+    enabled gradients runs forward only)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def ln_stats(x: torch.Tensor, eps: float):
     """f32 ``(xhat, rstd)`` of a LayerNorm over the last axis."""
     xf = x.float()

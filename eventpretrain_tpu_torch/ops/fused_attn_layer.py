@@ -66,6 +66,7 @@ from eventpretrain_tpu_torch.ops.common import (
     colsum,
     gemm_dgrad,
     gemm_wgrad,
+    grad_needed,
     ln_backward,
     ln_backward_reference,
     ln_forward,
@@ -408,12 +409,13 @@ def fused_ln_attn_layer(x: torch.Tensor, ln_weight: torch.Tensor,
     the kernels or raise: ``x``, weights and biases bf16, LayerNorm
     parameters f32, all contiguous; shapes inside
     :func:`supports_fused_ln_attn_layer` (with the backward's bounds when
-    gradients are on). ``launches`` and ``launches_bwd`` count the CUDA
-    forward and backward calls.
+    autograd records the call, ``grad_needed``). ``launches`` and
+    ``launches_bwd`` count the CUDA forward and backward calls.
     """
     if x.device.type != "cpu":
         _check_cuda("fused_ln_attn_layer", x, wqkv, bqkv, wo, bo, num_heads,
-                    torch.is_grad_enabled(), ln=(ln_weight, ln_bias))
+                    grad_needed(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo),
+                    ln=(ln_weight, ln_bias))
     return _FusedLnAttnLayer.apply(x, ln_weight, ln_bias, wqkv, bqkv, wo, bo,
                                    int(num_heads), float(scale), float(eps))
 
@@ -483,12 +485,12 @@ def fused_attn_layer(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
     autograd, :func:`fused_attn_layer_bwd_reference`. CUDA tensors launch
     the kernels or raise: every operand bf16 and contiguous, shapes inside
     :func:`supports_fused_attn_layer` (with the backward's bound when
-    gradients are on). ``launches`` and ``launches_bwd`` count the CUDA
-    forward and backward calls.
+    autograd records the call, ``grad_needed``). ``launches`` and
+    ``launches_bwd`` count the CUDA forward and backward calls.
     """
     if x.device.type != "cpu":
         _check_cuda("fused_attn_layer", x, wqkv, bqkv, wo, bo, num_heads,
-                    torch.is_grad_enabled())
+                    grad_needed(x, wqkv, bqkv, wo, bo))
     return _FusedAttnLayer.apply(x, wqkv, bqkv, wo, bo, int(num_heads),
                                  float(scale))
 

@@ -16,12 +16,13 @@ The weight-decay mask is ``ndim >= 2``, so the decoder's ``(1, 1, C)``
 ``mask_token`` is decayed, as in JAX. The optional global-norm clip before
 Adam runs in :class:`TrainState` (``clip_grad``), on the gradients before
 the update. Frozen parameters (``requires_grad=False``: ``--linprob``'s
-backbone, JAX's ``trainable_mask``) get no gradient, so AdamW leaves them,
-their moments and their weight decay alone, as optax's zeroed updates do.
-Layer ids and masks are computed on the port's parameter names, the
-exporter's torch key space (``backbone.vit_block.3.attn.qkv.weight``).
-MultiSteps accumulation and the stage-2 freeze mask come with their
-slices.
+backbone, stage 2's trunk under JAX's ``frozen_except_norm_mask``, the
+``trainable_mask`` of optim.py:123-135, 189-196) are left out of the
+optimizer: no update, no moments, no weight decay, as optax's zeroed
+updates leave them. Layer ids and masks are computed on the port's
+parameter names, the exporter's torch key space
+(``backbone.vit_block.3.attn.qkv.weight``). MultiSteps accumulation comes
+with its slice.
 """
 
 from __future__ import annotations
@@ -85,14 +86,34 @@ def weight_decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
     return {n: p.ndim >= 2 for n, p in params.items()}
 
 
+def frozen_except_norm_mask(names: Iterable[str]) -> dict[str, bool]:
+    """Stage 2's ("adj") trainability, True = trainable (optim.py:123-135):
+    a backbone parameter trains only when its name holds ``norm_layer``;
+    every other parameter trains."""
+    return {n: not n.startswith("backbone.") or "norm_layer" in n
+            for n in names}
+
+
+def freeze_except_norm(module: nn.Module) -> dict[str, bool]:
+    """Set ``requires_grad`` by :func:`frozen_except_norm_mask`; returns
+    the mask. The trunk's blocks then take no input that requires a
+    gradient, so autograd records none of them: they run forward only
+    and save nothing (``ops.common.grad_needed``)."""
+    mask = frozen_except_norm_mask(n for n, _ in module.named_parameters())
+    for n, p in module.named_parameters():
+        p.requires_grad_(mask[n])
+    return mask
+
+
 def build_optimizer(module: nn.Module, *, weight_decay: float = 0.05,
                     betas: tuple[float, float] = (0.9, 0.95),
                     layer_decay: float = 1.0, num_layers: int = 12,
                     layer_grafted: bool = False) -> torch.optim.AdamW:
     """``torch.optim.AdamW`` over ``module``'s parameters, one param group
     per (weight decay, lr scale) pair; each group carries its ``lr_scale``
-    and starts at lr 0 (:class:`TrainState` sets it before each update)."""
-    params = dict(module.named_parameters())
+    and starts at lr 0 (:class:`TrainState` sets it before each update).
+    Parameters that do not require a gradient are left out."""
+    params = {n: p for n, p in module.named_parameters() if p.requires_grad}
     decay = weight_decay_mask(params)
     if layer_decay != 1.0 or layer_grafted:
         scale = layer_scales(params, num_layers, layer_decay, layer_grafted)

@@ -1,10 +1,13 @@
-"""Train state: the module, its optimizer, the lr schedule and the step
-counter.
+"""Train state: the module, its optimizer, the lr schedule, the step
+counter and the contrastive stages' queue.
 
-Counterpart of eventpretrain_tpu/train/state.py. JAX threads an immutable
-pytree through jitted steps; here the module and the optimizer update in
-place, and the step counter is a host integer, so reading it costs no
-device synchronisation.
+Counterpart of eventpretrain_tpu/train/state.py:22-51. JAX threads an
+immutable pytree through jitted steps; here the module and the optimizer
+update in place, and the step counter is a host integer, so reading it
+costs no device synchronisation. The projectors' BatchNorm running
+statistics (JAX's ``batch_stats``) are buffers of the module; the queue
+(``QueueState``, JAX's ``queue``) is held here and replaced by each
+contrastive step, its buffer written in place.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from eventpretrain_tpu_torch.objectives.contrastive import QueueState
 from eventpretrain_tpu_torch.train.optim import (
     clip_by_safe_global_norm,
     global_grad_norm,
@@ -28,6 +32,7 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0
     clip_grad: Optional[float] = None
+    queue: Optional[QueueState] = None
 
     def apply_gradients(self) -> torch.Tensor:
         """One update from the gradients in ``.grad``; returns their

@@ -1,12 +1,16 @@
-"""The stage-1 train step, the classification finetune steps and the
-dense finetune steps (semantic segmentation and optical flow).
+"""The pretrain steps of the three stages, the classification finetune
+steps and the dense finetune steps (semantic segmentation and optical
+flow).
 
 Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
-:101-160, ``make_cls_train_step`` :298-345, ``make_cls_eval_step``
-:348-385, ``make_semseg_train_step`` :607-648, ``make_semseg_eval_step``
-:651-675, ``make_flow_train_step`` :679-717 and ``make_flow_eval_step``
-:720-761, with ``_valid_row_mask`` :29-42. The contrastive and joint
-steps come with slice 4.
+:101-160, ``_queue_loss`` :85-98 (global scope), ``make_con_step``
+:163-220, ``make_rec_and_con_step`` :223-295, ``make_cls_train_step``
+:298-345, ``make_cls_eval_step`` :348-385, ``make_semseg_train_step``
+:607-648, ``make_semseg_eval_step`` :651-675, ``make_flow_train_step``
+:679-717 and ``make_flow_eval_step`` :720-761, with ``_valid_row_mask``
+:29-42. Stage 2's frozen trunk is ``requires_grad=False`` on the module
+(``train/optim.py::freeze_except_norm``), JAX's ``trainable_mask``: the
+trunk runs forward only, as under ``partitioned_value_and_grad``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,11 @@ from eventpretrain_tpu_torch.models.layers import (
 from eventpretrain_tpu_torch.objectives.cls import (
     cls_loss,
     per_sample_cls_loss,
+)
+from eventpretrain_tpu_torch.objectives.contrastive import (
+    QueueState,
+    global_token_infonce,
+    token_infonce_queue,
 )
 from eventpretrain_tpu_torch.objectives.flow import flow_l1_loss
 from eventpretrain_tpu_torch.objectives.rec import reconstruct_loss
@@ -55,10 +64,29 @@ def make_rec_step(hub, *, patch_size: int, num_patches: int,
     ``loss`` and ``grad_norm`` (of the gradients before the update) as
     device tensors: no step synchronises.
     """
-    len_keep = int(num_patches * (1 - mask_ratio))
+    rec_loss = _rec_loss_fn(hub, patch_size, num_patches, mask_ratio,
+                            masking_strategy, norm_pix_loss, generator)
 
     def step(state: TrainState, batch: dict) -> dict:
         hub.train()
+        set_drop_path_source(hub, DropPathSource(generator))
+        loss = rec_loss(batch)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def _rec_loss_fn(hub, patch_size: int, num_patches: int, mask_ratio: float,
+                 masking_strategy: str, norm_pix_loss: bool,
+                 generator: Optional[torch.Generator]) -> Callable:
+    """``rec_loss(batch)``: the masking (replayed from the batch's
+    ``ids_keep``/``mask``/``ids_restore`` when it holds them, else drawn
+    from ``generator``), ``forward_rec`` and the reconstruction loss."""
+    len_keep = int(num_patches * (1 - mask_ratio))
+
+    def rec_loss(batch: dict) -> torch.Tensor:
         evg = batch["evg"]
         if "ids_restore" in batch:
             ids_keep = batch["ids_keep"]
@@ -69,15 +97,100 @@ def make_rec_step(hub, *, patch_size: int, num_patches: int,
                                   masking_strategy)
             ids_keep, mask, ids_restore = make_mask_from_noise(noise,
                                                                len_keep)
-        set_drop_path_source(hub, DropPathSource(generator))
         pred, *_ = hub.forward_rec(evg, ids_keep, ids_restore)
-        loss = reconstruct_loss(pred, batch["frame"], mask,
+        return reconstruct_loss(pred, batch["frame"], mask,
                                 patch_size=patch_size,
                                 norm_pix_loss=norm_pix_loss,
                                 mask_ratio=mask_ratio)
+
+    return rec_loss
+
+
+def _queue_loss(q: torch.Tensor, k: torch.Tensor, queue: QueueState,
+                temperature: float, queue_mode: str
+                ) -> tuple[torch.Tensor, QueueState]:
+    """Queue InfoNCE by scope (steps.py:85-98): "global" enqueues the
+    batch into one queue; "local", one queue a device fed its own keys,
+    needs a mesh, which comes with slice 6."""
+    if queue_mode != "global":
+        raise NotImplementedError(
+            f"queue_mode={queue_mode!r} needs a device mesh: slice 6 "
+            "(data parallelism) brings it")
+    return token_infonce_queue(q, k, queue, temperature)
+
+
+def _con_loss(hub, batch: dict, state: TrainState, use_queue: bool,
+              temperature: float, queue_mode: str) -> torch.Tensor:
+    """``forward_con`` on the batch's ``evg`` and ``clip_emb`` and the
+    InfoNCE of its q and k: against the queue (whose buffer takes the
+    keys in place, ``state.queue`` the new pointer) with ``use_queue``,
+    else against the batch."""
+    q, k, *_ = hub.forward_con(batch["evg"], batch["clip_emb"])
+    if not use_queue:
+        return global_token_infonce(q, k, temperature)
+    loss, state.queue = _queue_loss(q, k, state.queue, temperature,
+                                    queue_mode)
+    return loss
+
+
+def make_con_step(hub, *, use_queue: bool = False, temperature: float = 0.07,
+                  queue_mode: str = "global",
+                  generator: Optional[torch.Generator] = None) -> Callable:
+    """``step(state, batch) -> metrics``: the stage-2/3 contrastive step
+    (steps.py:163-220): ``forward_con`` in training mode (the projectors'
+    BatchNorms on the batch's statistics, their running buffers moving in
+    place), the InfoNCE of q against k (the queue's when ``use_queue``,
+    ``state.queue`` then holding it; else the batch's other samples), the
+    backward and one AdamW update. Stage 2 freezes the trunk on the module
+    (``freeze_except_norm``) before the optimizer is built.
+
+    ``batch = {'evg': (B, H, W, bins), 'clip_emb': (B, 1 + L, 512)}``;
+    stochastic depth draws from ``generator``. ``metrics`` holds ``loss``
+    and ``grad_norm`` (of the real gradients) as device tensors."""
+
+    def step(state: TrainState, batch: dict) -> dict:
+        hub.train()
+        set_drop_path_source(hub, DropPathSource(generator))
+        loss = _con_loss(hub, batch, state, use_queue, temperature,
+                         queue_mode)
         loss.backward()
         grad_norm = state.apply_gradients()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def make_rec_and_con_step(hub, *, patch_size: int, num_patches: int,
+                          mask_ratio: float = 0.75,
+                          masking_strategy: str = "random",
+                          norm_pix_loss: bool = True,
+                          use_queue: bool = False,
+                          temperature: float = 0.07,
+                          queue_mode: str = "global",
+                          generator: Optional[torch.Generator] = None
+                          ) -> Callable:
+    """``step(state, batch) -> metrics``: the joint step (steps.py:
+    223-295): ``forward_rec`` and its reconstruction loss as in
+    :func:`make_rec_step` (a batch's ``ids_keep``/``mask``/``ids_restore``
+    replayed; JAX's joint step always draws them), then ``forward_con`` and
+    its InfoNCE as in :func:`make_con_step`; one backward of their sum and
+    one AdamW update. ``batch`` holds ``evg``, ``frame`` and ``clip_emb``.
+    ``metrics`` holds ``loss``, ``rec_loss``, ``con_loss`` and
+    ``grad_norm`` as device tensors."""
+    rec_loss = _rec_loss_fn(hub, patch_size, num_patches, mask_ratio,
+                            masking_strategy, norm_pix_loss, generator)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        hub.train()
+        set_drop_path_source(hub, DropPathSource(generator))
+        rec = rec_loss(batch)
+        con = _con_loss(hub, batch, state, use_queue, temperature,
+                        queue_mode)
+        loss = rec + con
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "rec_loss": rec.detach(),
+                "con_loss": con.detach(), "grad_norm": grad_norm}
 
     return step
 

@@ -113,6 +113,19 @@ def test_host_half_and_flow_slice_modules_are_covered(module):
     assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
 
 
+@pytest.mark.parametrize("module", [
+    "objectives.contrastive", "models.layers", "models.pretrain_hub",
+    "train.state", "train.steps", "data.pretrain_pipeline", "cli.pretrain",
+    "ckpt.bridge",
+])
+def test_contrastive_slice_modules_are_covered(module):
+    """Slice 4a's modules (the InfoNCE losses and the queue, the projector
+    BatchNorm and heads, the contrastive steps, the CLIP embeddings' data
+    path and the stage CLI) are among those the import check above loads
+    with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
 def test_host_code_source_ships_with_the_package():
     from eventpretrain_tpu_torch import native
 

@@ -133,6 +133,7 @@ def _rel_err(got, want):
     "models.dense_hub.dense_hub_vit_small",
     "models.dense_hub.dense_hub_vit_base",
     "data.dense_pipeline.DensePipeline",
+    "objectives.contrastive.init_queue",
 ])
 def test_factories_default_to_the_card(factory):
     import importlib
@@ -495,4 +496,4 @@ def test_cli_runs_four_steps_and_writes_a_loadable_checkpoint(tmp_path):
         torch.testing.assert_close(hub.state_dict()[k], v.cpu(), rtol=0,
                                    atol=0)
     with pytest.raises(NotImplementedError):
-        main(["--pr_phase", "con", "--device", "cpu"])
+        main(["--pr_phase", "con-n", "--device", "cpu"])
