@@ -14,14 +14,15 @@ backend's refusal of a shape, which its timing records as null):
    and spills printed, and no GEMM
    instantiation, row kernel (csrc/ln_bwd.cu) or splat kernel (csrc/splat.cu,
    splat_tiled.cu) or K8 (csrc/voxel_scatter.cu) allowed to spill; each
-   splat launch plan of the main paths with the clusters of it the card
-   holds at once (cudaOccupancyMaxActiveClusters), and K8's resident
-   CTAs.
+   splat launch plan of the main paths (K3's at 128x128x5 and at the raw
+   pretrain path's 224x224x5) with the clusters of it the card holds at
+   once (cudaOccupancyMaxActiveClusters), and K8's resident CTAs.
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) on both routes, each call on the one
-   ``splat_route`` names: the cluster route at B=64, E=30000, 128x128x5,
-   the global route at B=8 of that shape and at DSEC's 440x640x5 (B=2,
-   200000 events), strays past every edge; the tiled splat (K6) at B=2 of
+   ``splat_route`` names: the cluster route at B=64, E=30000, 128x128x5
+   and at B=64, E=30300, 224x224x5 (the raw pretrain path's), the global
+   route at B=8 of that shape and at DSEC's 440x640x5 (B=2, 200000
+   events), strays past every edge; the tiled splat (K6) at B=2 of
    DSEC's shape, both entry points, with and without bin ranges, and the
    2-bin count image with and without bin ranges, on bucketed events with
    hand-placed strays; the LN
@@ -138,6 +139,24 @@ backend's refusal of a shape, which its timing records as null):
    masks on both paths (K1/K2 32+32 both ways: 12 at L=49, 8 of the
    decoder, 12 at (196, 768)); ``cli.pretrain.main`` for one epoch of
    ``adj`` from phase 5's checkpoint, then one of ``con`` from adj's.
+5h. Slice 4b-ii, stages 2 and 3 with CLIP in the loop on raw events:
+   the hub of phase 5g (from phase 5's rec checkpoint), fed by
+   ``SyntheticRawPretrainSource`` at N-ImageNet's sensor (480x640, 60000
+   events: windows of 30000, the C++ erase-and-add, rescaled to 224)
+   through ``RawPretrainPipeline`` at B=64 with the u32 codec (K3 on the
+   224x224x5 canvas, its cluster route), wrapped in
+   ``ClipEncodingPipeline`` with ``clip_vit_b16`` in bf16 from seed 0.
+   Stage 2: 10 ``adj-n`` steps, pipeline and steps in one counted run (per
+   step K3 1, K1/K2 12+12 forward, 0 backward), and 10 on the plain path
+   on the same batches, both loss curves and their gap (2%); every frozen
+   trunk parameter (on both paths) and every CLIP tensor unchanged bit for
+   bit. CLIP's (64, 197, 512) output against an f32 tower with the same
+   weights on the first batch's images (``CLIP_BF16_REL_TOL``); K3 on the
+   first batch's wire data against its plain version (1e-4). Stage 3: 10
+   ``con-n`` steps from stage 2's weights the same way (K3 1, K1/K2 12+12
+   both ways). ``cli.pretrain.main`` for one epoch of ``adj-n`` from phase
+   5's checkpoint, then one of ``con-n`` from adj-n's; no CLIP tensor in
+   either checkpoint.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -165,18 +184,20 @@ backend's refusal of a shape, which its timing records as null):
    beside K3's ``voxelize_batch``; K6 also at MVSEC's shape on the first
    flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
    10 calls (the card alone); K1/K2 also at the contrastive stages'
-   (64, 196, 768) H12, forward and backward, beside ``sdpa``; the rec and
+   (64, 196, 768) H12, forward and backward, beside ``sdpa``; K3 also at
+   the raw pretrain path's (64, 5, 30300) on 224x224x5; the rec and
    cls train steps' ms, samples/s and peak memory on both paths (and the
-   semseg step's at B=16, the adj, con and rec+con steps' at B=64, 5
-   steps a turn; the flow step's from phase 5e), the cls and dense pipelines'
-   host time per batch, phase 5f's host builds and phase 5d's delivered
+   semseg step's at B=16, the adj, con, rec+con, adj-n and con-n steps' at
+   B=64, 5 steps a turn; the flow step's from phase 5e), CLIP's device ms
+   a batch, the cls, dense and raw pretrain pipelines' host time per
+   batch, phase 5f's host builds and phase 5d's delivered
    samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
    each main-path shape (the dense ViT-B's (12544, 768) among them) from
    CUDA graphs beside their plain versions, their
    bounds and ``torch.sum`` / ``F.layer_norm``, their launches on every
    main path checked against those of the sub-blocks that call them; then
-   a ``torch.profiler`` window over each kernel path for its device time by
-   kernel (the GEMM's by layout, the row kernels' with their launches) and
+   a ``torch.profiler`` window over each kernel path (a con-n step with
+   its CLIP encode among them) for its device time by kernel (the GEMM's by layout, the row kernels' with their launches) and
    busy share.
 
 The last line is ``{"ok": true, "device": {...}}``; the lines before it
@@ -417,6 +438,8 @@ def log_splat_clusters() -> None:
     for what, lib, plan in (
             (f"K3 {CANVAS[0]}x{CANVAS[1]}x{NUM_BINS}", "splat",
              splat_plan(*CANVAS, NUM_BINS)),
+            (f"K3 {TRAIN_INPUT}x{TRAIN_INPUT}x{NUM_BINS} (raw pretrain)",
+             "splat", splat_plan(TRAIN_INPUT, TRAIN_INPUT, NUM_BINS)),
             (f"K6 128x128x{NUM_BINS} tile", "splat_tiled",
              splat_tiled_plan(128, 128, NUM_BINS)),
             ("K6 128x128x2 tile (count image)", "splat_tiled",
@@ -551,6 +574,22 @@ class plain_tiled_splat:
         self.mod.splat_tiled = self.kernel
 
 
+class plain_splat:
+    """Within the block, ``voxelize_batch`` (and so the cls and raw
+    pretrain pipelines) calls K3's plain version on card tensors, and
+    counts no launch."""
+
+    def __enter__(self):
+        from eventpretrain_tpu_torch.ops import splat as sp
+
+        self.mod, self.kernel = sp, sp.splat
+        sp.splat = sp.splat_reference
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.splat = self.kernel
+
+
 def k6_cases(inp) -> list:
     """(name, kernel call, plain call) for both entry points of K6, with
     and without bin ranges, on ``dsec_tiled_inputs``."""
@@ -597,7 +636,8 @@ def k6_cases(inp) -> list:
 def phase_k3_parity(dev) -> tuple[float, float]:
     """K3 against its plain version on both routes, each call on the route
     ``splat_route`` names: the cluster route at the served and cls batch
-    (B=64, E=30000, the 128x128x5 canvas), the global route at the served
+    (B=64, E=30000, the 128x128x5 canvas) and at the raw pretrain path's
+    (B=64, E=30300, the 224x224x5 canvas), the global route at the served
     B=8 and at DSEC's 440x640x5 (B=2, 200000 events), strays past every
     edge in all."""
     from eventpretrain_tpu_torch.ops.splat import (
@@ -610,7 +650,9 @@ def phase_k3_parity(dev) -> tuple[float, float]:
     worst = 0.0
     for batch, grid_hw, capacity in ((64, CANVAS, EVENTS),
                                      (8, CANVAS, EVENTS),
-                                     (2, DSEC_HW, DSEC_EVENTS)):
+                                     (2, DSEC_HW, DSEC_EVENTS),
+                                     (TRAIN_BATCH, (TRAIN_INPUT, TRAIN_INPUT),
+                                      RAW_CAPACITY)):
         y, x, wb = splat_args(rng, batch, dev, grid_hw, capacity)
         hw = dict(height=grid_hw[0], width=grid_hw[1])
         route = splat_route(batch, *grid_hw, NUM_BINS)
@@ -1931,29 +1973,31 @@ def dense_pipeline(dev, train: bool, batches: int):
 
 
 class record_wire:
-    """Within the block, every call of the dense pipeline's device half is
-    recorded (its wire tensors and options), so the plain path can rebuild
-    the same batch from the same data."""
+    """Within the block, every call of a pipeline module's device half
+    (``module._device_preprocess``) is recorded (its wire tensors and
+    options), so the plain path can rebuild the same batch from the same
+    data under ``plain``, the splat's plain version."""
+
+    def __init__(self, module, plain=plain_tiled_splat):
+        self.mod, self.plain = module, plain
 
     def __enter__(self):
-        from eventpretrain_tpu_torch.data import dense_pipeline as dp
-
-        self.mod, self.fn, self.calls = dp, dp._device_preprocess, []
+        self.fn, self.calls = self.mod._device_preprocess, []
 
         def recorded(*args, **kwargs):
             self.calls.append((args, kwargs))
             return self.fn(*args, **kwargs)
 
-        dp._device_preprocess = recorded
+        self.mod._device_preprocess = recorded
         return self
 
     def __exit__(self, *exc):
         self.mod._device_preprocess = self.fn
 
-    def rebuild_plain(self, i: int) -> dict:
-        """Call ``i`` again with K6's plain version."""
+    def rebuild_plain(self, i: int):
+        """Call ``i`` again with the splat's plain version."""
         args, kwargs = self.calls[i]
-        with plain_tiled_splat():
+        with self.plain():
             return self.fn(*args, **kwargs)
 
 
@@ -1984,6 +2028,8 @@ def phase_dense_training(dev):
     pipeline inside the counted run (so K6 counts too), then 10 on the
     plain path from the same init: the same wire data through K6's plain
     version, the unfused blocks, the same replayed masks."""
+    import eventpretrain_tpu_torch.data.dense_pipeline as dense_data
+
     hub = build_dense_hub(dev)
     plain_hub = copy.deepcopy(hub)
     set_fused(plain_hub, False)
@@ -1996,7 +2042,7 @@ def phase_dense_training(dev):
     reset_counts()
     t0 = time.perf_counter()
     batches, kern = [], []
-    with record_wire() as wire:
+    with record_wire(dense_data) as wire:
         for batch in pipe:
             batch["drop_path_keep"] = torch.from_numpy(
                 rng.random((len(sites), DENSE_BATCH)) < (1.0 - sites)[:, None]
@@ -2066,13 +2112,14 @@ def phase_dense_eval(dev, dense) -> dict:
     pipeline, counted on its own, and its confusion counts against the
     plain path's (the same trained weights unfused, K6's plain version on
     the same wire data)."""
+    import eventpretrain_tpu_torch.data.dense_pipeline as dense_data
     from eventpretrain_tpu_torch.eval.metrics import miou_from_confusion
     from eventpretrain_tpu_torch.train.steps import make_semseg_eval_step
 
     hub = dense["hub"]
     kw = dict(num_classes=DENSE_CLASSES, ignore_label=DENSE_IGNORE)
     reset_counts()
-    with record_wire() as wire:
+    with record_wire(dense_data) as wire:
         val = next(iter(dense_pipeline(dev, False, 1)))
         conf = make_semseg_eval_step(hub, **kw)(val)
     torch.cuda.synchronize()
@@ -2432,13 +2479,15 @@ def phase_flow_training(dev):
     data against its plain version, partial tiles included, and the
     pipeline's grid against the same batch rebuilt with K6's plain
     version; then the step's host-clock ms on a fixed batch."""
+    import eventpretrain_tpu_torch.data.dense_pipeline as dense_data
+
     hub = build_flow_hub(dev)
     state, step = make_flow_trainer(hub, dev, FLOW_STEPS)
     pipe = flow_pipeline(dev, True, FLOW_STEPS)
     reset_counts()
     t0 = time.perf_counter()
     batches, metrics = [], []
-    with record_wire() as wire:
+    with record_wire(dense_data) as wire:
         for batch in pipe:
             batches.append(batch)
             metrics.append(step(state, batch))
@@ -2922,6 +2971,256 @@ def phase_con_cli(dev) -> None:
                 "the checkpoint's keys are not the hub's")
         require("emb_h_proj.1.running_mean" in sd,
                 "the checkpoint lacks the projectors' BatchNorm statistics")
+
+
+# --------------------------------------------------------------- phase 5h
+# slice 4b-ii: stages 2 and 3 with CLIP in the loop on raw events. The raw
+# pipeline draws N-ImageNet-shaped windows (30000 of 60000 events on the
+# 480x640 sensor), rescales them to 224 and rasterises them through K3 on
+# the 224x224x5 canvas (its cluster route: 5 CTAs of one channel a
+# sample); the frozen CLIP ViT-B/16 encodes each batch's images on the
+# card; the hub is phase 5g's, filled from phase 5's rec checkpoint.
+
+RAW_HW = (480, 640)  # N-ImageNet's sensor
+RAW_EVENTS = 60000
+RAW_FIX_EVENTS = 30000  # the CLI's --fix_events_num
+# K3's capacity on this path: the window and 1% of packing headroom
+RAW_CAPACITY = RAW_FIX_EVENTS + RAW_FIX_EVENTS // 100
+# The bf16 tower against an f32 tower with the same weights on the same
+# images, as max |bf16 - f32| over max |f32|: each of the 12 blocks rounds
+# its residual stream and products to bf16 (2^-8 relative), and the
+# errors add over the blocks. Measured 9.55e-3 at seed 0 (H100 80GB HBM3,
+# 700 W); the bound is twice that.
+CLIP_BF16_REL_TOL = 2e-2
+
+
+class keep_images:
+    """The inner pipeline's batches, passed on as they are, each batch's
+    images kept in ``images`` (``ClipEncodingPipeline`` drops them)."""
+
+    def __init__(self, inner):
+        self.inner, self.images = inner, []
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def __iter__(self):
+        for batch in self.inner:
+            self.images.append(batch["image"])
+            yield batch
+
+
+def raw_pipeline(dev, seed: int):
+    """B=64 batches of ``SyntheticRawPretrainSource`` at N-ImageNet's
+    sensor through ``RawPretrainPipeline`` at input 224, training (the
+    windows, the C++ erase-and-add, the rescale, the view), u32 codec."""
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        RawPretrainDataConfig,
+        RawPretrainPipeline,
+        SyntheticRawPretrainSource,
+    )
+
+    source = SyntheticRawPretrainSource(n=TRAIN_BATCH * CON_STEPS, hw=RAW_HW,
+                                        num_events=RAW_EVENTS, seed=0)
+    cfg = RawPretrainDataConfig(input_size=TRAIN_INPUT,
+                                fix_events_num=RAW_FIX_EVENTS)
+    return RawPretrainPipeline(source, cfg, TRAIN_BATCH, train=True,
+                               seed=seed, device=dev)
+
+
+def clip_stage(dev, what: str, clip, paths, seed: int) -> dict:
+    """One epoch of ``CON_STEPS`` batches of the in-loop pipeline through
+    the kernel path's step, pipeline and steps in one counted run (K3 in
+    the pipeline, K1/K2 in the steps; CLIP launches no counted kernel),
+    each batch's wire data recorded; then the plain path's steps on the
+    same batches."""
+    import eventpretrain_tpu_torch.data.pretrain_pipeline as pretrain_data
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        ClipEncodingPipeline,
+    )
+    from eventpretrain_tpu_torch.ops.splat import splat
+
+    state, step, pstate, pstep = paths
+    pipe = raw_pipeline(dev, seed)
+    kept = keep_images(pipe)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batches, kern = [], []
+    with record_wire(pretrain_data, plain_splat) as wire:
+        for batch in ClipEncodingPipeline(kept, clip):
+            batches.append(batch)
+            kern.append(step(state, batch))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    by_route = dict(splat.launches_by_route)
+    wall = time.perf_counter() - t0
+    # above what was resident before: the epoch's batches, CLIP's and the
+    # steps' activations, the optimizer's moments
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    kern = [{k: float(v) for k, v in m.items()} for m in kern]
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    host_ms = pipe.host_seconds / pipe.batches * 1e3
+    log(f"{what}: {len(batches)} batches of evg "
+        f"{tuple(batches[0]['evg'].shape)}, clip_emb "
+        f"{tuple(batches[0]['clip_emb'].shape)} "
+        f"{batches[0]['clip_emb'].dtype}; host build {host_ms:.1f} ms a "
+        f"batch; pipeline, CLIP and {CON_STEPS} kernel-path steps "
+        f"{wall:.1f} s, peak {peak:.2f} GiB above resident; launches "
+        f"{launches},"
+        f" K3 by route {by_route}")
+    require(len(batches) == CON_STEPS, f"{what}: {len(batches)} batches")
+    require(by_route == {"cluster": CON_STEPS, "global": 0},
+            f"{what}: K3 took the routes {by_route}")
+    return dict(step=step, state=state, pstep=pstep, pstate=pstate,
+                batches=batches, images=kept.images, wire=wire,
+                launches=launches, kern=kern, plain=plain, host_ms=host_ms,
+                wall_s=wall, peak_gib=peak)
+
+
+def phase_clip_training(dev) -> dict:
+    """Stage 2 (10 ``adj-n`` steps, the trunk frozen but its norm_layer)
+    and stage 3 (10 ``con-n`` steps from stage 2's weights), each fed by
+    the in-loop pipeline inside its counted run and replayed on the plain
+    path; the bf16 tower against an f32 tower, and K3 on the first
+    batch's wire data against its plain version."""
+    from eventpretrain_tpu_torch.cli.pretrain import build_clip
+    from eventpretrain_tpu_torch.models.clip import encode_images
+    from eventpretrain_tpu_torch.ops.splat import (
+        max_active_clusters,
+        splat_plan,
+        splat_route,
+    )
+    from eventpretrain_tpu_torch.train.optim import freeze_except_norm
+
+    out = {"launches": {}}
+    plan = splat_plan(TRAIN_INPUT, TRAIN_INPUT, NUM_BINS)
+    route = splat_route(TRAIN_BATCH, TRAIN_INPUT, TRAIN_INPUT, NUM_BINS)
+    resident = max_active_clusters("splat", plan.cluster, plan.smem_bytes, 0)
+    log(f"raw path: K3 ({TRAIN_BATCH}, {NUM_BINS}, {RAW_CAPACITY}) -> "
+        f"{TRAIN_INPUT}x{TRAIN_INPUT}x{NUM_BINS} on the {route} route: "
+        f"{plan.cluster} CTAs of {plan.cp} channels, {plan.smem_bytes} B "
+        f"shared memory each, {resident} clusters resident at once")
+    require(route == "cluster" and resident >= 1,
+            "K3's 224x224x5 plan does not run on the cluster route")
+    clip = build_clip(torch.bfloat16, dev)
+    clip0 = {k: v.clone() for k, v in clip.state_dict().items()}
+
+    # stage 2: the trunk frozen but its norm_layer
+    hub = build_con_hub(dev, with_decoder=False)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    for h in (hub, plain_hub):
+        freeze_except_norm(h)
+    frozen = {n: p.detach().clone() for n, p in hub.named_parameters()
+              if not p.requires_grad}
+    norm0 = hub.backbone.norm_layer.weight.detach().clone()
+    adj = clip_stage(dev, "adj-n", clip,
+                     make_con_trainer(hub, "adj")
+                     + make_con_trainer(plain_hub, "adj"), seed=0)
+    require_launches("adj-n", adj["launches"], CON_STEPS, {
+        "splat": 1, "fused_ln_attn_layer": DEPTH, "fused_ln_mlp": DEPTH})
+    adj["loss_gap"] = loss_gap("adj-n", adj["kern"], adj["plain"],
+                               CON_LOSS_GAP_REL)
+    for what, h in (("kernel", hub), ("plain", plain_hub)):
+        moved = [n for n, p in h.named_parameters()
+                 if n in frozen and not torch.equal(p, frozen[n])]
+        require(not moved, f"adj-n ({what} path) moved frozen parameters: "
+                           f"{moved[:4]}")
+    require(not torch.equal(hub.backbone.norm_layer.weight, norm0),
+            "adj-n did not train the backbone's norm_layer")
+    moved = [k for k, v in clip.state_dict().items()
+             if not torch.equal(v, clip0[k])]
+    require(not moved, f"adj-n moved CLIP parameters: {moved[:4]}")
+    log(f"adj-n: {len(frozen)} frozen trunk parameters and {len(clip0)} "
+        "CLIP tensors unchanged bit for bit, norm_layer trained")
+
+    # CLIP: the bf16 tower against an f32 tower on the first batch's images
+    clip32 = build_clip(torch.float32, dev)
+    with torch.no_grad():
+        want = encode_images(clip32, adj["images"][0])
+    got = adj["batches"][0]["clip_emb"].float()
+    scale = want.abs().max().item()
+    clip_err = (got - want).abs().max().item() / scale
+    mean_err = ((got - want).abs().mean() / want.abs().mean()).item()
+    log(f"CLIP ViT-B/16 bf16 {tuple(got.shape)} against f32 on the same "
+        f"images: max |err| {clip_err:.3g} of the f32 scale {scale:.4g} "
+        f"(tol {CLIP_BF16_REL_TOL}), mean |err| {mean_err:.3g} of the mean")
+    require(tuple(got.shape) == (TRAIN_BATCH, 197, 512)
+            and bool(torch.isfinite(got).all()), "CLIP's output")
+    require(clip_err <= CLIP_BF16_REL_TOL,
+            "the bf16 CLIP tower leaves the f32 one")
+    del clip32
+    # K3 on the first batch's wire data against its plain version
+    rebuilt = adj["wire"].rebuild_plain(0)
+    k3_err = (rebuilt - adj["batches"][0]["evg"]).abs().max().item()
+    log(f"raw path: evg of K3 vs its plain version on the first batch's "
+        f"wire data: max_abs_err {k3_err:.3g} (tol {SPLAT_ATOL}), sum "
+        f"{rebuilt.sum().item():.6g}")
+    require(k3_err <= SPLAT_ATOL, "the raw path's K3 grid differs from the "
+                                  "plain one")
+    out["launches"]["adj_n_train"] = adj["launches"]
+    out["adj"] = adj
+
+    # stage 3 from stage 2's weights, the whole model training
+    con_hub = copy.deepcopy(hub)
+    for p in con_hub.parameters():
+        p.requires_grad_(True)
+    plain_con = copy.deepcopy(con_hub)
+    set_fused(plain_con, False)
+    con = clip_stage(dev, "con-n", clip,
+                     make_con_trainer(con_hub, "con")
+                     + make_con_trainer(plain_con, "con"), seed=1)
+    require_launches("con-n", con["launches"], CON_STEPS, {
+        "splat": 1, "fused_ln_attn_layer": DEPTH,
+        "fused_ln_attn_layer_bwd": DEPTH, "fused_ln_mlp": DEPTH,
+        "fused_ln_mlp_bwd": DEPTH})
+    con["loss_gap"] = loss_gap("con-n", con["kern"], con["plain"],
+                               CON_LOSS_GAP_REL)
+    moved = [k for k, v in clip.state_dict().items()
+             if not torch.equal(v, clip0[k])]
+    require(not moved, f"con-n moved CLIP parameters: {moved[:4]}")
+    out["launches"]["con_n_train"] = con["launches"]
+    out["con"] = con
+    out["clip"] = {"model": clip, "bf16_vs_f32_max_rel": clip_err,
+                   "bf16_vs_f32_mean_rel": mean_err,
+                   "tol": CLIP_BF16_REL_TOL, "k3_wire_err": k3_err,
+                   "k3_plan": {"cluster": plan.cluster, "cp": plan.cp,
+                               "smem_bytes": plan.smem_bytes,
+                               "resident_clusters": resident}}
+    return out
+
+
+def phase_clip_cli(dev) -> None:
+    """``cli.pretrain.main`` for one epoch of ``adj-n`` from phase 5's rec
+    checkpoint, then one of ``con-n`` from adj-n's (the synthetic raw
+    source: 256 samples, 4 steps); no checkpoint holds a CLIP tensor."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    prev = REC_CHECKPOINT
+    for phase in ("adj-n", "con-n"):
+        out = os.path.join("build", f"chip_smoke_{phase}")
+        t0 = time.perf_counter()
+        state = pretrain_main([
+            "--pr_phase", phase, "--dataset", "synthetic", "--model_size",
+            "base", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+            "--output_dir", out, "--print_freq", "2", "--init_from", prev,
+            "--input_size", str(TRAIN_INPUT), "--device", str(dev),
+        ])
+        prev = os.path.join(out, "checkpoint.pth")
+        sd = load_torch_checkpoint(prev)
+        log(f"cli.pretrain --pr_phase {phase}: {state.step} steps in "
+            f"{time.perf_counter() - t0:.1f} s, checkpoint of {len(sd)} "
+            "tensors")
+        require(state.step == 4, f"the {phase} CLI ran {state.step} steps")
+        require(set(sd) == set(state.module.state_dict()),
+                "the checkpoint's keys are not the hub's")
+        require(not any(k.startswith(("conv1.", "transformer.", "proj"))
+                        for k in sd), "the checkpoint holds CLIP tensors")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3675,22 +3974,55 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
     return row
 
 
-def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, smi) -> None:
-    import torch.nn.functional as F
-
-    from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
-    from eventpretrain_tpu_torch.ops import fused_mlp as km
+def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
+    """K3 at (b, 5, capacity) on a ``grid_hw`` x 5 canvas (synthetic
+    events with strays, as phase 2's), one call an event pair beside its
+    plain version, from a CUDA graph of 10 calls, and beside the library
+    call, ``index_put_(accumulate=True)`` alone on the in-frame cells and
+    weights that ``splat_reference`` computes first; the bound from the
+    bytes: each coordinate and weight read once, the grid written once."""
     from eventpretrain_tpu_torch.ops.splat import (
         splat,
         splat_reference,
         splat_route,
     )
 
+    y, x, wb = splat_args(np.random.default_rng(3), b, dev, grid_hw,
+                          capacity)
+    h, w = grid_hw
+    hw = dict(height=h, width=w)
+    ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+    cell = ((torch.arange(b, device=dev)[:, None] * h + y.long()) * w
+            + x.long())[ok]
+    vals = wb.transpose(1, 2)[ok].float()
+    acc = torch.zeros((b * h * w, NUM_BINS), device=dev)
+    ms, plain_ms = time_pair(lambda: splat(y, x, wb, **hw),
+                             lambda: splat_reference(y, x, wb, **hw))
+    # the card alone, without the wrapper's host work
+    device_ms = graph_ms(lambda: splat(y, x, wb, **hw))
+    lib_ms = cuda_ms(lambda: acc.index_put_((cell,), vals, accumulate=True))
+    nbytes = (y.numel() + x.numel()) * 4 + wb.numel() * 4 + acc.numel() * 4
+    bms, bby = bound(wb.numel(), nbytes)
+    log(f"time splat ({b}, {NUM_BINS}, {capacity}) -> {h}x{w}x{NUM_BINS}: "
+        f"kernel {ms:.4g} ms (graph-timed {device_ms * 1e3:.4g} us), plain "
+        f"{plain_ms:.4g} ms, index_put_ {lib_ms:.4g} ms, bound {bms:.4g} ms "
+        f"({bby}) ({smi})")
+    return {"kernel_route": splat_route(b, h, w, NUM_BINS), "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bby, "library_ms": lib_ms,
+            "shape": [b, NUM_BINS, capacity], "grid": [h, w, NUM_BINS],
+            "flops": wb.numel(), "bytes": nbytes}
+
+
+def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
+                 dense, flow, host, loops, con, clip, smi) -> None:
+    import torch.nn.functional as F
+
+    from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
+    from eventpretrain_tpu_torch.ops import fused_mlp as km
+    from eventpretrain_tpu_torch.ops.splat import splat, splat_reference
+
     b = big_inputs[0].shape[0]
-    rng = np.random.default_rng(3)
-    y, x, wb = splat_args(rng, b, dev)
-    hw = dict(height=CANVAS[0], width=CANVAS[1])
     gen = torch.Generator().manual_seed(4)
 
     def k1_case(l, c, h, backward):
@@ -3820,20 +4152,21 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     total = {k: sum(launches[p].get(k, 0) for p in launches)
              for k in counters()}
     kernels = []
-    # the library call: index_put_(accumulate=True) alone, on the in-frame
-    # cells and weights splat_reference computes first
-    ok = (y >= 0) & (y < CANVAS[0]) & (x >= 0) & (x < CANVAS[1])
-    cell = ((torch.arange(b, device=dev)[:, None] * CANVAS[0] + y.long())
-            * CANVAS[1] + x.long())[ok]
-    vals = wb.transpose(1, 2)[ok].float()
-    acc = torch.zeros((b * CANVAS[0] * CANVAS[1], NUM_BINS), device=dev)
-    ms, plain_ms = time_pair(lambda: splat(y, x, wb, **hw),
-                             lambda: splat_reference(y, x, wb, **hw))
-    # the card alone, without the wrapper's host work
-    device_ms = graph_ms(lambda: splat(y, x, wb, **hw))
-    lib_ms = cuda_ms(lambda: acc.index_put_((cell,), vals, accumulate=True))
-    nbytes = (y.numel() + x.numel()) * 4 + wb.numel() * 4 + acc.numel() * 4
-    bms, bby = bound(wb.numel(), nbytes)
+    k3 = k3_timing(dev, b, CANVAS, EVENTS, smi)
+    # the raw pretrain path's canvas, held against the plain version first
+    ry, rx, rwb = splat_args(np.random.default_rng(13), TRAIN_BATCH, dev,
+                             (TRAIN_INPUT, TRAIN_INPUT), RAW_CAPACITY)
+    rhw = dict(height=TRAIN_INPUT, width=TRAIN_INPUT)
+    raw_err = (splat(ry, rx, rwb, **rhw)
+               - splat_reference(ry, rx, rwb, **rhw)).abs().max().item()
+    require(raw_err <= SPLAT_ATOL, "splat at 224x224x5 disagrees with "
+                                   "splat_reference")
+    del ry, rx, rwb
+    k3_raw = k3_timing(dev, TRAIN_BATCH, (TRAIN_INPUT, TRAIN_INPUT),
+                       RAW_CAPACITY, smi)
+    k3_raw.update(max_abs_err=raw_err, tol=SPLAT_ATOL,
+                  launches_by_path={p: launches[p]["splat"]
+                                    for p in ("adj_n_train", "con_n_train")})
     err, tol = errs["splat"]
     kernels.append({
         "name": "splat", "route": "cuda", "source": csrc + "splat.cu",
@@ -3841,17 +4174,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:227",
         "launches": total["splat"],
         "launches_by_path": {p: launches[p]["splat"] for p in launches},
-        "kernel_route": splat_route(b, *CANVAS, NUM_BINS),
-        "max_abs_err": err, "tol": tol, "ms": ms, "device_ms": device_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms,
-        "library": "index_put_(accumulate=True)",
-        "shape": [b, NUM_BINS, EVENTS], "flops": wb.numel(),
-        "bytes": nbytes,
+        "max_abs_err": err, "tol": tol, **k3,
+        "library": "index_put_(accumulate=True)", "shapes": [k3_raw],
     })
-    log(f"time splat B={b}: kernel {ms:.4g} ms (graph-timed "
-        f"{device_ms * 1e3:.4g} us), plain {plain_ms:.4g} ms, index_put_ "
-        f"{lib_ms:.4g} ms, bound {bms:.4g} ms ({bby}) ({smi})")
     kernels.append(k6_row(dense, flow, errs, total, launches, smi))
     for (name, source, also, replaces, shapes, backward, case, work,
          library) in rows:
@@ -3951,8 +4276,12 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
             f"{e2e[key]['step_ms']:.4g} ms, plain "
             f"{e2e[key]['plain_step_ms']:.4g} ms ({smi})")
     # the contrastive stages' steps (phase 5g), fewer steps a turn: 5
+    # and phase 5h's, the step alone on replayed batches (their embeddings
+    # already encoded)
     for key, run in (("adj_train", con["adj"]), ("con_train", con["con"]),
-                     ("rec_con_train", con["rec_con"])):
+                     ("rec_con_train", con["rec_con"]),
+                     ("adj_n_train", clip["adj"]),
+                     ("con_n_train", clip["con"])):
         paths = {True: (run["step"], run["state"]),
                  False: (run["pstep"], run["pstate"])}
         step_runs, peak = timed_steps(paths, run["batches"], reps=REPS // 4)
@@ -3966,6 +4295,30 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
             f"GiB above resident), plain {e2e[key]['plain_step_ms']:.4g} ms "
             f"({e2e[key]['plain_peak_step_gib']:.3g} GiB) ({smi})")
     e2e["con_train"]["queue"] = {**con["queue"], "card": smi}
+    # CLIP in the loop: the tower's device ms a batch (bf16, B=64, the
+    # preprocess included), the raw pipeline's host ms a batch, and the
+    # counted epoch's wall time and peak memory (pipeline, CLIP and steps)
+    from eventpretrain_tpu_torch.models.clip import encode_images
+
+    tower, images = clip["clip"]["model"], clip["con"]["images"][0]
+
+    def encode():
+        with torch.no_grad():
+            return encode_images(tower, images)
+
+    clip_ms = cuda_ms(encode, reps=REPS // 2)
+    for key, run in (("adj_n_train", clip["adj"]),
+                     ("con_n_train", clip["con"])):
+        e2e[key].update({
+            "clip_ms": clip_ms, "host_batch_ms": run["host_ms"],
+            "epoch_wall_s": run["wall_s"], "epoch_peak_gib": run["peak_gib"],
+            "clip_bf16_vs_f32": {k: clip["clip"][k] for k in (
+                "bf16_vs_f32_max_rel", "bf16_vs_f32_mean_rel", "tol")},
+            "k3_plan": clip["clip"]["k3_plan"]})
+        log(f"{key}: CLIP ViT-B/16 {clip_ms:.4g} ms a batch of "
+            f"{TRAIN_BATCH} on the card, host build {run['host_ms']:.4g} ms "
+            f"a batch, the counted epoch {run['wall_s']:.3g} s (peak "
+            f"{run['peak_gib']:.3g} GiB) ({smi})")
     e2e["cls_train"]["host_batch_ms"] = cls["host_ms"]
     e2e["cls_train"]["drop_path_rate"] = CLS_DROP_PATH
     e2e["semseg_train"]["host_batch_ms"] = dense["host_ms"]
@@ -4001,6 +4354,14 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                                              calls)
         log_profile(f"{key} step B={e2e[key]['batch']}",
                     e2e[key]["profile"])
+    # a con-n step with its CLIP encode, on the first batch's images
+    run = clip["con"]
+    evg = run["batches"][0]["evg"]
+    e2e["con_n_train"]["profile"] = device_profile(
+        lambda: run["step"](run["state"], {"evg": evg, "clip_emb": encode()}),
+        3)
+    log_profile(f"con_n_train step with its CLIP encode B={TRAIN_BATCH}",
+                e2e["con_n_train"]["profile"])
     log(json.dumps({"e2e": e2e}))
     log(json.dumps({"attention_core": core}))
     log(smi)
@@ -4057,13 +4418,17 @@ def main() -> int:
     launches.update(con["launches"])
     phase_con_cli(dev)
     mark("contrastive stages")
+    clip = phase_clip_training(dev)
+    launches.update(clip["launches"])
+    phase_clip_cli(dev)
+    mark("CLIP in the loop")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, smi)
+                 dense, flow, host, loops, con, clip, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

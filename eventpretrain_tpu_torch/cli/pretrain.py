@@ -11,12 +11,21 @@ every block of the encoder and decoder through the K1/K2 kernels; stage 2
 runs them forward only. The contrastive phases read precomputed CLIP
 token embeddings (EF-ImageNet's ``<image>_clip_emb.pt``, or the synthetic
 source's) and pair the backbone's 196 tokens with CLIP ViT-B/16's 14x14
-grid, so they need ``--input_size 224``.
+grid, so they need ``--input_size 224``. ``adj-n`` and ``con-n`` are
+stages 2 and 3 with CLIP in the loop: raw N-ImageNet event streams
+(``--n_imagenet_root``) and their ImageNet images (``--imagenet_root``),
+or the synthetic raw source, through ``RawPretrainPipeline`` (K3 on the
+input-size canvas), each batch's images encoded on the card by the frozen
+CLIP ViT-B/16 (``ClipEncodingPipeline``; ``--clip_weights`` an OpenAI
+checkpoint, else a random tower from seed 0, with a warning). CLIP's
+parameters reach neither the optimizer nor a checkpoint.
 
     python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase rec \\
         --dataset synthetic --model_size base --epochs 1
     python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase adj \\
         --model_size base --init_from results/pretrain/checkpoint.pth
+    python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase adj-n \\
+        --model_size base --dataset synthetic --epochs 1
 
 ``--init_from <file>.pth`` chains the stages: it fills every parameter
 and buffer of the hub that the file holds under the reference key space
@@ -27,10 +36,10 @@ and seeds a ``--use_queue`` queue from the file's ``queue`` and
 run it writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
 "epoch": ...}`` (with the queue's ``queue`` and ``queue_ptr``), which
 the next stage's ``--init_from``, the serve loader and
-``load_jax_state_dict`` read. The phases ``adj-n``, ``con-n`` (CLIP in
-the loop), ``ecdp`` and ``ecdp-ef``, ``--accum_iter``, ``--data_parallel``,
-``--visualize`` and an orbax ``--init_from`` raise ``NotImplementedError``
-naming the slice that brings them; JAX's other flags are not parsed.
+``load_jax_state_dict`` read. The phases ``ecdp`` and ``ecdp-ef``,
+``--accum_iter``, ``--data_parallel``, ``--visualize`` and an orbax
+``--init_from`` raise ``NotImplementedError`` naming the slice that brings
+them; JAX's other flags are not parsed.
 """
 
 from __future__ import annotations
@@ -44,10 +53,19 @@ import torch
 
 from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
 from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+    ClipEncodingPipeline,
     EFImageNetSource,
+    NImageNetPairedSource,
     PretrainDataConfig,
     PretrainPipeline,
+    RawPretrainDataConfig,
+    RawPretrainPipeline,
     SyntheticPretrainSource,
+    SyntheticRawPretrainSource,
+)
+from eventpretrain_tpu_torch.models.clip import (
+    clip_vit_b16,
+    load_clip_visual_weights,
 )
 from eventpretrain_tpu_torch.models.pretrain_hub import (
     pretrain_hub_base,
@@ -72,12 +90,12 @@ from eventpretrain_tpu_torch.train.steps import (
 
 PHASES = ["rec", "rec-n", "adj", "_adj", "adj-n", "con", "con-n", "rec+con",
           "ecdp", "ecdp-ef"]
-# cli/pretrain.py:198-205; adj-n, con-n and the ECDP phases are refused
-PHASE_ALIASES = {"rec-n": "rec", "_adj": "adj"}
+# cli/pretrain.py:198-207; the ECDP phases are refused
+PHASE_ALIASES = {"rec-n": "rec", "_adj": "adj", "adj-n": "adj",
+                 "con-n": "con"}
+CLIP_IN_LOOP_PHASES = ("adj-n", "con-n")
 CON_PHASES = ("adj", "con", "rec+con")
 _REFUSED_PHASES = {
-    "adj-n": "slice 4b (CLIP in the loop on raw N-ImageNet events)",
-    "con-n": "slice 4b (CLIP in the loop on raw N-ImageNet events)",
     "ecdp": "slice 5 (the ECDP baseline)",
     "ecdp-ef": "slice 5 (the ECDP baseline)",
 }
@@ -95,8 +113,18 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("pretrain")
     p.add_argument("--pr_phase", default="rec", choices=PHASES)
     p.add_argument("--dataset", default="synthetic",
-                   choices=["synthetic", "ef_imagenet"])
+                   choices=["synthetic", "ef_imagenet", "n_imagenet"])
     p.add_argument("--data_root", default=None)
+    p.add_argument("--n_imagenet_root", default=None,
+                   help="raw N-ImageNet event .npz tree (adj-n/con-n)")
+    p.add_argument("--imagenet_root", default=None,
+                   help="paired ImageNet JPEG tree (adj-n/con-n)")
+    p.add_argument("--clip_weights", default=None,
+                   help="OpenAI CLIP ViT-B/16 checkpoint for in-loop "
+                        "encoding; random init with a warning if omitted")
+    p.add_argument("--fix_events_num", type=int, default=30000)
+    p.add_argument("--pretrain_num_classes", type=int, default=None,
+                   help="limit N-ImageNet classes (reference num_classes)")
     p.add_argument("--model_size", default="small", choices=["small", "base"])
     p.add_argument("--num_bins", type=int, default=5)
     p.add_argument("--input_size", type=int, default=224)
@@ -214,8 +242,36 @@ def make_queue(args, hub, device, sd) -> QueueState:
                       device=device)
 
 
+def raw_source(args):
+    """The raw event source of ``adj-n``/``con-n`` (cli/pretrain.py:
+    223-246): the synthetic one or raw N-ImageNet with its images."""
+    if args.dataset == "synthetic":
+        return SyntheticRawPretrainSource(n=max(args.batch_size * 4, 32),
+                                          seed=args.seed)
+    if not (args.n_imagenet_root and args.imagenet_root):
+        raise SystemExit("adj-n/con-n need --n_imagenet_root and "
+                         "--imagenet_root")
+    return NImageNetPairedSource(args.n_imagenet_root, args.imagenet_root,
+                                 num_classes=args.pretrain_num_classes)
+
+
+def build_clip(dtype, device, weights: str | None = None) -> torch.nn.Module:
+    """CLIP ViT-B/16 in the compute dtype from seed 0 (cli/pretrain.py:
+    270-292), filled from the OpenAI checkpoint ``weights`` when given
+    (``--clip_weights``); frozen."""
+    clip = clip_vit_b16(dtype=dtype, device=device,
+                        generator=torch.Generator().manual_seed(0))
+    if weights:
+        load_clip_visual_weights(weights, clip)
+    else:
+        print("[warn] --clip_weights not given: in-loop CLIP encoder is "
+              "randomly initialized (smoke-run mode)")
+    return clip.requires_grad_(False)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    clip_in_loop = args.pr_phase in CLIP_IN_LOOP_PHASES
     args.pr_phase = PHASE_ALIASES.get(args.pr_phase, args.pr_phase)
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -223,20 +279,29 @@ def main(argv=None):
     need_decoder = args.pr_phase in ("rec", "rec+con")
     contrastive = args.pr_phase in CON_PHASES
 
-    if args.dataset == "synthetic":
-        source = SyntheticPretrainSource(
-            n=max(args.batch_size * 4, 32), size=args.input_size,
-            num_bins=args.num_bins, seed=args.seed,
-        )
+    clip = None
+    if clip_in_loop:
+        source = raw_source(args)
+        cfg = RawPretrainDataConfig(
+            num_bins=args.num_bins, input_size=args.input_size,
+            crop_min=args.crop_min, fix_events_num=args.fix_events_num)
+        clip = build_clip(dtype, device, args.clip_weights)
     else:
-        if not args.data_root:
-            raise SystemExit("--data_root required for ef_imagenet")
-        source = EFImageNetSource(args.data_root, pr_phase=args.pr_phase)
-    cfg = PretrainDataConfig(
-        pr_phase=args.pr_phase, num_bins=args.num_bins,
-        input_size=args.input_size, crop_min=args.crop_min,
-        transfer_dtype="bfloat16" if args.bf16 else "float32",
-    )
+        if args.dataset == "synthetic":
+            source = SyntheticPretrainSource(
+                n=max(args.batch_size * 4, 32), size=args.input_size,
+                num_bins=args.num_bins, seed=args.seed,
+            )
+        else:
+            if not args.data_root:
+                raise SystemExit("--data_root required for ef_imagenet")
+            source = EFImageNetSource(args.data_root,
+                                      pr_phase=args.pr_phase)
+        cfg = PretrainDataConfig(
+            pr_phase=args.pr_phase, num_bins=args.num_bins,
+            input_size=args.input_size, crop_min=args.crop_min,
+            transfer_dtype="bfloat16" if args.bf16 else "float32",
+        )
 
     factory = {"small": pretrain_hub_small, "base": pretrain_hub_base}
     hub = factory[args.model_size](
@@ -298,9 +363,17 @@ def main(argv=None):
     path = os.path.join(args.output_dir, "checkpoint.pth")
     for epoch in range(args.epochs):
         t0 = time.time()
-        pipe = PretrainPipeline(source, cfg, args.batch_size, train=True,
-                                seed=args.seed + epoch,
-                                num_workers=args.num_workers, device=device)
+        if clip_in_loop:
+            pipe = ClipEncodingPipeline(
+                RawPretrainPipeline(source, cfg, args.batch_size,
+                                    train=True, seed=args.seed + epoch,
+                                    num_workers=args.num_workers,
+                                    device=device), clip)
+        else:
+            pipe = PretrainPipeline(source, cfg, args.batch_size, train=True,
+                                    seed=args.seed + epoch,
+                                    num_workers=args.num_workers,
+                                    device=device)
         state, metrics = train_one_epoch(step, state, pipe, epoch=epoch,
                                          print_freq=args.print_freq)
         record = {"epoch": epoch,

@@ -92,16 +92,17 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with f32 parameters, computed in ``dtype``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, padding: int = 0, *, dtype=torch.float32,
-                 device=None):
+                 stride: int, padding: int = 0, *, bias: bool = True,
+                 dtype=torch.float32, device=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, device=device, dtype=torch.float32)
+                         padding, bias=bias, device=device,
+                         dtype=torch.float32)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:

@@ -18,6 +18,7 @@ from eventpretrain_tpu.models.vit import ViT as JViT
 from eventpretrain_tpu.ops import masking as jmask
 from eventpretrain_tpu.train.state import merge_params
 from eventpretrain_tpu_torch.models.decoder import RecDecoder
+from eventpretrain_tpu_torch.models.layers import init_weights
 from eventpretrain_tpu_torch.models.pretrain_hub import PrHub
 from eventpretrain_tpu_torch.models.vit import ViT
 
@@ -140,3 +141,42 @@ def torch_batch(batch, keys):
         if k in out:
             out[k] = out[k].long()
     return out
+
+
+def zero_gradient_keys(name):
+    """Parameters whose gradient is zero up to rounding, which Adam scales
+    to a whole step of either sign: the attention's key bias (softmax
+    ignores it) and the backbone's final LayerNorm bias (a constant a
+    feature, which the projector's first BatchNorm removes)."""
+    return name.endswith("attn.qkv.bias") or name == "backbone.norm_layer.bias"
+
+
+def hold_params(hub, want, lr_sum, frozen_init):
+    """Every parameter at 1e-4 of its scale (the zero-gradient ones within
+    two steps' size); ``frozen_init``'s parameters as they were, bit for
+    bit."""
+    for n, p in hub.named_parameters():
+        got, w = p.detach().numpy().copy(), want[n].copy()
+        if n in frozen_init:
+            assert np.array_equal(got, frozen_init[n]), n
+        if zero_gradient_keys(n):
+            sl = (slice(got.shape[0] // 3, 2 * got.shape[0] // 3)
+                  if n.endswith("qkv.bias") else slice(None))
+            assert np.abs(got[sl] - w[sl]).max() <= 2 * lr_sum, n
+            got[sl] = w[sl] = 0.0
+        assert rel_err(got, w) <= STEP_REL, (n, rel_err(got, w))
+
+
+def tiny_cli_hub(num_bins=5, frame_chans=1, with_decoder=True,
+                 with_heads=False, bn_groups=1, *, dtype, device, generator,
+                 input_size, **_):
+    """The CLI's hub factory at tiny widths, 196 patches (the CLIP grid)."""
+    hub = port_hub(with_decoder, bn_groups, input_size=input_size,
+                   patch_size=16, with_heads=with_heads, dtype=dtype,
+                   device=device, clip_dim=512)
+    init_weights(hub, generator)
+    return hub
+
+
+CLI_COMMON = ["--device", "cpu", "--no-bf16", "--batch_size", "8",
+              "--epochs", "1", "--num_workers", "0", "--print_freq", "2"]

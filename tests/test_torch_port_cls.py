@@ -46,6 +46,8 @@ from eventpretrain_tpu_torch.ops.fused_attn_layer import fused_ln_attn_layer
 from eventpretrain_tpu_torch.ops.fused_mlp import fused_ln_mlp
 from eventpretrain_tpu_torch.ops.splat import splat
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 TINY = dict(embed_dim=128, depth=2, num_heads=4, input_size=64)
 NUM_CLASSES = 3
 CANVAS = (48, 48)

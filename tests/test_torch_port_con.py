@@ -34,12 +34,12 @@ from eventpretrain_tpu_torch.data import pretrain_pipeline as tpipe
 from eventpretrain_tpu_torch.models.layers import (
     GroupedBatchNorm,
     ViTBlock,
-    init_weights,
 )
 from eventpretrain_tpu_torch.objectives import contrastive as tcon
 from eventpretrain_tpu_torch.train import optim as toptim
 
 from tests._con_port import (
+    CLI_COMMON,
     CLIP_DIM,
     CLIP_TOKENS,
     EMBED,
@@ -49,7 +49,9 @@ from tests._con_port import (
     numpy_batch,
     port_hub,
     queue_buffer,
+    tiny_cli_hub,
 )
+from tests._port_threads import one_torch_thread  # noqa: F401
 
 # f32 on both sides; the InfoNCE losses sum over at most a few hundred
 # terms in other orders
@@ -349,28 +351,13 @@ def test_ef_imagenet_source_reads_clip_embeddings_like_jax(tmp_path, phase):
 # ------------------------------------------------------------------ CLI
 
 
-def _tiny_cli_hub(num_bins=5, frame_chans=1, with_decoder=True,
-                  with_heads=False, bn_groups=1, *, dtype, device, generator,
-                  input_size, **_):
-    """The CLI's hub factory at tiny widths, 196 patches (the CLIP grid)."""
-    hub = port_hub(with_decoder, bn_groups, input_size=input_size,
-                   patch_size=16, with_heads=with_heads, dtype=dtype,
-                   device=device, clip_dim=512)
-    init_weights(hub, generator)
-    return hub
-
-
-CLI_COMMON = ["--device", "cpu", "--no-bf16", "--batch_size", "8",
-              "--epochs", "1", "--num_workers", "0", "--print_freq", "2"]
-
-
 def test_cli_chains_the_stages_through_init_from(tmp_path, monkeypatch):
     """rec -> adj -> con (queue) -> con again, each from the last one's
     checkpoint: stage 2 leaves the frozen trunk as stage 1 wrote it bit
     for bit and moves its norm_layer; the checkpoints hold the projectors'
     BatchNorm buffers and the queue, and the next stage seeds its queue
     from them."""
-    monkeypatch.setattr(cli, "pretrain_hub_small", _tiny_cli_hub)
+    monkeypatch.setattr(cli, "pretrain_hub_small", tiny_cli_hub)
     runs = {}
     for name, phase, extra in (
             ("rec", "rec", []),
@@ -407,8 +394,6 @@ def test_cli_chains_the_stages_through_init_from(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--pr_phase", "adj-n"], NotImplementedError),
-    (["--pr_phase", "con-n"], NotImplementedError),
     (["--pr_phase", "ecdp"], NotImplementedError),
     (["--pr_phase", "con", "--accum_iter", "2"], NotImplementedError),
     (["--pr_phase", "con", "--data_parallel"], NotImplementedError),
@@ -418,9 +403,9 @@ def test_cli_chains_the_stages_through_init_from(tmp_path, monkeypatch):
     (["--pr_phase", "con", "--input_size", "32"], ValueError),
     (["--pr_phase", "con", "--use_queue", "--queue_length", "20"],
      ValueError),
-], ids=["adj-n", "con-n", "ecdp", "accum_iter", "data_parallel", "visualize",
+], ids=["ecdp", "accum_iter", "data_parallel", "visualize",
         "orbax", "patches", "queue_length"])
 def test_cli_refuses_what_the_port_lacks(monkeypatch, tmp_path, argv, error):
-    monkeypatch.setattr(cli, "pretrain_hub_small", _tiny_cli_hub)
+    monkeypatch.setattr(cli, "pretrain_hub_small", tiny_cli_hub)
     with pytest.raises(error):
         cli.main(argv + CLI_COMMON + ["--output_dir", str(tmp_path)])

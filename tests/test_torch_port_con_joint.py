@@ -33,6 +33,7 @@ from tests._con_port import (
     rel_err,
     torch_batch,
 )
+from tests._port_threads import one_torch_thread  # noqa: F401
 
 
 class _CapturingState(TrainState):

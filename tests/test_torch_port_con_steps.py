@@ -27,6 +27,7 @@ from eventpretrain_tpu_torch.train.state import TrainState
 from eventpretrain_tpu_torch.train.steps import make_con_step
 
 from tests._con_port import (
+    hold_params,
     jax_hub,
     jax_variables,
     numpy_batch,
@@ -36,36 +37,13 @@ from tests._con_port import (
     rel_err,
     torch_batch,
 )
+from tests._port_threads import one_torch_thread  # noqa: F401
 
 QUEUE_LEN = 8  # two batches of 4: the pointer wraps within 3 steps
 
 
 def _schedule():
     return toptim.cosine_warmup_schedule(1e-3, 1e-5, 1, 3, 2)
-
-
-def _zero_gradient_keys(name):
-    """Parameters whose gradient is zero up to rounding, which Adam scales
-    to a whole step of either sign: the attention's key bias (softmax
-    ignores it) and the backbone's final LayerNorm bias (a constant a
-    feature, which the projector's first BatchNorm removes)."""
-    return name.endswith("attn.qkv.bias") or name == "backbone.norm_layer.bias"
-
-
-def _hold_params(hub, want, lr_sum, frozen_init):
-    """Every parameter at 1e-4 of its scale (the zero-gradient ones within
-    two steps' size); ``frozen_init``'s parameters as they were, bit for
-    bit."""
-    for n, p in hub.named_parameters():
-        got, w = p.detach().numpy().copy(), want[n].copy()
-        if n in frozen_init:
-            assert np.array_equal(got, frozen_init[n]), n
-        if _zero_gradient_keys(n):
-            sl = (slice(got.shape[0] // 3, 2 * got.shape[0] // 3)
-                  if n.endswith("qkv.bias") else slice(None))
-            assert np.abs(got[sl] - w[sl]).max() <= 2 * lr_sum, n
-            got[sl] = w[sl] = 0.0
-        assert rel_err(got, w) <= STEP_REL, (n, rel_err(got, w))
 
 
 @pytest.mark.parametrize("phase", ["adj", "con", "con_queue"])
@@ -116,7 +94,7 @@ def test_con_step_trajectory_matches_jax(phase):
                                        rtol=STEP_REL, err_msg=f"{i} {k}")
     lr_sum = sum(_schedule()(i) for i in range(3))
     want = export_torch_state_dict(jstate.params, jstate.batch_stats)
-    _hold_params(hub, want, lr_sum, frozen_init)
+    hold_params(hub, want, lr_sum, frozen_init)
     for k, v in hub.named_buffers():
         if k not in want:
             continue

@@ -85,6 +85,8 @@ from eventpretrain_tpu_torch.train.steps import (
     make_semseg_train_step,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 H, W, NB = 200, 300, 5  # ragged tiles: 2x3 of 128x128 over 200x300
 CHUNK = 256
 # the tiny hub: 32x32 input, patch 8 -> 4x4 tokens; every block is a

@@ -64,6 +64,8 @@ from eventpretrain_tpu_torch.train.steps import (
     make_cls_train_step,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 # the tiny hub: 32x32 input, patch 8 -> 16 tokens; drop-path rates
 # linspace(0, 0.1, 3) = (0, 0.05, 0.1): blocks 1 and 2 draw, 2 calls each
 TINY = dict(input_size=32, patch_size=8, embed_dim=128, depth=3, num_heads=4,

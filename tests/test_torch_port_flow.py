@@ -64,6 +64,8 @@ from eventpretrain_tpu_torch.train.steps import (
     make_flow_train_step,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 H, W, NB = 200, 300, 5  # 2x3 tiles of 128, the last row and column partial
 # the tiny hub: 32x32 input, patch 8 -> 4x4 tokens, every block a pyramid
 # level; drop-path rates linspace(0, 0.1, 4): blocks 1-3 draw, 2 calls each

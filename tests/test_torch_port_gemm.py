@@ -19,6 +19,8 @@ from eventpretrain_tpu_torch.ops import common as cm
 from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
 from eventpretrain_tpu_torch.ops import fused_mlp as km
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 DTYPES = [torch.float32, torch.bfloat16]
 # f32: the same products, sums in another order (the token split). bf16:
 # the same rounding points, so a rounded intermediate may land one ulp

@@ -1,5 +1,7 @@
 """The port imports torch and never jax: the machine with the card has no
-jax, and the port must not lean on the JAX package."""
+jax, and the port must not lean on the JAX package. It has no PIL and no
+h5py either, so every port module imports without them too (the readers
+that need them import them when they open a file)."""
 
 import ast
 import pathlib
@@ -8,6 +10,8 @@ import subprocess
 import sys
 
 import pytest
+
+from tests._port_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "eventpretrain_tpu_torch"
@@ -30,14 +34,16 @@ def test_every_module_imports_without_jax():
     assert "eventpretrain_tpu_torch.cli.serve" in mods
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'eventpretrain_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventpretrain_tpu', 'PIL',\n"
+        "             'h5py'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m, v in sys.modules.items() if v is not None\n"
         "             and m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                     'eventpretrain_tpu'))\n"
+        "                                     'eventpretrain_tpu', 'PIL',\n"
+        "                                     'h5py'))\n"
         "assert not bad, bad\n"
         "print('OK', len(sys.modules))\n"
     )
@@ -123,6 +129,17 @@ def test_contrastive_slice_modules_are_covered(module):
     BatchNorm and heads, the contrastive steps, the CLIP embeddings' data
     path and the stage CLI) are among those the import check above loads
     with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
+
+
+@pytest.mark.parametrize("module", [
+    "models.clip", "data.pretrain_pipeline", "cli.pretrain", "ckpt.bridge",
+])
+def test_clip_in_the_loop_modules_are_covered(module):
+    """Slice 4b-ii's modules (the CLIP tower, the raw N-ImageNet pipeline
+    and the in-loop encoding, the adj-n/con-n CLI, the CLIP weight bridge)
+    are among those the import check above loads with jax, PIL and h5py
+    blocked."""
     assert f"eventpretrain_tpu_torch.{module}" in _port_modules()
 
 

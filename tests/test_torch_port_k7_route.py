@@ -27,6 +27,8 @@ from eventpretrain_tpu_torch.ops.fused_mha import (
     supports_fused_mha,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 BF16 = torch.bfloat16
 GRID_L = (1, 16, 49, 196, 255, 256, 257, 1024)
 GRID_D = (8, 20, 24, 32, 64, 160, 168, 192, 256)

@@ -40,6 +40,8 @@ from eventpretrain_tpu_torch.ops.splat import (
 )
 from eventpretrain_tpu_torch.train import loop as tloop
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 # K7 (L, H, D) cases: a multiple of 8, a wider head, ragged L with D = 24
 K7_SHAPES = [(16, 2, 8), (24, 4, 16), (33, 2, 24)]
 K7_BATCH = 2

@@ -28,6 +28,8 @@ from eventpretrain_tpu_torch.data import dense_pipeline as tdp
 from eventpretrain_tpu_torch.data import event_transforms as tet
 from eventpretrain_tpu_torch.data.io_pool import make_pool, map_loads
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 # the sensor of the bucketer cases: 2x3 tiles of 128, the last row and
 # column partial, as MVSEC's 260x346 is
 H, W = 200, 300

@@ -43,6 +43,8 @@ from eventpretrain_tpu_torch.ops.splat import (
     voxelize_batch,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 
 def _events(rng, b, e, h, w, *, margin=3.0):
     """xytp events with fractional and out-of-frame coordinates, sorted t,

@@ -19,6 +19,8 @@ import torch
 from eventpretrain_tpu.ops.pallas_common import ln_forward as jax_ln_forward
 from eventpretrain_tpu_torch.ops import common as cm
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 EPS = 1e-6
 # the card's block slots at each kernel: 132 SMs x 2 (LayerNorm backward)
 # or x 8 (column sum), and smaller and odd cards

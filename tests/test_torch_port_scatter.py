@@ -32,6 +32,8 @@ from eventpretrain_tpu_torch.ops.splat import (
     voxelize_batch_scatter_reference,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 H100_L2 = 50 * 2**20  # torch.cuda.get_device_properties().L2_cache_size
 H100_SMS = 132
 # the sequential scatter on both sides, the same f32 weights; the adds run

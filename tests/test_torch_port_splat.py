@@ -37,6 +37,8 @@ from eventpretrain_tpu_torch.ops.splat_tiled import (
     splat_tiled_plan,
 )
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 # splat_mxu carries the f32 weights as a bf16 hi+lo pair (~1e-5 relative
 # to the weights, a few weights per cell); the replays sum in exact f32
 SPLAT_ATOL = 1e-4

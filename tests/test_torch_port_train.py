@@ -51,6 +51,8 @@ from eventpretrain_tpu_torch.train import optim as toptim
 from eventpretrain_tpu_torch.train.state import TrainState
 from eventpretrain_tpu_torch.train.steps import make_rec_step
 
+from tests._port_threads import one_torch_thread  # noqa: F401
+
 # the tiny hub: 32x32 input, patch 8 -> 16 patches, 4 kept
 ENC = dict(input_size=32, patch_size=8, embed_dim=128, depth=4, num_heads=4,
            num_bins=5, out_indices=(1, 3))
@@ -496,4 +498,4 @@ def test_cli_runs_four_steps_and_writes_a_loadable_checkpoint(tmp_path):
         torch.testing.assert_close(hub.state_dict()[k], v.cpu(), rtol=0,
                                    atol=0)
     with pytest.raises(NotImplementedError):
-        main(["--pr_phase", "con-n", "--device", "cpu"])
+        main(["--pr_phase", "ecdp", "--device", "cpu"])
