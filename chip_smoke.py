@@ -157,6 +157,34 @@ backend's refusal of a shape, which its timing records as null):
    both ways). ``cli.pretrain.main`` for one epoch of ``adj-n`` from phase
    5's checkpoint, then one of ``con-n`` from adj-n's; no CLIP tensor in
    either checkpoint.
+5i. Slice 5a, the ConvViT backbone (conv stages on cuDNN, channels-last,
+   under 11 ViT blocks that take the kernels), and slice 4b-i, gradient
+   accumulation: ``pretrain_hub_convvit_base`` (depths 2, 2, 11, widths
+   256, 384, 768, the base decoder) at full width, bf16, seed 0, B=64 of
+   phase 5's rec batches with their replayed masks: 10 rec steps on the
+   kernel path (K1/K2 19 + 19 a step: 11 encoder blocks at (64, 49, 768),
+   8 decoder blocks at (64, 196, 512)) and 10 on the plain path, the loss
+   gap (2%), the step's ms and peak memory on both paths and a profiled
+   step's busy share; one rec step of the first batch against four
+   microsteps of its B=16 quarters under ``accum_steps`` 4 from the same
+   init (no parameter moves in microsteps 1-3, the quarters' mean loss
+   within 2% of the whole batch's, the mean gradient within
+   ``ACCUM_GRAD_REL``, the update within 2 lr with its sign equal on
+   ``ACCUM_SIGN_SHARE`` of the components); ConvViT-S (widths 128, 256,
+   384) with drop-path 0.1 (all 11 ViT blocks take K4), 3 steps each of
+   cls at B=64 (K3 1, K4 11 + 11 a step), semseg at DSEC's 440x640 and
+   flow at MVSEC's 260x346 at B=16 (K6 1, K4 11 + 11), pipeline and steps
+   counted, replayed drop-path (28 masks a step, the conv blocks' first)
+   and dropout masks, against the plain path on the same batches (2% at
+   each step; flow at its first, its later losses finite), their step ms
+   on both paths; each task's eval step counted on its own (K3 or K6 1,
+   K1/K2 11 each) against the plain path's on the same weights (2%; the
+   semseg decode head's logits); then
+   ``cli.pretrain.main --backbone convvit`` for ``rec`` and ``con`` from
+   its checkpoint (ConvViT-B, 4 steps each), ``cli.finetune_cls.main
+   --backbone convvit --accum_iter 2`` (2 microsteps of 64, one update),
+   and ``cli.finetune_semseg.main`` and ``cli.finetune_flow.main`` with no
+   ``--backbone`` flag (their default, ConvViT-S).
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -184,11 +212,14 @@ backend's refusal of a shape, which its timing records as null):
    beside K3's ``voxelize_batch``; K6 also at MVSEC's shape on the first
    flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
    10 calls (the card alone); K1/K2 also at the contrastive stages'
-   (64, 196, 768) H12, forward and backward, beside ``sdpa``; K3 also at
+   (64, 196, 768) H12 and ConvViT-S rec's encoder (64, 49, 384) H12 and
+   decoder (64, 196, 256) H8, forward and backward, beside ``sdpa``; K4
+   also at ConvViT-S's dense (16, 196, 384) H12; K3 also at
    the raw pretrain path's (64, 5, 30300) on 224x224x5; the rec and
    cls train steps' ms, samples/s and peak memory on both paths (and the
    semseg step's at B=16, the adj, con, rec+con, adj-n and con-n steps' at
-   B=64, 5 steps a turn; the flow step's from phase 5e), CLIP's device ms
+   B=64, 5 steps a turn; the flow step's from phase 5e; the ConvViT
+   steps' and the accumulation check's from phase 5i), CLIP's device ms
    a batch, the cls, dense and raw pretrain pipelines' host time per
    batch, phase 5f's host builds and phase 5d's delivered
    samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
@@ -3223,6 +3254,408 @@ def phase_clip_cli(dev) -> None:
                         for k in sd), "the checkpoint holds CLIP tensors")
 
 
+# --------------------------------------------------------------- phase 5i
+#
+# slice 5a: the ConvViT backbone (models/convvit.py), the dense CLIs'
+# default. Two conv stages (cuDNN's convs, channels-last) under 11 ViT
+# blocks that take the kernels: rec pretraining of ConvViT-B (K1/K2 at the
+# encoder's (64, 49, 768) and the decoder's (64, 196, 512), both ways),
+# and ConvViT-S finetuning with drop-path 0.1 (rates linspace(0, 0.1,
+# 15)[4:] > 0, so all 11 ViT blocks take K4 both ways); then slice 4b-i,
+# gradient accumulation, against one step of the whole batch.
+
+CONVVIT_DEPTH = 11  # the ViT stage's blocks (models/convvit.py)
+CONVVIT_REC_BLOCKS = CONVVIT_DEPTH + 8
+CONVVIT_FT_STEPS = 3
+CONVVIT_TIMED_REPS = 2  # finetune steps timed a turn, four turns a path
+CONVVIT_DROP = 0.1
+# two DropPath calls per block with a rate above 0, in call order: the conv
+# blocks' (sites 1-3 of the 15; conv_block2 is sized with depths[0]), then
+# the ViT blocks' (sites 4-14)
+CONVVIT_SITE_RATES = np.repeat(np.linspace(0, CONVVIT_DROP, 15)[1:], 2)
+ACCUM_ITER = 4
+# bf16 on both sides, the same replayed masks: the whole batch's gradient
+# and the mean of its four quarters' sum the same terms in other orders
+# and round in other places, so the mean gradient stays within 5e-2 of the
+# whole batch's (global norm of the difference over the norm); Adam's first
+# update is lr * g / (|g| + eps), so a component whose gradient is rounding
+# may take the other sign: parameters within 2 lr of each other, and the
+# update's sign equal on 95% of the components at least
+ACCUM_GRAD_REL = 5e-2
+ACCUM_SIGN_SHARE = 0.95
+ACCUM_LR = 1e-4
+
+
+def build_convvit_rec_hub(dev):
+    from eventpretrain_tpu_torch.models.pretrain_hub import (
+        pretrain_hub_convvit_base,
+    )
+
+    return pretrain_hub_convvit_base(
+        dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(0), input_size=TRAIN_INPUT)
+
+
+def phase_convvit_rec(dev) -> dict:
+    """10 rec steps of ConvViT-B at B=64 on the kernel path (counted) and
+    10 on the plain path from the same init, batches and masks; the loss
+    gap, the launches (K1/K2 19 + 19 a step), and the step's ms, peak
+    memory and busy share."""
+    hub = build_convvit_rec_hub(dev)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    batches = rec_batches(dev, TRAIN_STEPS)
+    state, step = make_trainer(hub, TRAIN_STEPS)
+    pstate, pstep = make_trainer(plain_hub, TRAIN_STEPS)
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    gap = loss_gap("convvit rec", kern, plain, LOSS_GAP_REL)
+    log(f"convvit rec launches over {TRAIN_STEPS} steps {launches}")
+    n = CONVVIT_REC_BLOCKS
+    require_launches("convvit rec", launches, TRAIN_STEPS, {
+        "fused_ln_attn_layer": n, "fused_ln_attn_layer_bwd": n,
+        "fused_ln_mlp": n, "fused_ln_mlp_bwd": n})
+    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
+                             batches, reps=REPS // 4)
+    record = {"model": "pretrain_hub_convvit_base", "batch": TRAIN_BATCH,
+              "reps": REPS // 2, "loss_gap": gap, "losses": kern,
+              **step_record(runs, peak, TRAIN_BATCH)}
+    record["profile"] = device_profile(lambda: step(state, batches[0]), 3)
+    log(f"convvit rec step B={TRAIN_BATCH}: kernel {record['step_ms']:.4g} "
+        f"ms ({record['peak_step_gib']:.3g} GiB above resident), plain "
+        f"{record['plain_step_ms']:.4g} ms")
+    log_profile(f"convvit rec step B={TRAIN_BATCH}", record["profile"])
+    del plain_hub, pstate, pstep
+    return dict(launches=launches, record=record, batches=batches)
+
+
+def phase_convvit_accum(dev, rec) -> dict:
+    """ConvViT-B from seed 0: one rec step of the first B=64 batch, and
+    four microsteps of its B=16 quarters under ``accum_steps`` 4, the same
+    replayed masks; no parameter moves in microsteps 1-3, the mean of the
+    quarters' losses is the whole batch's, the mean gradient is the whole
+    batch's within ``ACCUM_GRAD_REL``, and the update agrees."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        global_grad_norm,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import make_rec_step
+
+    batch = rec["batches"][0]
+    runs = {}
+    hub0 = build_convvit_rec_hub(dev)
+    for k in (1, ACCUM_ITER):
+        hub = copy.deepcopy(hub0)
+        state = TrainState(hub, build_optimizer(hub, weight_decay=0.05,
+                                                accum_steps=k),
+                           lambda s: ACCUM_LR)
+        step = make_rec_step(hub, patch_size=16, num_patches=hub.num_patches)
+        init = [p.detach().clone() for p in hub.parameters()]
+        grads = {}
+        if k == 1:
+            apply = state.apply_gradients
+
+            def capture(apply=apply, hub=hub, grads=grads):
+                grads.update((id(p), p.grad.detach().clone())
+                             for p in hub.parameters())
+                return apply()
+
+            state.apply_gradients = capture
+        n = TRAIN_BATCH // k
+        losses = []
+        for i in range(k):
+            micro = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
+            losses.append(float(step(state, micro)["loss"]))
+            if i < k - 1:
+                require(state.step == 0 and all(
+                    torch.equal(p, q) for p, q in zip(hub.parameters(),
+                                                      init)),
+                        f"microstep {i + 1} of {k} moved a parameter")
+        require(state.step == 1, f"{k} microsteps made {state.step} updates")
+        if k > 1:  # the mean gradient the update saw
+            opt_params = [p for g in state.optimizer.param_groups
+                          for p in g["params"]]
+            grads.update((id(p), g)
+                         for p, g in zip(opt_params, state.acc_grads))
+        runs[k] = dict(loss=sum(losses) / k, init=init,
+                       grads=[grads[id(p)] for p in hub.parameters()],
+                       params=[p.detach().clone() for p in hub.parameters()])
+        del hub, state, step
+    del hub0
+    one, acc = runs[1], runs[ACCUM_ITER]
+    # early rec gradients reach ~1e20, whose squares overflow f32: the
+    # norms are the overflow-safe ones of the clip
+    grad_rel = (global_grad_norm([a - o for a, o in zip(acc["grads"],
+                                                          one["grads"])])
+                / global_grad_norm(one["grads"])).item()
+    d1 = torch.cat([(p - q).flatten()
+                    for p, q in zip(one["params"], one["init"])])
+    da = torch.cat([(p - q).flatten()
+                    for p, q in zip(acc["params"], acc["init"])])
+    param_gap = (da - d1).abs().max().item()
+    moved = d1 != 0
+    sign_share = ((torch.sign(da) == torch.sign(d1)) & moved).sum().item() \
+        / max(moved.sum().item(), 1)
+    loss_rel = abs(acc["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"accumulation, ConvViT-B: {ACCUM_ITER} microsteps of "
+        f"B={TRAIN_BATCH // ACCUM_ITER} against one step of B={TRAIN_BATCH}: "
+        f"mean loss {acc['loss']:.5f} vs {one['loss']:.5f} (rel "
+        f"{loss_rel:.3g}), mean gradient's rel err {grad_rel:.3g} (tol "
+        f"{ACCUM_GRAD_REL}), parameters' largest gap {param_gap:.3g} (lr "
+        f"{ACCUM_LR}), update sign equal on {sign_share:.4f} of "
+        f"{int(moved.sum())} moved components (tol {ACCUM_SIGN_SHARE})")
+    require(loss_rel <= LOSS_GAP_REL, "the quarters' mean loss is not the "
+                                      "whole batch's")
+    require(grad_rel <= ACCUM_GRAD_REL, "the accumulated gradient leaves the "
+                                        "whole batch's")
+    require(param_gap <= 2 * ACCUM_LR * (1 + 1e-3),
+            "the accumulated update leaves the whole batch's")
+    require(sign_share >= ACCUM_SIGN_SHARE,
+            "the accumulated update's signs leave the whole batch's")
+    return {"accum_iter": ACCUM_ITER, "micro_batch": TRAIN_BATCH // ACCUM_ITER,
+            "loss_rel": loss_rel, "grad_rel_err": grad_rel,
+            "param_max_gap": param_gap, "sign_share": sign_share,
+            "tol": {"grad_rel": ACCUM_GRAD_REL, "sign": ACCUM_SIGN_SHARE,
+                    "param": 2 * ACCUM_LR}}
+
+
+def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
+                         held: int = CONVVIT_FT_STEPS) -> dict:
+    """``CONVVIT_FT_STEPS`` steps of ``make(hub)`` on the pipeline's batches
+    inside a counted run, each with replayed drop-path (and with
+    ``dropout`` the heads' dropout) masks, then the same batches through
+    the plain hub from the same init; the loss gap of the first ``held``
+    steps (2%), the others' losses finite."""
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    (state, step), (pstate, pstep) = make(hub), make(plain_hub)
+    rng = np.random.default_rng(17)
+    keep_prob = (1.0 - CONVVIT_SITE_RATES)[:, None]
+    reset_counts()
+    batches, kern = [], []
+    t0 = time.perf_counter()
+    for batch in pipe:
+        b = batch["evg"].shape[0]
+        dev = batch["evg"].device
+        batch["drop_path_keep"] = torch.from_numpy(
+            rng.random((len(CONVVIT_SITE_RATES), b)) < keep_prob).to(dev)
+        if dropout:
+            batch["dropout_keep"] = [
+                torch.from_numpy(rng.random((b, c)) < 1.0 - DENSE_DROP).to(
+                    dev) for c in DENSE_DROPOUT_CHANNELS]
+        batches.append(batch)
+        kern.append(step(state, batch))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    wall = time.perf_counter() - t0
+    kern = [{k: float(v) for k, v in m.items()} for m in kern]
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, f"{what}: the plain path launched a "
+                                       "kernel")
+    log(f"{what}: {len(batches)} batches of evg "
+        f"{tuple(batches[0]['evg'].shape)}, pipeline + steps {wall:.1f} s; "
+        f"launches {launches}")
+    gap = loss_gap(what, kern[:held], plain[:held], LOSS_GAP_REL)
+    rest = [m["loss"] for m in kern[held:] + plain[held:]]
+    if rest:
+        log(f"{what}: later losses, kernel then plain path: "
+            + " ".join(f"{v:.5f}" for v in rest))
+    require(all(np.isfinite(rest)), f"non-finite {what} loss")
+    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
+                             batches, reps=CONVVIT_TIMED_REPS)
+    return dict(hub=hub, plain_hub=plain_hub, state=state, step=step,
+                batches=batches, launches=launches, loss_gap=gap,
+                record={"batch": batch["evg"].shape[0],
+                        "reps": 2 * CONVVIT_TIMED_REPS,
+                        "loss_gap": gap, "losses": [m["loss"] for m in kern],
+                        "drop_path_rate": CONVVIT_DROP,
+                        **step_record(runs, peak, batch["evg"].shape[0])})
+
+
+def phase_convvit_finetune(dev) -> dict:
+    """ConvViT-S, full width, drop-path 0.1, bf16, seed 0: cls at B=64 on
+    N-Cars-shaped streams (K3 1, K4 11 + 11 a step), semseg at DSEC's
+    440x640 and flow at MVSEC's 260x346 at B=16 (K6 1, K4 11 + 11), each
+    against the plain path; then each task's eval step, counted on its own
+    (K3 or K6 1, K1/K2 11 each), against the plain path's."""
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_convvit_small
+    from eventpretrain_tpu_torch.models.dense_hub import (
+        dense_hub_convvit_small,
+    )
+    from eventpretrain_tpu_torch.train.steps import (
+        make_cls_eval_step,
+        make_flow_eval_step,
+        make_semseg_eval_step,
+    )
+
+    kw = dict(dtype=torch.bfloat16, device=dev,
+              generator=torch.Generator().manual_seed(0),
+              drop_path_rate=CONVVIT_DROP)
+    n = CONVVIT_FT_STEPS
+    k4 = {"fused_attn_layer": CONVVIT_DEPTH,
+          "fused_attn_layer_bwd": CONVVIT_DEPTH}
+    out, launches = {}, {}
+    for task in ("cls", "semseg", "flow"):
+        if task == "cls":
+            hub = cls_hub_convvit_small(NUM_CLASSES, NUM_BINS, **kw)
+            run = convvit_finetune_run(
+                "convvit cls", hub,
+                lambda h: make_cls_trainer(h, dev, n),
+                cls_pipeline(dev, True, n), dropout=False)
+            want = {"splat": 1, **k4}
+            val_pipe = cls_pipeline(dev, False, 1)
+            evals = [make_cls_eval_step(h) for h in (run["hub"],
+                                                     run["plain_hub"])]
+        else:
+            classes = DENSE_CLASSES if task == "semseg" else 2
+            hub = dense_hub_convvit_small(classes, NUM_BINS,
+                                          decode_dropout=DENSE_DROP, **kw)
+            make = make_dense_trainer if task == "semseg" else \
+                make_flow_trainer
+            pipeline = dense_pipeline if task == "semseg" else flow_pipeline
+            # flow's first gradients reach ~1e25 (LayerNorms over empty
+            # patches); the clip scales them to 3, and Adam's first update,
+            # lr * g / (|g| + eps), gives a component whose clipped
+            # gradient is rounding a whole step of either sign on the two
+            # paths: from the second step on they are two trajectories
+            # (a 2.0% gap at step 3 on an H100), so its first step is
+            # held
+            run = convvit_finetune_run(
+                f"convvit {task}", hub, lambda h, make=make: make(h, dev, n),
+                pipeline(dev, True, n), dropout=True,
+                held=n if task == "semseg" else 1)
+            want = {"splat_tiled": 1, **k4}
+            val_pipe = pipeline(dev, False, 1)
+            if task == "semseg":
+                evals = [make_semseg_eval_step(
+                    h, num_classes=DENSE_CLASSES, ignore_label=DENSE_IGNORE)
+                    for h in (run["hub"], run["plain_hub"])]
+            else:
+                evals = [make_flow_eval_step(h)
+                         for h in (run["hub"], run["plain_hub"])]
+        require_launches(f"convvit {task}", run["launches"], n, want)
+        launches[f"convvit_{task}_train"] = run["launches"]
+        # the eval steps on the same weights: the kernel path's
+        run["plain_hub"].load_state_dict(run["hub"].state_dict())
+        reset_counts()
+        val = next(iter(val_pipe))
+        got = evals[0](val)
+        torch.cuda.synchronize()
+        ev = read_counts()
+        ref = evals[1](val)
+        require(read_counts() == ev, f"convvit {task} eval: the plain path "
+                                     "launched a kernel")
+        if task == "semseg":
+            # three steps from a random init leave the classes' logits
+            # close, so a pixel's argmax flips on rounding: hold the
+            # decode head's logits (2% of their scale) and count the pixels
+            total = int(got.sum())
+            with torch.no_grad():
+                logits = [h(val["evg"])[2].float()
+                          for h in (run["hub"], run["plain_hub"])]
+            rel = ((logits[0] - logits[1]).abs().max()
+                   / logits[1].abs().max()).item()
+            labelled = int((val["label"] != DENSE_IGNORE).sum())
+            summary = {"pixels": total, "logits_rel": rel,
+                       "moved": int((got - ref).abs().sum()) / 2
+                       / max(total, 1)}
+            log(f"convvit semseg eval: {summary}")
+            require(total == labelled == int(ref.sum()),
+                    "the convvit semseg eval did not count every labelled "
+                    "pixel once")
+            require(rel <= LOSS_GAP_REL, "the convvit semseg eval's logits "
+                                         "leave the plain path's")
+        else:
+            got = {k: float(v) for k, v in got.items()}
+            ref = {k: float(v) for k, v in ref.items()}
+            key = "loss" if task == "cls" else "epe_sum"
+            summary = {"value": got[key], "plain": ref[key],
+                       "rel": abs(got[key] - ref[key]) / abs(ref[key])}
+            require(all(np.isfinite(list(got.values()))),
+                    f"non-finite convvit {task} eval")
+            require(summary["rel"] <= LOSS_GAP_REL,
+                    f"the convvit {task} eval leaves the plain path's")
+        log(f"convvit {task} eval: {summary}; launches {ev}")
+        eval_want = {"fused_ln_attn_layer": CONVVIT_DEPTH,
+                     "fused_ln_mlp": CONVVIT_DEPTH,
+                     ("splat" if task == "cls" else "splat_tiled"): 1}
+        require_launches(f"convvit {task} eval", ev, 1, eval_want)
+        launches[f"convvit_{task}_eval"] = ev
+        run["record"].update(model=f"{task} hub, convvit_small", eval=summary)
+        out[task] = run["record"]
+        log(f"convvit {task} step B={run['record']['batch']}: kernel "
+            f"{run['record']['step_ms']:.4g} ms, plain "
+            f"{run['record']['plain_step_ms']:.4g} ms")
+        del run, evals, hub
+    return dict(records=out, launches=launches)
+
+
+def phase_convvit_cli(dev) -> None:
+    """The CLIs with ConvViT: ``pretrain --backbone convvit`` for ``rec``
+    (ConvViT-B, 4 steps) and ``con`` from its checkpoint (4 steps),
+    ``finetune_cls --backbone convvit --accum_iter 2`` (ConvViT-S, 2
+    microsteps of 64, 1 update), and ``finetune_semseg`` and
+    ``finetune_flow`` with no ``--backbone`` flag (their default,
+    ConvViT-S; JAX's smoke sources, 2 steps each)."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.finetune_cls import main as cls_main
+    from eventpretrain_tpu_torch.cli.finetune_flow import main as flow_main
+    from eventpretrain_tpu_torch.cli.finetune_semseg import main as seg_main
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    common = ["--device", str(dev), "--print_freq", "1", "--epochs", "1"]
+    prev = None
+    for phase in ("rec", "con"):
+        out = os.path.join("build", f"chip_smoke_convvit_{phase}")
+        t0 = time.perf_counter()
+        state = pretrain_main(common + [
+            "--pr_phase", phase, "--backbone", "convvit", "--model_size",
+            "base", "--batch_size", str(TRAIN_BATCH), "--output_dir", out,
+            "--input_size", str(TRAIN_INPUT)]
+            + (["--init_from", prev] if prev else []))
+        prev = os.path.join(out, "checkpoint.pth")
+        sd = load_torch_checkpoint(prev)
+        log(f"cli.pretrain --backbone convvit --pr_phase {phase}: "
+            f"{state.step} steps in {time.perf_counter() - t0:.1f} s")
+        require(state.step == 4, f"the convvit {phase} CLI ran {state.step} "
+                                 "steps, expected 4")
+        require(set(sd) == set(state.module.state_dict()),
+                "the checkpoint's keys are not the hub's")
+    t0 = time.perf_counter()
+    res = cls_main(common + [
+        "--backbone", "convvit", "--accum_iter", "2", "--batch_size",
+        str(TRAIN_BATCH), "--output_dir",
+        os.path.join("build", "chip_smoke_convvit_cls")])
+    state = res["state"]
+    log(f"cli.finetune_cls --backbone convvit --accum_iter 2: {state.step} "
+        f"update, val acc1 {res['val']['acc1']:.1f}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(state.step == 1 and state.micro_step == 0,
+            "two microsteps of --accum_iter 2 did not make one update")
+    require(np.isfinite(res["val"]["loss"]), "non-finite cls CLI loss")
+    for name, main_fn in (("semseg", seg_main), ("flow", flow_main)):
+        t0 = time.perf_counter()
+        reset_counts()
+        res = main_fn(common + [
+            "--dataset", "synthetic", "--batch_size", str(DENSE_BATCH),
+            "--output_dir", os.path.join("build", f"chip_smoke_{name}_cv")])
+        launches = read_counts()
+        state = res["state"]
+        backbone = type(state.module.backbone).__name__
+        log(f"cli.finetune_{name} (default backbone, {backbone}): "
+            f"{state.step} steps in {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
+        require(backbone == "ConvViT", f"finetune_{name}'s default backbone "
+                                       f"is {backbone}")
+        require(state.step == 2, f"the {name} CLI ran {state.step} steps")
+        require(launches["fused_attn_layer_bwd"] == 2 * CONVVIT_DEPTH,
+                f"the {name} CLI's train steps did not take K4")
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -4015,7 +4448,7 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, smi) -> None:
+                 dense, flow, host, loops, con, clip, convvit, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -4025,7 +4458,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     b = big_inputs[0].shape[0]
     gen = torch.Generator().manual_seed(4)
 
-    def k1_case(l, c, h, backward):
+    def k1_case(l, c, h, backward, b):
         a = k1_args(gen, b, l, c, dev)
         kw = dict(num_heads=h, scale=(c // h) ** -0.5)
         if not backward:
@@ -4041,7 +4474,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                 lambda: ka.fused_ln_attn_layer_bwd_reference(*a[:6], dy,
                                                              **kw))
 
-    def k4_case(l, c, h, backward):
+    def k4_case(l, c, h, backward, b):
         a = k4_args(gen, b, l, c, dev)
         kw = dict(num_heads=h, scale=(c // h) ** -0.5)
         if not backward:
@@ -4056,7 +4489,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                                           kw["scale"]),
                 lambda: ka.fused_attn_layer_bwd_reference(*a[:4], dy, **kw))
 
-    def k2_case(l, c, backward):
+    def k2_case(l, c, backward, b):
         a = k2_args(gen, b, l, c, dev)
         if not backward:
             return (lambda: km.fused_ln_mlp(*a),
@@ -4065,7 +4498,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         return (lambda: km._ln_backward_cuda(*a[:6], dy, 1e-6),
                 lambda: km.fused_ln_mlp_bwd_reference(*a[:6], dy))
 
-    def k5_case(l, c, backward):
+    def k5_case(l, c, backward, b):
         a = k5_args(gen, b, l, c, dev)
         if not backward:
             return (lambda: km.fused_mlp(*a),
@@ -4074,7 +4507,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         return (lambda: km._backward_cuda(*a[:4], dy),
                 lambda: km.fused_mlp_bwd_reference(*a[:4], dy))
 
-    def sdpa(l, c, h, backward):
+    def sdpa(l, c, h, backward, b):
         q, kk, v = (torch.randn((b, h, l, c // h), generator=gen).to(
             dev, torch.bfloat16) for _ in range(3))
         if not backward:
@@ -4085,7 +4518,7 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         return cuda_ms(lambda: torch.autograd.grad(out, (q, kk, v), do,
                                                    retain_graph=True))
 
-    def mha(l, c, h, backward):
+    def mha(l, c, h, backward, b):
         """K4's function as one PyTorch call: multi_head_attention_forward
         (packed in-projection, attention, out-projection) on the same
         bf16 operands, tokens (L, B, C)."""
@@ -4108,13 +4541,16 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                                                    retain_graph=True))
 
     # (name, source, also, replaces, shapes, backward, case, work, library):
-    # the first shape is the row's; the others follow in "shapes". K1/K2
+    # a shape is (L, C, heads) at the main path's batch, or (L, C, heads,
+    # batch); the first is the row's, the others follow in "shapes". K1/K2
     # forward keep slice 1's shape (ViT-S, L=196, C=384) and add the rec
-    # path's two and the contrastive stages' dense ViT-B (L=196, C=768);
-    # their backward rows are the rec path's decoder and encoder blocks
-    # and the dense ViT-B of stage 3. K4 runs in the cls train step (ViT-S,
-    # and ViT-B for the CLI's --finetune run), K5 in the attention-map
-    # forward (ViT-S) and up to the widest C of its gate.
+    # path's two, the contrastive stages' dense ViT-B (L=196, C=768) and
+    # ConvViT-S rec's encoder (L=49, C=384) and decoder (L=196, C=256, 8
+    # heads); their backward rows are the rec paths' decoder and encoder
+    # blocks and the dense ViT-B of stage 3. K4 runs in the cls train step
+    # (ViT-S, and ViT-B for the CLI's --finetune run) and in ConvViT-S's
+    # dense steps at B=16, K5 in the attention-map forward (ViT-S) and up
+    # to the widest C of its gate.
     csrc = "eventpretrain_tpu_torch/csrc/"
     attn = [csrc + "ln_gemm.cu"]
     attn_bwd = [csrc + "ln_gemm.cu", csrc + "ln_bwd.cu", csrc + "attention.cu"]
@@ -4122,26 +4558,29 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         ("fused_ln_attn_layer", csrc + "attention.cu",
          attn + [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_attn_layer.py:357",
-         [(196, 384, 12), (49, 768, 12), (196, 512, 16), (196, 768, 12)],
+         [(196, 384, 12), (49, 768, 12), (196, 512, 16), (196, 768, 12),
+          (49, 384, 12), (196, 256, 8)],
          False, k1_case, k1_work, None),
         ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:386",
-         [(196, 512, 16), (49, 768, 12), (196, 768, 12)], True, k1_case,
-         k1_work, None),
+         [(196, 512, 16), (49, 768, 12), (196, 768, 12), (49, 384, 12),
+          (196, 256, 8)], True, k1_case, k1_work, None),
         ("fused_ln_mlp", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:329",
-         [(196, 384, 0), (49, 768, 0), (196, 512, 0), (196, 768, 0)], False,
-         k2_case, k2_work, None),
+         [(196, 384, 0), (49, 768, 0), (196, 512, 0), (196, 768, 0),
+          (49, 384, 0), (196, 256, 0)], False, k2_case, k2_work, None),
         ("fused_ln_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:356 (C<=512), :416 (C=768)",
-         [(196, 512, 0), (49, 768, 0), (196, 768, 0)], True, k2_case,
-         k2_work, None),
+         [(196, 512, 0), (49, 768, 0), (196, 768, 0), (49, 384, 0),
+          (196, 256, 0)], True, k2_case, k2_work, None),
         ("fused_attn_layer", csrc + "attention.cu", attn,
          "eventpretrain_tpu/ops/fused_attn_layer.py:202",
-         [(196, 384, 12), (196, 768, 12)], False, k4_case, k1_work, mha),
+         [(196, 384, 12), (196, 768, 12), (196, 384, 12, DENSE_BATCH)],
+         False, k4_case, k1_work, mha),
         ("fused_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:220",
-         [(196, 384, 12), (196, 768, 12)], True, k4_case, k1_work, mha),
+         [(196, 384, 12), (196, 768, 12), (196, 384, 12, DENSE_BATCH)],
+         True, k4_case, k1_work, mha),
         ("fused_mlp", csrc + "ln_gemm.cu", [],
          "eventpretrain_tpu/ops/fused_mlp.py:152",
          [(196, 384, 0), (196, 512, 0)], False, k5_case, k2_work, None),
@@ -4184,28 +4623,28 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         names = ((GRAD_NAMES if ln else BARE_GRAD_NAMES) if backward
                  else ("y",))
         per_shape = []
-        for l, c, h in shapes:
-            fn, plain = (case(l, c, h, backward) if h
-                         else case(l, c, backward))
-            # held at the main path's batch before it is timed
-            shape = [b, l, c] + ([h] if h else [])
+        for l, c, h, bb in ((*sh, b)[:4] for sh in shapes):
+            fn, plain = (case(l, c, h, backward, bb) if h
+                         else case(l, c, backward, bb))
+            # held at the path's batch before it is timed
+            shape = [bb, l, c] + ([h] if h else [])
             err, rel, tol = hold(name, shape, fn(), plain(), names)
             prev = errs[name]
             errs[name] = ((max(prev[0], err), SUBBLOCK_REL_TOL,
                            max(prev[2], rel)) if backward
                           else (max(prev[0], err), max(prev[1], tol)))
             ms, plain_ms = time_pair(fn, plain)
-            flops, nbytes = (work(b, l, c, h, backward, ln) if h
-                             else work(b, l, c, backward, ln))
+            flops, nbytes = (work(bb, l, c, h, backward, ln) if h
+                             else work(bb, l, c, backward, ln))
             bms, bby = bound(flops, nbytes)
             entry = {"shape": shape, "max_abs_err": err, "max_rel_err": rel,
                      "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
                      "flops": flops, "bytes": nbytes,
-                     "library_ms": (library(l, c, h, backward)
+                     "library_ms": (library(l, c, h, backward, bb)
                                     if library else None)}
             if h:
-                entry["sdpa_ms"] = sdpa(l, c, h, backward)
+                entry["sdpa_ms"] = sdpa(l, c, h, backward, bb)
             per_shape.append(entry)
             del fn, plain
             log(f"time {name} {entry['shape']}: kernel {ms:.4g} ms, plain "
@@ -4338,6 +4777,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # slice 3b's flow step (phase 5e) and the host half (phase 5f)
     e2e["flow_train"] = {**flow["record"], "card": smi}
     e2e["host_build"] = {**host, "card": smi}
+    # slice 5a's ConvViT steps and slice 4b-i's accumulation (phase 5i)
+    for key, rec in convvit.items():
+        e2e[f"convvit_{key}"] = {**rec, "card": smi}
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -4422,13 +4864,24 @@ def main() -> int:
     launches.update(clip["launches"])
     phase_clip_cli(dev)
     mark("CLIP in the loop")
+    cv_rec = phase_convvit_rec(dev)
+    launches["convvit_rec_train"] = cv_rec["launches"]
+    convvit = {"rec_train": cv_rec["record"],
+               "accumulation": phase_convvit_accum(dev, cv_rec)}
+    del cv_rec
+    cv_ft = phase_convvit_finetune(dev)
+    launches.update(cv_ft["launches"])
+    convvit.update({f"{task}_train": rec
+                    for task, rec in cv_ft["records"].items()})
+    phase_convvit_cli(dev)
+    mark("ConvViT and accumulation")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, smi)
+                 dense, flow, host, loops, con, clip, convvit, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,12 @@ statistics (``running_mean``, ``running_var``, flax's ``batch_stats``) are
 buffers of the port's dense heads and projectors and load with the
 parameters (``export_torch_state_dict(params, batch_stats)``); only
 ``num_batches_tracked``, which the port's flax-style BatchNorm does not
-keep, is skipped when a file carries it. A JAX ``QueueState`` (the
+keep, is skipped when a file carries it. The ConvViT's tensors need
+nothing of their own: the exporter writes the depthwise kernels in OIHW
+(C, 1, 5, 5) and ``fpn.1``'s ``batch_stats`` as its running statistics
+(torch_export.py:31-37). ``init_from_state_dict`` is the finetune CLIs'
+``--finetune``, JAX's ``init_variables_from(strict_backbone=True)``
+(torch_import.py:316-349). A JAX ``QueueState`` (the
 contrastive stages' queue, a (C, L, K) buffer and a pointer) crosses as
 its two arrays (``load_jax_queue``). The CLIP tower, which the exporter
 does not cover, crosses by ``clip_state_dict_from_flax``: the inverse of
@@ -48,6 +53,28 @@ def load_jax_state_dict(module: nn.Module, flat: Mapping) -> nn.Module:
     }
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def init_from_state_dict(module: nn.Module, sd: Mapping,
+                         strict_prefix: str = "backbone.") -> list[str]:
+    """Fill ``module`` from ``sd`` as ``init_variables_from(...,
+    strict_backbone=True)`` fills a flax tree: each parameter and buffer
+    the file holds (the BatchNorm running statistics among them) is
+    copied, a shape that differs raises (torch's "size mismatch"), a
+    parameter under ``strict_prefix`` that the file lacks raises
+    ``KeyError``, and every other tensor the file lacks keeps its init.
+    Returns the file's keys the module has no use for (a rec
+    checkpoint's decoders, say)."""
+    own = module.state_dict()
+    missing = [n for n, _ in module.named_parameters()
+               if n.startswith(strict_prefix) and n not in sd]
+    if missing:
+        raise KeyError(f"{len(missing)} parameters under {strict_prefix!r} "
+                       f"are not in the file (e.g. {missing[:4]})")
+    module.load_state_dict({k: v for k, v in sd.items() if k in own},
+                           strict=False)
+    return sorted(k for k in sd if k not in own
+                  and not k.endswith("num_batches_tracked"))
 
 
 def load_jax_queue(buffer, ptr, device="cpu") -> QueueState:

@@ -1,13 +1,13 @@
 """Classification finetune entry point: raw events to a trained classifier.
 
 Counterpart of eventpretrain_tpu/cli/finetune_cls.py for ``--backbone
-vit`` on the synthetic and N-Cars sources, with the JAX CLI's flags and
-defaults for the data, the optimizer (AdamW (0.9, 0.999), the global-norm
-clip, layer decay) and the regularizers (drop-path 0.1, label smoothing
-0.1). ``--device`` picks the card (default) or the CPU; on ``cuda`` the
-hub computes in bf16 (``--bf16``, the default), which routes the blocks
-that fuse through K1/K2 and, in training, the drop-path blocks' attention
-through K4.
+vit`` and ``convvit`` on the synthetic and N-Cars sources, with the JAX
+CLI's flags and defaults for the data, the optimizer (AdamW (0.9, 0.999),
+the global-norm clip, layer decay) and the regularizers (drop-path 0.1,
+label smoothing 0.1). ``--device`` picks the card (default) or the CPU;
+on ``cuda`` the hub computes in bf16 (``--bf16``, the default), which
+routes the blocks that fuse through K1/K2 and, in training, the drop-path
+blocks' attention through K4.
 
     python -m eventpretrain_tpu_torch.cli.finetune_cls --dataset synthetic \\
         --model_size small --epochs 2
@@ -15,12 +15,17 @@ through K4.
         --train_root N-Cars/train --val_root N-Cars/test \\
         --finetune results/pretrain/checkpoint.pth
 
-``--finetune`` loads the backbone of a ``checkpoint.pth`` that
-``cli/pretrain.py`` (or this CLI) wrote, strictly: every backbone tensor
-must be there. Each epoch appends a JSON line to ``<output_dir>/log.txt``
-and writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
-"epoch": ...}``. Flags of the JAX CLI that the port does not have yet
-raise an error naming the slice that brings them.
+``--finetune`` initialises the hub from a ``checkpoint.pth`` that
+``cli/pretrain.py`` (or this CLI) wrote, as JAX's ``init_backbone_from``
+does: every backbone parameter must be in the file, the file's tensors the
+hub lacks (a rec checkpoint's decoders) go unused, and the rest of the hub
+takes the file's tensors where it has them. ``--accum_iter k`` averages
+the gradients of k batches into each update (the base lr scales with
+``batch_size * k``, the schedule counts updates). Each epoch appends a
+JSON line to ``<output_dir>/log.txt`` and writes
+``<output_dir>/checkpoint.pth`` as ``{"model": state_dict, "epoch":
+...}``. Flags of the JAX CLI that the port does not have yet raise an
+error naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ import time
 
 import torch
 
-from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+from eventpretrain_tpu_torch.ckpt.bridge import (
+    init_from_state_dict,
+    load_torch_checkpoint,
+)
 from eventpretrain_tpu_torch.data.cls_pipeline import (
     ClsDataConfig,
     ClsPipeline,
@@ -40,6 +48,8 @@ from eventpretrain_tpu_torch.data.cls_pipeline import (
     SyntheticClsSource,
 )
 from eventpretrain_tpu_torch.models.cls_hub import (
+    cls_hub_convvit_base,
+    cls_hub_convvit_small,
     cls_hub_vit_base,
     cls_hub_vit_small,
 )
@@ -62,7 +72,6 @@ BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp", "vit_mem",
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
 _NOT_PORTED = {
-    "accum_iter": (int, 1, "slice 4b (optax.MultiSteps accumulation)"),
     "resume": (str, None, "slice 6 (checkpoint resume)"),
     "auto_resume": (bool, False, "slice 6 (checkpoint resume)"),
     "visualize": (bool, False, "slice 6 (viz/panels.py, needs matplotlib)"),
@@ -100,6 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--canvas", type=int, nargs=2, default=(128, 128),
                    metavar=("H", "W"))
     p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--accum_iter", type=int, default=1,
+                   help="microsteps of --batch_size an update averages")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--warmup_epochs", type=float, default=5)
     p.add_argument("--blr", type=float, default=2.5e-4)
@@ -147,10 +158,13 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_cls: --{name} is not ported yet; it "
                              f"comes with {slice_}")
-    if args.backbone != "vit":
+    if args.backbone not in ("vit", "convvit"):
         raise SystemExit(f"finetune_cls: --backbone {args.backbone} is not "
                          "ported yet; it comes with slice 5 (the other "
                          "backbones)")
+    if args.accum_iter < 1:
+        raise SystemExit(f"finetune_cls: --accum_iter must be at least 1, "
+                         f"got {args.accum_iter}")
     if args.dataset not in ("synthetic", "n_cars"):
         raise SystemExit(f"finetune_cls: --dataset {args.dataset} is not "
                          "ported yet; it comes with slice 5 (the other cls "
@@ -180,16 +194,14 @@ def make_sources(args):
 
 
 def load_backbone(hub, path: str) -> None:
-    """Load the ``backbone.*`` tensors of a ``{"model": state_dict}``
-    checkpoint into ``hub.backbone``; a missing or unexpected backbone key
-    raises."""
-    sd = load_torch_checkpoint(path)
-    prefix = "backbone."
-    backbone = {k[len(prefix):]: v for k, v in sd.items()
-                if k.startswith(prefix)}
-    if not backbone:
-        raise ValueError(f"{path}: no backbone.* tensors")
-    hub.backbone.load_state_dict(backbone, strict=True)
+    """Initialise ``hub`` from a ``{"model": state_dict}`` checkpoint as
+    ``init_backbone_from(strict_backbone=True)`` does
+    (``ckpt.bridge.init_from_state_dict``): a backbone parameter the file
+    lacks raises ``KeyError``, a shape that differs raises, the file's
+    keys the hub lacks go unused."""
+    unused = init_from_state_dict(hub, load_torch_checkpoint(path))
+    if unused:
+        print(f"{path}: {len(unused)} tensors unused (e.g. {unused[:4]})")
 
 
 def main(argv=None) -> dict:
@@ -209,8 +221,13 @@ def main(argv=None) -> dict:
         event_noise=args.val_event_noise,
         resize_mode=args.resize_mode,
     )
-    factory = {"small": cls_hub_vit_small, "base": cls_hub_vit_base}
-    hub = factory[args.model_size](
+    factory = {
+        ("vit", "small"): cls_hub_vit_small,
+        ("vit", "base"): cls_hub_vit_base,
+        ("convvit", "small"): cls_hub_convvit_small,
+        ("convvit", "base"): cls_hub_convvit_base,
+    }[(args.backbone, args.model_size)]
+    hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,
         generator=torch.Generator().manual_seed(args.seed),
         input_size=args.input_size, drop_path_rate=args.drop_path_rate,
@@ -227,13 +244,17 @@ def main(argv=None) -> dict:
           f"f32 parameters, {device})")
 
     steps_per_epoch = max(len(train_src) // args.batch_size, 1)
-    lr = args.lr if args.lr is not None else args.blr * args.batch_size / 256
-    schedule = cosine_warmup_schedule(lr, args.min_lr, args.warmup_epochs,
-                                      args.epochs, steps_per_epoch)
+    eff_batch = args.batch_size * args.accum_iter
+    lr = args.lr if args.lr is not None else args.blr * eff_batch / 256
+    # the schedule counts updates (finetune_cls.py:361-370)
+    schedule = cosine_warmup_schedule(
+        lr, args.min_lr, args.warmup_epochs, args.epochs,
+        max(steps_per_epoch // args.accum_iter, 1))
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=12,
+        num_layers=13 if args.backbone == "convvit" else 12,
+        backbone_type=args.backbone, accum_steps=args.accum_iter,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)
     train_step = make_cls_train_step(

@@ -1,7 +1,8 @@
 """Optical-flow finetune entry point: raw events to a trained flow hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_flow.py for ``--backbone
-vit``, with the JAX CLI's flags and defaults for the data (30000 events a
+convvit`` (the default, as in JAX) and ``vit``, with the JAX CLI's flags
+and defaults for the data (30000 events a
 sample, MVSEC's outdoor_day2 to train and the three indoor_flying splits to
 validate), the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
 gradient clip 3.0), the loss (decode 1.0 and auxiliary 0.4 times the L1 on
@@ -11,9 +12,9 @@ hub with two output channels, the flow's (u, v). ``--device`` picks the
 card (default) or the CPU; on ``cuda`` the hub computes in bf16
 (``--bf16``, the default).
 
-    python -m eventpretrain_tpu_torch.cli.finetune_flow --backbone vit \\
+    python -m eventpretrain_tpu_torch.cli.finetune_flow \\
         --dataset synthetic --epochs 2 --batch_size 4
-    python -m eventpretrain_tpu_torch.cli.finetune_flow --backbone vit \\
+    python -m eventpretrain_tpu_torch.cli.finetune_flow \\
         --dataset mvsec --data_root /path/to/mvsec
 
 The synthetic source is JAX's smoke data (a 64x64 sensor, 4000 events a
@@ -50,6 +51,8 @@ from eventpretrain_tpu_torch.data.dense_pipeline import (
     SyntheticDenseSource,
 )
 from eventpretrain_tpu_torch.models.dense_hub import (
+    dense_hub_convvit_base,
+    dense_hub_convvit_small,
     dense_hub_vit_base,
     dense_hub_vit_small,
 )
@@ -147,7 +150,7 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_flow: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone != "vit":
+    if args.backbone not in ("vit", "convvit"):
         raise SystemExit(f"finetune_flow: --backbone {args.backbone} is not "
                          "ported yet; it comes with slice 5 (the other "
                          "backbones)")
@@ -212,8 +215,13 @@ def main(argv=None) -> dict:
         sensor_height=sensor_hw[0], sensor_width=sensor_hw[1],
         crop_min=args.crop_min, label_size=sensor_hw,
     )
-    factory = {"small": dense_hub_vit_small, "base": dense_hub_vit_base}
-    hub = factory[args.model_size](
+    factory = {
+        ("vit", "small"): dense_hub_vit_small,
+        ("vit", "base"): dense_hub_vit_base,
+        ("convvit", "small"): dense_hub_convvit_small,
+        ("convvit", "base"): dense_hub_convvit_base,
+    }[(args.backbone, args.model_size)]
+    hub = factory(
         2, args.num_bins, dtype=dtype, device=device,
         generator=torch.Generator().manual_seed(args.seed),
         sample_mode=args.sample_mode, decode_dropout=args.decode_dropout,
@@ -234,7 +242,8 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=12,
+        num_layers=13 if args.backbone == "convvit" else 12,
+        backbone_type=args.backbone,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)
     train_step = make_flow_train_step(

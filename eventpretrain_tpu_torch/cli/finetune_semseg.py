@@ -2,21 +2,25 @@
 segmentation hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
-vit`` on the synthetic source, with the JAX CLI's flags and defaults for
+convvit`` (the default, as in JAX) and ``vit`` on the synthetic source,
+with the JAX CLI's flags and defaults for
 the data, the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
 no gradient clip unless asked), the loss weights (decode 1.0, auxiliary
 0.4), ``--sample_mode`` and the regularizers (drop-path 0.1, the heads'
 dropout 0.1). ``--device`` picks the card (default) or the CPU; on
 ``cuda`` the hub computes in bf16 (``--bf16``, the default).
 
-    python -m eventpretrain_tpu_torch.cli.finetune_semseg --backbone vit \\
+    python -m eventpretrain_tpu_torch.cli.finetune_semseg \\
         --dataset synthetic --epochs 2 --batch_size 4
 
 As in JAX, the synthetic source has 5 classes and no ignore label (64x64
-sensor, 4000 events per sample). ``--finetune`` loads a ``checkpoint.pth``
-that a port CLI wrote: its ``backbone.*`` tensors strictly, and, when it
-holds them, the heads' tensors too, BatchNorm running statistics
-included. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
+sensor, 4000 events per sample). ``--finetune`` initialises the hub from a
+``checkpoint.pth`` that a port CLI wrote as JAX's
+``init_variables_from(strict_backbone=True)`` does: every backbone
+parameter must be in the file (a ConvViT rec checkpoint lacks the FPN's
+and raises, as in JAX), the tensors the hub lacks go unused, and the heads
+take the file's tensors, BatchNorm running statistics included, where it
+has them. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
 writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
 "epoch": ...}``. Flags of the JAX CLI that the port does not have yet
 raise an error naming the slice that brings them; DSEC and DDD17 wait for
@@ -32,7 +36,10 @@ import time
 
 import torch
 
-from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+from eventpretrain_tpu_torch.ckpt.bridge import (
+    init_from_state_dict,
+    load_torch_checkpoint,
+)
 from eventpretrain_tpu_torch.data.dense_pipeline import (
     DenseDataConfig,
     DensePipeline,
@@ -43,6 +50,8 @@ from eventpretrain_tpu_torch.eval.metrics import (
     miou_from_confusion,
 )
 from eventpretrain_tpu_torch.models.dense_hub import (
+    dense_hub_convvit_base,
+    dense_hub_convvit_small,
     dense_hub_vit_base,
     dense_hub_vit_small,
 )
@@ -139,7 +148,7 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_semseg: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone != "vit":
+    if args.backbone not in ("vit", "convvit"):
         raise SystemExit(f"finetune_semseg: --backbone {args.backbone} is "
                          "not ported yet; it comes with slice 5 (the other "
                          "backbones)")
@@ -167,21 +176,15 @@ def make_sources(args):
 
 
 def load_finetune(hub, path: str) -> None:
-    """Initialise ``hub`` from a ``{"model": state_dict}`` checkpoint: the
-    ``backbone.*`` tensors strictly, and the heads' tensors (BatchNorm
-    running statistics included) when the file holds any, strictly too."""
-    sd = load_torch_checkpoint(path)
-    parts = {}
-    for name in ("backbone", "decode_head", "auxiliary_head"):
-        prefix = f"{name}."
-        parts[name] = {k[len(prefix):]: v for k, v in sd.items()
-                       if k.startswith(prefix)
-                       and not k.endswith("num_batches_tracked")}
-    if not parts["backbone"]:
-        raise ValueError(f"{path}: no backbone.* tensors")
-    for name, tensors in parts.items():
-        if tensors:
-            getattr(hub, name).load_state_dict(tensors, strict=True)
+    """Initialise ``hub`` from a ``{"model": state_dict}`` checkpoint as
+    ``init_variables_from(strict_backbone=True)`` does
+    (``ckpt.bridge.init_from_state_dict``): a backbone parameter the file
+    lacks raises ``KeyError``, a shape that differs raises, the heads and
+    the BatchNorm statistics take what the file holds, and the file's
+    tensors the hub lacks go unused."""
+    unused = init_from_state_dict(hub, load_torch_checkpoint(path))
+    if unused:
+        print(f"{path}: {len(unused)} tensors unused (e.g. {unused[:4]})")
 
 
 def main(argv=None) -> dict:
@@ -201,8 +204,13 @@ def main(argv=None) -> dict:
         sensor_height=sensor_hw[0], sensor_width=sensor_hw[1],
         crop_min=args.crop_min, label_size=sensor_hw,
     )
-    factory = {"small": dense_hub_vit_small, "base": dense_hub_vit_base}
-    hub = factory[args.model_size](
+    factory = {
+        ("vit", "small"): dense_hub_vit_small,
+        ("vit", "base"): dense_hub_vit_base,
+        ("convvit", "small"): dense_hub_convvit_small,
+        ("convvit", "base"): dense_hub_convvit_base,
+    }[(args.backbone, args.model_size)]
+    hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,
         generator=torch.Generator().manual_seed(args.seed),
         sample_mode=args.sample_mode, decode_dropout=args.decode_dropout,
@@ -223,7 +231,8 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=12,
+        num_layers=13 if args.backbone == "convvit" else 12,
+        backbone_type=args.backbone,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)
     train_step = make_semseg_train_step(

@@ -1,4 +1,5 @@
-"""Pretrain entry point: the three stages of the paper on the ViT hubs.
+"""Pretrain entry point: the three stages of the paper on the ViT and
+ConvViT hubs (``--backbone``).
 
 Counterpart of eventpretrain_tpu/cli/pretrain.py for ``--pr_phase`` rec
 (stage 1, difference-guided masked modeling), adj (stage 2,
@@ -36,10 +37,14 @@ and seeds a ``--use_queue`` queue from the file's ``queue`` and
 run it writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
 "epoch": ...}`` (with the queue's ``queue`` and ``queue_ptr``), which
 the next stage's ``--init_from``, the serve loader and
-``load_jax_state_dict`` read. The phases ``ecdp`` and ``ecdp-ef``,
-``--accum_iter``, ``--data_parallel``, ``--visualize`` and an orbax
-``--init_from`` raise ``NotImplementedError`` naming the slice that brings
-them; JAX's other flags are not parsed.
+``load_jax_state_dict`` read. ``--accum_iter k`` averages the gradients of
+k batches of ``--batch_size`` into each update (``optax.MultiSteps``), as
+JAX does: the base lr scales with the effective batch ``batch_size * k``,
+the schedule counts updates (``steps // k`` an epoch), and the queue's
+length must be a multiple of the effective batch. The phases ``ecdp`` and
+``ecdp-ef``, ``--backbone swin``, ``--data_parallel``, ``--visualize`` and
+an orbax ``--init_from`` raise ``NotImplementedError`` naming the slice
+that brings them; JAX's other flags are not parsed.
 """
 
 from __future__ import annotations
@@ -69,6 +74,8 @@ from eventpretrain_tpu_torch.models.clip import (
 )
 from eventpretrain_tpu_torch.models.pretrain_hub import (
     pretrain_hub_base,
+    pretrain_hub_convvit_base,
+    pretrain_hub_convvit_small,
     pretrain_hub_small,
 )
 from eventpretrain_tpu_torch.objectives.contrastive import (
@@ -102,7 +109,6 @@ _REFUSED_PHASES = {
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
 _NOT_PORTED = {
-    "accum_iter": (int, 1, "slice 4b (optax.MultiSteps accumulation)"),
     "data_parallel": (bool, False, "slice 6 (torch.distributed; with it "
                       "the local queue and BatchNorm scopes)"),
     "visualize": (bool, False, "slice 6 (viz/panels.py)"),
@@ -125,6 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fix_events_num", type=int, default=30000)
     p.add_argument("--pretrain_num_classes", type=int, default=None,
                    help="limit N-ImageNet classes (reference num_classes)")
+    p.add_argument("--backbone", default="vit",
+                   choices=["vit", "convvit", "swin"])
     p.add_argument("--model_size", default="small", choices=["small", "base"])
     p.add_argument("--num_bins", type=int, default=5)
     p.add_argument("--input_size", type=int, default=224)
@@ -147,6 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch's BatchNorm statistics ('global')")
     p.add_argument("--temperature", type=float, default=0.07)
     p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--accum_iter", type=int, default=1,
+                   help="microsteps of --batch_size an update averages")
     p.add_argument("--epochs", type=int, default=400)
     p.add_argument("--warmup_epochs", type=float, default=40)
     p.add_argument("--blr", type=float, default=1e-3)
@@ -189,6 +199,13 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--pr_phase {args.pr_phase} is not ported yet; it comes with "
             f"{_REFUSED_PHASES[args.pr_phase]}")
+    if args.backbone == "swin":
+        raise NotImplementedError(
+            "--backbone swin is not ported yet; it comes with slice 5 (the "
+            "sparse Swin and its host planner)")
+    if args.accum_iter < 1:
+        raise ValueError(f"--accum_iter must be at least 1, got "
+                         f"{args.accum_iter}")
     for name, (_, default, slice_) in _NOT_PORTED.items():
         if getattr(args, name) != default:
             raise NotImplementedError(
@@ -223,11 +240,13 @@ def init_from_checkpoint(hub: torch.nn.Module, sd: dict) -> int:
 
 def make_queue(args, hub, device, sd) -> QueueState:
     """The queue (cli/pretrain.py:465-503): ``queue_length`` a multiple of
-    the batch, random normalised keys drawn from seed + 1 on ``device``,
-    or the checkpoint's ``queue`` and ``queue_ptr`` where it has them."""
-    if args.queue_length % args.batch_size:
+    the effective batch ``batch_size * accum_iter``, random normalised keys
+    drawn from seed + 1 on ``device``, or the checkpoint's ``queue`` and
+    ``queue_ptr`` where it has them."""
+    if args.queue_length % (args.batch_size * args.accum_iter):
         raise ValueError(f"--queue_length {args.queue_length} must be a "
-                         f"multiple of --batch_size {args.batch_size}")
+                         f"multiple of --batch_size {args.batch_size} times "
+                         f"--accum_iter {args.accum_iter}")
     if sd is not None and "queue" in sd:
         buf = sd["queue"].to(device=device, dtype=torch.float32)
         want = (hub.embed_dim, hub.num_patches, args.queue_length)
@@ -303,8 +322,13 @@ def main(argv=None):
             transfer_dtype="bfloat16" if args.bf16 else "float32",
         )
 
-    factory = {"small": pretrain_hub_small, "base": pretrain_hub_base}
-    hub = factory[args.model_size](
+    factory = {
+        ("vit", "small"): pretrain_hub_small,
+        ("vit", "base"): pretrain_hub_base,
+        ("convvit", "small"): pretrain_hub_convvit_small,
+        ("convvit", "base"): pretrain_hub_convvit_base,
+    }[(args.backbone, args.model_size)]
+    hub = factory(
         num_bins=args.num_bins, frame_chans=args.frame_chans,
         with_decoder=need_decoder, with_heads=contrastive, dtype=dtype,
         device=device,
@@ -334,13 +358,19 @@ def main(argv=None):
           f"trainable ({dtype} compute, f32 parameters, {device})")
 
     steps_per_epoch = max(len(source) // args.batch_size, 1)
-    lr = args.lr if args.lr is not None else args.blr * args.batch_size / 256
-    schedule = cosine_warmup_schedule(lr, args.min_lr, args.warmup_epochs,
-                                      args.epochs, steps_per_epoch)
+    eff_batch = args.batch_size * args.accum_iter
+    lr = args.lr if args.lr is not None else args.blr * eff_batch / 256
+    # the schedule counts updates (cli/pretrain.py:425-435)
+    schedule = cosine_warmup_schedule(
+        lr, args.min_lr, args.warmup_epochs, args.epochs,
+        max(steps_per_epoch // args.accum_iter, 1))
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.95),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=12, layer_grafted=args.use_layer_grafted,
+        # the ConvViT's stage-3 block ids reach 13 (cli/pretrain.py:443)
+        num_layers=13 if args.backbone == "convvit" else 12,
+        backbone_type=args.backbone, layer_grafted=args.use_layer_grafted,
+        accum_steps=args.accum_iter,
     )
     queue = (make_queue(args, hub, device, sd)
              if contrastive and args.use_queue else None)

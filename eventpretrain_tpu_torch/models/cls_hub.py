@@ -1,7 +1,9 @@
-"""Classification hub: ViT backbone -> mean pool -> linear head.
+"""Classification hub: ViT or ConvViT backbone -> mean pool -> linear head.
 
-Counterpart of eventpretrain_tpu/models/cls_hub.py:20-73 (the ViT hubs; the
-ConvViT, Swin, ECDP and MEM hubs wait for their backbones). The module's
+Counterpart of eventpretrain_tpu/models/cls_hub.py:20-95 (the ViT and
+ConvViT hubs; the Swin, ECDP and MEM hubs wait for their backbones). A
+ConvViT hub's backbone has no stage decoders (``with_rec_decoders=False``),
+and the pool is the mean over its 14^2 tokens, as the ViT's. The module's
 mode is flax's ``train`` flag: ``hub.train()`` activates dropout and
 stochastic depth (``drop_rate``, ``attn_drop_rate``, ``drop_path_rate``,
 passed to the factories), whose masks come from the
@@ -16,9 +18,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from eventpretrain_tpu_torch.models.convvit import (
+    convvit_base_patch16,
+    convvit_small_patch16,
+)
 from eventpretrain_tpu_torch.models.layers import Linear, init_weights
 from eventpretrain_tpu_torch.models.vit import (
-    ViT,
     vit_base_patch16,
     vit_small_patch16,
 )
@@ -28,12 +33,12 @@ class FtClsHub(nn.Module):
     """Mean-pooled tokens -> Linear(num_classes). The ECDP token-concat
     pool comes with the ECDP backbones."""
 
-    def __init__(self, backbone: ViT, num_classes: int):
+    def __init__(self, backbone: nn.Module, num_classes: int):
         super().__init__()
         self.backbone = backbone
         self.classify_head = Linear(
             backbone.embed_dim, num_classes, dtype=backbone.dtype,
-            device=backbone.patch_embed.proj.weight.device,
+            device=backbone.norm_layer.weight.device,
         )
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
@@ -76,3 +81,22 @@ def cls_hub_vit_base(num_classes: int, num_bins: int = 5, *,
     """ViT-B/16 hub, randomly initialised from ``generator``."""
     return _hub(vit_base_patch16, num_classes, num_bins, dtype, device,
                 generator, **bk)
+
+
+def cls_hub_convvit_small(num_classes: int, num_bins: int = 5, *,
+                          dtype=torch.float32, device="cuda",
+                          generator: Optional[torch.Generator] = None,
+                          **bk) -> FtClsHub:
+    """ConvViT-S hub without stage decoders (cls_hub.py:75-84), randomly
+    initialised from ``generator``."""
+    return _hub(convvit_small_patch16, num_classes, num_bins, dtype, device,
+                generator, with_rec_decoders=False, **bk)
+
+
+def cls_hub_convvit_base(num_classes: int, num_bins: int = 5, *,
+                         dtype=torch.float32, device="cuda",
+                         generator: Optional[torch.Generator] = None,
+                         **bk) -> FtClsHub:
+    """ConvViT-B hub without stage decoders (cls_hub.py:87-95)."""
+    return _hub(convvit_base_patch16, num_classes, num_bins, dtype, device,
+                generator, with_rec_decoders=False, **bk)

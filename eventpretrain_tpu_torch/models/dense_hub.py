@@ -1,8 +1,12 @@
-"""Dense-task hub: the ViT backbone's pyramid -> UPerHead + FCNHead.
+"""Dense-task hub: the ViT or ConvViT backbone's pyramid -> UPerHead +
+FCNHead.
 
-Counterpart of eventpretrain_tpu/models/dense_hub.py:20-89 (``FtDenseHub``,
-``dense_hub_vit_small``, ``dense_hub_vit_base``); the ConvViT, Swin, ECDP
-and MEM hubs wait for their backbones. The module's mode is flax's
+Counterpart of eventpretrain_tpu/models/dense_hub.py:20-118 (``FtDenseHub``
+and the ViT and ConvViT factories); the Swin, ECDP and MEM hubs wait for
+their backbones. A ViT's pyramid is four 14^2 maps of its width; a
+ConvViT's is its two stage maps (56^2, 28^2), the 14^2 tokens and the FPN
+level (6^2, the backbone's ``with_fpn``), of widths (d0, d1, d2, d2), and
+its BatchNorm moves like the heads'. The module's mode is flax's
 ``train`` flag: ``hub.train()`` activates drop-path, the heads' channel
 dropout and the BatchNorm statistics of the batch (updating the running
 ones); ``hub.eval()`` is deterministic and uses the running statistics.
@@ -18,10 +22,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from eventpretrain_tpu_torch.models.convvit import (
+    convvit_base_patch16,
+    convvit_small_patch16,
+)
 from eventpretrain_tpu_torch.models.dense_heads import FCNHead, UPerHead
 from eventpretrain_tpu_torch.models.layers import init_weights
 from eventpretrain_tpu_torch.models.vit import (
-    ViT,
     vit_base_patch16,
     vit_small_patch16,
 )
@@ -35,12 +42,12 @@ AUX_IN_INDEX = 2
 
 
 class FtDenseHub(nn.Module):
-    def __init__(self, backbone: ViT, num_classes: int,
+    def __init__(self, backbone: nn.Module, num_classes: int,
                  decode_in_channels: Sequence[int],
                  sample_mode: str = "bilinear", decode_dropout: float = 0.1):
         super().__init__()
         kw = dict(dtype=backbone.dtype,
-                  device=backbone.patch_embed.proj.weight.device)
+                  device=backbone.norm_layer.weight.device)
         self.backbone = backbone
         self.num_classes = num_classes
         self.decode_head = UPerHead(
@@ -60,12 +67,12 @@ class FtDenseHub(nn.Module):
                 self.auxiliary_head(out_embs))
 
 
-def _hub(make_backbone, width: int, num_classes: int, num_bins: int, dtype,
-         device, generator: Optional[torch.Generator], sample_mode: str,
-         decode_dropout: float, **bk) -> FtDenseHub:
+def _hub(make_backbone, widths: Sequence[int], num_classes: int,
+         num_bins: int, dtype, device, generator: Optional[torch.Generator],
+         sample_mode: str, decode_dropout: float, **bk) -> FtDenseHub:
     hub = FtDenseHub(
         make_backbone(num_bins=num_bins, dtype=dtype, device=device, **bk),
-        num_classes, decode_in_channels=(width,) * 4,
+        num_classes, decode_in_channels=tuple(widths),
         sample_mode=sample_mode, decode_dropout=decode_dropout,
     )
     if generator is None:
@@ -83,8 +90,8 @@ def dense_hub_vit_small(num_classes: int, num_bins: int = 5, *,
     card unless the caller asks for the CPU), f32 parameters computed in
     ``dtype``, randomly initialised from ``generator`` (a CPU generator;
     seed 0 when None)."""
-    return _hub(vit_small_patch16, bk.get("embed_dim", 384), num_classes,
-                num_bins, dtype, device, generator, sample_mode,
+    return _hub(vit_small_patch16, (bk.get("embed_dim", 384),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
                 decode_dropout, **bk)
 
 
@@ -94,6 +101,34 @@ def dense_hub_vit_base(num_classes: int, num_bins: int = 5, *,
                        sample_mode: str = "bilinear",
                        decode_dropout: float = 0.1, **bk) -> FtDenseHub:
     """ViT-B/16: four 14^2 maps at C=768 into the heads."""
-    return _hub(vit_base_patch16, bk.get("embed_dim", 768), num_classes,
-                num_bins, dtype, device, generator, sample_mode,
+    return _hub(vit_base_patch16, (bk.get("embed_dim", 768),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
                 decode_dropout, **bk)
+
+
+def dense_hub_convvit_small(num_classes: int, num_bins: int = 5, *,
+                            dtype=torch.float32, device="cuda",
+                            generator: Optional[torch.Generator] = None,
+                            sample_mode: str = "bilinear",
+                            decode_dropout: float = 0.1,
+                            **bk) -> FtDenseHub:
+    """ConvViT-S: the pyramid 56^2 x 128, 28^2 x 256, 14^2 x 384, 6^2 x
+    384 (dense_hub.py:91-104; the widths follow ``embed_dims``)."""
+    d0, d1, d2 = bk.get("embed_dims", (128, 256, 384))
+    return _hub(convvit_small_patch16, (d0, d1, d2, d2), num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, with_rec_decoders=False, with_fpn=True, **bk)
+
+
+def dense_hub_convvit_base(num_classes: int, num_bins: int = 5, *,
+                           dtype=torch.float32, device="cuda",
+                           generator: Optional[torch.Generator] = None,
+                           sample_mode: str = "bilinear",
+                           decode_dropout: float = 0.1,
+                           **bk) -> FtDenseHub:
+    """ConvViT-B: the pyramid at widths 256, 384, 768, 768
+    (dense_hub.py:107-118)."""
+    d0, d1, d2 = bk.get("embed_dims", (256, 384, 768))
+    return _hub(convvit_base_patch16, (d0, d1, d2, d2), num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, with_rec_decoders=False, with_fpn=True, **bk)

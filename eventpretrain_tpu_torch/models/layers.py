@@ -89,13 +89,14 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with f32 parameters, computed in ``dtype``."""
+    """``nn.Conv2d`` with f32 parameters, computed in ``dtype``;
+    ``groups`` = ``in_channels`` is a depthwise conv."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, padding: int = 0, *, bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 stride: int, padding: int = 0, *, groups: int = 1,
+                 bias: bool = True, dtype=torch.float32, device=None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, bias=bias, device=device,
+                         padding, groups=groups, bias=bias, device=device,
                          dtype=torch.float32)
         self.compute_dtype = dtype
 

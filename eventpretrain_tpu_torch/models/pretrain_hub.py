@@ -1,9 +1,11 @@
-"""Pretrain hub: ViT backbone, MAE decoder and the contrastive projection
-heads (stages 1-3).
+"""Pretrain hub: ViT or ConvViT backbone, MAE decoder and the contrastive
+projection heads (stages 1-3).
 
-Counterpart of eventpretrain_tpu/models/pretrain_hub.py:33-187 on the ViT
-hubs: ``forward_rec`` (stage 1) and ``forward_con`` (stages 2 and 3) and
-the ViT factories with ``with_decoder`` and ``bn_groups``. Its keys are
+Counterpart of eventpretrain_tpu/models/pretrain_hub.py:33-231 on the ViT
+and ConvViT hubs: ``forward_rec`` (stage 1) and ``forward_con`` (stages 2
+and 3) and the factories with ``with_decoder`` and ``bn_groups``; a
+ConvViT hub's ``with_decoder`` also gives its backbone the stage decoders
+of the fused feature (``with_rec_decoders``). Its keys are
 the exporter's, and its parts are those of the JAX tree the phase
 initialises (cli/pretrain.py:314-405): the decoder where the phase
 reconstructs, the heads where it contrasts (``with_heads``; flax creates
@@ -22,6 +24,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from eventpretrain_tpu_torch.models.convvit import (
+    convvit_base_patch16,
+    convvit_small_patch16,
+)
 from eventpretrain_tpu_torch.models.decoder import (
     RecDecoder,
     rec_decoder_base_patch16,
@@ -34,7 +40,6 @@ from eventpretrain_tpu_torch.models.layers import (
     layer_norm,
 )
 from eventpretrain_tpu_torch.models.vit import (
-    ViT,
     vit_base_patch16,
     vit_small_patch16,
 )
@@ -48,7 +53,7 @@ class PrHub(nn.Module):
     (LayerNorm, eps 1e-5) and the bias-free ``clip_emb_proj`` from CLIP's
     width to the backbone's."""
 
-    def __init__(self, backbone: ViT, decoder: Optional[RecDecoder], *,
+    def __init__(self, backbone: nn.Module, decoder: Optional[RecDecoder], *,
                  with_heads: bool = False, mlp_dim: int = 4096,
                  proj_mlp_layers: int = 3, pred_mlp_layers: int = 2,
                  clip_emb_dim: int = 512,
@@ -71,11 +76,15 @@ class PrHub(nn.Module):
                                     device=device)
 
     def forward_rec(self, evg: torch.Tensor, ids_keep: torch.Tensor,
-                    ids_restore: torch.Tensor):
+                    ids_restore: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
         """Masked encode + reconstruction prediction: ``(pred, emb_l1,
         emb_l2, emb_lh)``; the loss is ``objectives.rec.reconstruct_loss``.
+        ``mask`` (B, L), the full binary mask (0 = keep), gates a ConvViT's
+        conv stages and is ignored by the ViT (pretrain_hub.py:96-114).
         """
-        emb_l1, emb_l2, emb_lh = self.backbone.encode_masked(evg, ids_keep)
+        emb_l1, emb_l2, emb_lh = self.backbone.encode_masked(evg, ids_keep,
+                                                             mask)
         pred = self.pretrain_rec_decoder(emb_lh, ids_restore)
         return pred, emb_l1, emb_l2, emb_lh
 
@@ -144,3 +153,31 @@ def pretrain_hub_base(num_bins: int = 5, frame_chans: int = 1,
     return _hub(vit_base_patch16, rec_decoder_base_patch16, num_bins,
                 frame_chans, with_decoder, with_heads, bn_groups, dtype,
                 device, generator, **bk)
+
+
+def pretrain_hub_convvit_small(num_bins: int = 5, frame_chans: int = 1,
+                               with_decoder: bool = True,
+                               with_heads: bool = False, bn_groups: int = 1,
+                               *, dtype=torch.float32, device="cuda",
+                               generator: Optional[torch.Generator] = None,
+                               **bk) -> PrHub:
+    """ConvViT-S (widths 128, 256, 384) + the small decoder (C=256, 8
+    blocks, 8 heads) and the stage decoders where ``with_decoder``
+    (pretrain_hub.py:190-210); as :func:`pretrain_hub_small` otherwise."""
+    return _hub(convvit_small_patch16, rec_decoder_small_patch16, num_bins,
+                frame_chans, with_decoder, with_heads, bn_groups, dtype,
+                device, generator, with_rec_decoders=with_decoder, **bk)
+
+
+def pretrain_hub_convvit_base(num_bins: int = 5, frame_chans: int = 1,
+                              with_decoder: bool = True,
+                              with_heads: bool = False, bn_groups: int = 1,
+                              *, dtype=torch.float32, device="cuda",
+                              generator: Optional[torch.Generator] = None,
+                              **bk) -> PrHub:
+    """ConvViT-B (widths 256, 384, 768) + the base decoder (C=512, 16
+    heads) and the stage decoders where ``with_decoder``
+    (pretrain_hub.py:213-231)."""
+    return _hub(convvit_base_patch16, rec_decoder_base_patch16, num_bins,
+                frame_chans, with_decoder, with_heads, bn_groups, dtype,
+                device, generator, with_rec_decoders=with_decoder, **bk)

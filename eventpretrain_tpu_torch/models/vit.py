@@ -9,7 +9,7 @@ optional last-block attention.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,11 +91,13 @@ class ViT(nn.Module):
         emb = emb + self.pos_embed[0].to(emb.dtype)[ids_keep]
         return self.pos_drop(emb)
 
-    def encode_masked(self, x: torch.Tensor, ids_keep: torch.Tensor):
+    def encode_masked(self, x: torch.Tensor, ids_keep: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None):
         """Visible-token encoding of ``x (B, H, W, num_bins)`` at
         ``ids_keep (B, K)``: ``(emb_l1, emb_l2, emb_lh)``, each (B, K, D),
         with ``emb_lh = norm(emb_l1 + emb_l2 + emb_h)`` under feature fusion,
-        else ``norm(emb_h)`` (vit.py:145-173)."""
+        else ``norm(emb_h)`` (vit.py:145-173). The full ``mask``, which the
+        ConvViT's conv stages need, is ignored, as in JAX."""
         x = self._embed_gathered(x, ids_keep)
         taps = {}
         for i, blk in enumerate(self.vit_block):

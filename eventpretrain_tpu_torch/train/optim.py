@@ -21,8 +21,11 @@ backbone, stage 2's trunk under JAX's ``frozen_except_norm_mask``, the
 optimizer: no update, no moments, no weight decay, as optax's zeroed
 updates leave them. Layer ids and masks are computed on the port's
 parameter names, the exporter's torch key space
-(``backbone.vit_block.3.attn.qkv.weight``). MultiSteps accumulation comes
-with its slice.
+(``backbone.vit_block.3.attn.qkv.weight``). ``accum_steps`` k > 1 is
+``optax.MultiSteps(tx, every_k_schedule=k)`` (optim.py:199-200):
+:class:`TrainState` keeps the running mean of k microsteps' gradients and
+runs the whole update (clip, Adam, weight decay, layer scales) once on it
+every k microsteps; the step count, and so the schedule, counts updates.
 """
 
 from __future__ import annotations
@@ -52,24 +55,36 @@ def cosine_warmup_schedule(base_lr: float, min_lr: float,
     return schedule
 
 
-def vit_layer_id(name: str, num_layers: int,
+def vit_layer_id(name: str, num_layers: int, backbone_type: str = "vit",
                  layer_grafted: bool = False) -> int:
-    """Layer id of a ViT parameter name (optim.py:52-94 on the torch keys;
-    the ConvViT stage ids come with that backbone)."""
+    """Layer id of a parameter name (optim.py:52-94 on the torch keys):
+    ``patch_embed*``/``pos_embed`` 0, ``conv_block1.*`` 1, ``conv_block2.*``
+    2, ``vit_block.i`` i + 1, or i + 3 on a ``convvit*`` backbone, the rest
+    of the backbone ``num_layers``; outside the backbone ``num_layers``.
+    Grafted: the embeds and the conv stages 0, ``vit_block.i`` min(i // 4,
+    2), the rest 2."""
     parts = name.split(".")
     if parts[0] != "backbone":
         return 2 if layer_grafted else num_layers
     sub = parts[1] if len(parts) > 1 else ""
     block_id = int(parts[2]) if sub == "vit_block" else None
+    if layer_grafted:
+        if sub.startswith(("patch_embed", "pos_embed", "conv_block")):
+            return 0
+        return 2 if block_id is None else min(block_id // 4, 2)
     if sub.startswith(("patch_embed", "pos_embed")):
         return 0
-    if layer_grafted:
-        return 2 if block_id is None else min(block_id // 4, 2)
-    return num_layers if block_id is None else block_id + 1
+    if block_id is not None:
+        return block_id + (3 if backbone_type.startswith("convvit") else 1)
+    if sub.startswith("conv_block1"):
+        return 1
+    if sub.startswith("conv_block2"):
+        return 2
+    return num_layers
 
 
 def layer_scales(names: Iterable[str], num_layers: int,
-                 layer_decay: float = 0.75,
+                 layer_decay: float = 0.75, backbone_type: str = "vit",
                  layer_grafted: bool = False) -> dict[str, float]:
     """Per-parameter lr scales (optim.py:97-119)."""
     if layer_grafted:
@@ -77,7 +92,8 @@ def layer_scales(names: Iterable[str], num_layers: int,
     else:
         scales = [layer_decay ** (num_layers - i)
                   for i in range(num_layers + 1)]
-    return {n: scales[vit_layer_id(n, num_layers, layer_grafted)]
+    return {n: scales[vit_layer_id(n, num_layers, backbone_type,
+                                   layer_grafted)]
             for n in names}
 
 
@@ -108,15 +124,21 @@ def freeze_except_norm(module: nn.Module) -> dict[str, bool]:
 def build_optimizer(module: nn.Module, *, weight_decay: float = 0.05,
                     betas: tuple[float, float] = (0.9, 0.95),
                     layer_decay: float = 1.0, num_layers: int = 12,
-                    layer_grafted: bool = False) -> torch.optim.AdamW:
+                    backbone_type: str = "vit", layer_grafted: bool = False,
+                    accum_steps: int = 1) -> torch.optim.AdamW:
     """``torch.optim.AdamW`` over ``module``'s parameters, one param group
     per (weight decay, lr scale) pair; each group carries its ``lr_scale``
     and starts at lr 0 (:class:`TrainState` sets it before each update).
-    Parameters that do not require a gradient are left out."""
+    Parameters that do not require a gradient are left out.
+    ``accum_steps`` (``defaults["accum_steps"]``, which :class:`TrainState`
+    reads) is the count of microsteps an update averages."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     params = {n: p for n, p in module.named_parameters() if p.requires_grad}
     decay = weight_decay_mask(params)
     if layer_decay != 1.0 or layer_grafted:
-        scale = layer_scales(params, num_layers, layer_decay, layer_grafted)
+        scale = layer_scales(params, num_layers, layer_decay, backbone_type,
+                             layer_grafted)
     else:
         scale = {n: 1.0 for n in params}
     groups: dict[tuple, dict] = {}
@@ -128,8 +150,10 @@ def build_optimizer(module: nn.Module, *, weight_decay: float = 0.05,
         })
         g["params"].append(p)
         g["names"].append(n)
-    return torch.optim.AdamW(list(groups.values()), lr=0.0, betas=betas,
-                             eps=1e-8, weight_decay=0.0)
+    optimizer = torch.optim.AdamW(list(groups.values()), lr=0.0, betas=betas,
+                                  eps=1e-8, weight_decay=0.0)
+    optimizer.defaults["accum_steps"] = accum_steps
+    return optimizer
 
 
 def global_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:

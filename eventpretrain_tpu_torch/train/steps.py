@@ -11,6 +11,10 @@ Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
 :29-42. Stage 2's frozen trunk is ``requires_grad=False`` on the module
 (``train/optim.py::freeze_except_norm``), JAX's ``trainable_mask``: the
 trunk runs forward only, as under ``partitioned_value_and_grad``.
+Under gradient accumulation (the optimizer's ``accum_steps`` k) each step
+is a microstep: its own forward and backward, BatchNorm statistics and
+the queue moving as every step's do, and its metrics the microstep's;
+``TrainState.apply_gradients`` updates the parameters every k-th.
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ def _rec_loss_fn(hub, patch_size: int, num_patches: int, mask_ratio: float,
                                   masking_strategy)
             ids_keep, mask, ids_restore = make_mask_from_noise(noise,
                                                                len_keep)
-        pred, *_ = hub.forward_rec(evg, ids_keep, ids_restore)
+        pred, *_ = hub.forward_rec(evg, ids_keep, ids_restore, mask)
         return reconstruct_loss(pred, batch["frame"], mask,
                                 patch_size=patch_size,
                                 norm_pix_loss=norm_pix_loss,

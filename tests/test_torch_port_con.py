@@ -395,7 +395,8 @@ def test_cli_chains_the_stages_through_init_from(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("argv,error", [
     (["--pr_phase", "ecdp"], NotImplementedError),
-    (["--pr_phase", "con", "--accum_iter", "2"], NotImplementedError),
+    (["--pr_phase", "con", "--use_queue", "--queue_length", "24",
+      "--accum_iter", "2"], ValueError),
     (["--pr_phase", "con", "--data_parallel"], NotImplementedError),
     (["--pr_phase", "rec", "--visualize"], NotImplementedError),
     (["--pr_phase", "adj", "--init_from", "some_orbax_dir"],

@@ -707,12 +707,15 @@ def test_cli_finetunes_from_a_pretrain_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--accum_iter", "2"], ["--resume", "x"], ["--visualize"],
+    ["--accum_iter", "0"], ["--resume", "x"], ["--visualize"],
     ["--export_torch", "x.pth"], ["--backbone", "swin"],
     ["--dataset", "n_imagenet"], ["--num_bins", "2"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):
+    """Each flag of a later slice exits naming it; ``--accum_iter``, which
+    this slice brings, refuses only a count below 1."""
     from eventpretrain_tpu_torch.cli.finetune_cls import main
 
-    with pytest.raises(SystemExit, match="slice"):
+    match = "at least 1" if flags[0] == "--accum_iter" else "slice"
+    with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", *flags])

@@ -149,3 +149,14 @@ def test_host_code_source_ships_with_the_package():
     assert native.SOURCE == PKG / "native" / "event_pack.cpp"
     assert native.SOURCE.is_file()
     assert native.BUILD_DIR == ROOT / "build" / "host_native"
+
+
+@pytest.mark.parametrize("module", [
+    "models.convvit", "models.pretrain_hub", "models.cls_hub",
+    "models.dense_hub", "train.optim", "train.state", "cli.finetune_flow",
+])
+def test_convvit_and_accumulation_modules_are_covered(module):
+    """Slice 5a's modules (the ConvViT backbone and its hubs) and slice
+    4b-i's (gradient accumulation in the optimizer and the train state)
+    are among those the import check above loads with jax blocked."""
+    assert f"eventpretrain_tpu_torch.{module}" in _port_modules()

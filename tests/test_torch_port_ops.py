@@ -379,7 +379,7 @@ def test_autograd_function_takes_plain_backward_on_cpu(which):
 
 @pytest.mark.parametrize("l", [16, 49, 196, 256, 257])
 @pytest.mark.parametrize("c,h", [(128, 4), (384, 12), (768, 12), (512, 16),
-                                 (96, 3), (200, 8)])
+                                 (96, 3), (200, 8), (256, 8)])
 @pytest.mark.parametrize("dtypes", DTYPES, ids=["f32", "bf16"])
 def test_gates_match_jax(l, c, h, dtypes):
     jdt, tdt = dtypes
