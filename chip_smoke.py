@@ -185,6 +185,31 @@ backend's refusal of a shape, which its timing records as null):
    --backbone convvit --accum_iter 2`` (2 microsteps of 64, one update),
    and ``cli.finetune_semseg.main`` and ``cli.finetune_flow.main`` with no
    ``--backbone`` flag (their default, ConvViT-S).
+5j. Slice 5b, the sparse Swin-T (widths 96, 192, 384, 768, depths 2, 2,
+   6, 2, window 7) on the visible tokens under host plans:
+   ``pretrain_hub_swin`` at full width, bf16, seed 0, B=64 of phase 5's
+   rec batches (their ViT masks unused: the Swin step draws one mask a
+   batch from its schedule, 24 of 49 cells of 32 pixels kept at ratio
+   0.5, 1536 of 3136 stage-1 tokens): 4 ``make_swin_rec_step`` steps on
+   the kernel path (K1/K2 8 + 8 a step, the Swin decoder's (64, 49, 256)
+   H8 blocks) and 4 on the plain path with the same schedule, the loss gap
+   (2%); the plan's handoff (one upload a planned step, every index tensor
+   a view of one tensor on the card), the host's planning ms, the step's
+   ms and peak memory on both paths and a profiled step's busy share and
+   host-to-device copies; 4 ``rec+con`` steps on the synthetic 197x512
+   CLIP tokens through the conv projection on both paths (K1/K2 8 + 8),
+   then 4 ``adj`` (frozen parameters unchanged bit for bit) and 4 ``con``
+   steps, no kernel on their path; Swin-T with drop-path 0.1 (22 replayed
+   masks a step), 3 steps each of cls at B=64 (K3 1), semseg at DSEC's
+   440x640 and flow at MVSEC's 260x346 at B=16 (K6 1; no kernel in the
+   step, so one path, timed), and each task's eval step (K3 or K6 1, K5
+   6: stage 3's MLPs) against the plain path's; then
+   ``cli.pretrain.main --backbone swin`` for ``rec`` (4 steps) and
+   ``con-n`` from its checkpoint (4 steps on the synthetic raw source, K3
+   1 a step, the CLIP tower in the loop), ``cli.finetune_cls.main
+   --backbone swin --finetune`` from the rec checkpoint, and
+   ``cli.finetune_semseg.main`` and ``cli.finetune_flow.main`` with
+   ``--backbone swin``.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -212,14 +237,16 @@ backend's refusal of a shape, which its timing records as null):
    beside K3's ``voxelize_batch``; K6 also at MVSEC's shape on the first
    flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
    10 calls (the card alone); K1/K2 also at the contrastive stages'
-   (64, 196, 768) H12 and ConvViT-S rec's encoder (64, 49, 384) H12 and
-   decoder (64, 196, 256) H8, forward and backward, beside ``sdpa``; K4
+   (64, 196, 768) H12, ConvViT-S rec's encoder (64, 49, 384) H12 and
+   decoder (64, 196, 256) H8 and Swin-T rec's decoder (64, 49, 256) H8,
+   forward and backward, beside ``sdpa``; K4
    also at ConvViT-S's dense (16, 196, 384) H12; K3 also at
    the raw pretrain path's (64, 5, 30300) on 224x224x5; the rec and
    cls train steps' ms, samples/s and peak memory on both paths (and the
    semseg step's at B=16, the adj, con, rec+con, adj-n and con-n steps' at
    B=64, 5 steps a turn; the flow step's from phase 5e; the ConvViT
-   steps' and the accumulation check's from phase 5i), CLIP's device ms
+   steps' and the accumulation check's from phase 5i; the Swin steps'
+   from phase 5j), CLIP's device ms
    a batch, the cls, dense and raw pretrain pipelines' host time per
    batch, phase 5f's host builds and phase 5d's delivered
    samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
@@ -1376,10 +1403,14 @@ def build_hub(dev, dtype):
 
 
 def set_fused(hub, fused: bool) -> None:
+    """The kernel path (``fused``) or the plain path of every block: K1/K2
+    (and K4/K5 when unfused) in ``ViTBlock``, K5 in ``SparseSwinBlock``'s
+    MLP."""
     from eventpretrain_tpu_torch.models.layers import ViTBlock
+    from eventpretrain_tpu_torch.models.swin import SparseSwinBlock
 
     for m in hub.modules():
-        if isinstance(m, ViTBlock):
+        if isinstance(m, (ViTBlock, SparseSwinBlock)):
             m.use_fused_layer = None if fused else False
 
 
@@ -3424,17 +3455,23 @@ def phase_convvit_accum(dev, rec) -> dict:
 
 
 def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
-                         held: int = CONVVIT_FT_STEPS) -> dict:
+                         held: int = CONVVIT_FT_STEPS,
+                         site_rates=CONVVIT_SITE_RATES,
+                         compare: bool = True) -> dict:
     """``CONVVIT_FT_STEPS`` steps of ``make(hub)`` on the pipeline's batches
-    inside a counted run, each with replayed drop-path (and with
-    ``dropout`` the heads' dropout) masks, then the same batches through
-    the plain hub from the same init; the loss gap of the first ``held``
-    steps (2%), the others' losses finite."""
+    inside a counted run, each with replayed drop-path masks (one a site of
+    ``site_rates``, in call order; with ``dropout`` also the heads'
+    dropout), then with ``compare`` the same batches through the plain hub
+    from the same init: the loss gap of the first ``held`` steps (2%), the
+    others' losses finite, and both paths timed. Without ``compare`` (a
+    step that launches no kernel runs the same code on both paths) the
+    losses are held finite and the one path is timed; the plain hub is
+    kept for the evals."""
     plain_hub = copy.deepcopy(hub)
     set_fused(plain_hub, False)
-    (state, step), (pstate, pstep) = make(hub), make(plain_hub)
+    state, step = make(hub)
     rng = np.random.default_rng(17)
-    keep_prob = (1.0 - CONVVIT_SITE_RATES)[:, None]
+    keep_prob = (1.0 - site_rates)[:, None]
     reset_counts()
     batches, kern = [], []
     t0 = time.perf_counter()
@@ -3442,7 +3479,7 @@ def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
         b = batch["evg"].shape[0]
         dev = batch["evg"].device
         batch["drop_path_keep"] = torch.from_numpy(
-            rng.random((len(CONVVIT_SITE_RATES), b)) < keep_prob).to(dev)
+            rng.random((len(site_rates), b)) < keep_prob).to(dev)
         if dropout:
             batch["dropout_keep"] = [
                 torch.from_numpy(rng.random((b, c)) < 1.0 - DENSE_DROP).to(
@@ -3453,67 +3490,67 @@ def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
     launches = read_counts()
     wall = time.perf_counter() - t0
     kern = [{k: float(v) for k, v in m.items()} for m in kern]
-    plain = run_steps(pstep, pstate, batches)
-    require(read_counts() == launches, f"{what}: the plain path launched a "
-                                       "kernel")
     log(f"{what}: {len(batches)} batches of evg "
         f"{tuple(batches[0]['evg'].shape)}, pipeline + steps {wall:.1f} s; "
         f"launches {launches}")
-    gap = loss_gap(what, kern[:held], plain[:held], LOSS_GAP_REL)
-    rest = [m["loss"] for m in kern[held:] + plain[held:]]
-    if rest:
-        log(f"{what}: later losses, kernel then plain path: "
-            + " ".join(f"{v:.5f}" for v in rest))
+    paths = {True: (step, state)}
+    gap = None
+    if compare:
+        pstate, pstep = make(plain_hub)
+        plain = run_steps(pstep, pstate, batches)
+        require(read_counts() == launches, f"{what}: the plain path "
+                                           "launched a kernel")
+        gap = loss_gap(what, kern[:held], plain[:held], LOSS_GAP_REL)
+        rest = [m["loss"] for m in kern[held:] + plain[held:]]
+        if rest:
+            log(f"{what}: later losses, kernel then plain path: "
+                + " ".join(f"{v:.5f}" for v in rest))
+        paths[False] = (pstep, pstate)
+    else:
+        rest = [m["loss"] for m in kern]
+        log(f"{what}: losses " + " ".join(f"{v:.5f}" for v in rest))
     require(all(np.isfinite(rest)), f"non-finite {what} loss")
-    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
-                             batches, reps=CONVVIT_TIMED_REPS)
+    runs, peak = timed_steps(paths, batches, reps=CONVVIT_TIMED_REPS)
     return dict(hub=hub, plain_hub=plain_hub, state=state, step=step,
                 batches=batches, launches=launches, loss_gap=gap,
                 record={"batch": batch["evg"].shape[0],
-                        "reps": 2 * CONVVIT_TIMED_REPS,
+                        "reps": len(runs[True]),
                         "loss_gap": gap, "losses": [m["loss"] for m in kern],
-                        "drop_path_rate": CONVVIT_DROP,
                         **step_record(runs, peak, batch["evg"].shape[0])})
 
 
-def phase_convvit_finetune(dev) -> dict:
-    """ConvViT-S, full width, drop-path 0.1, bf16, seed 0: cls at B=64 on
-    N-Cars-shaped streams (K3 1, K4 11 + 11 a step), semseg at DSEC's
-    440x640 and flow at MVSEC's 260x346 at B=16 (K6 1, K4 11 + 11), each
-    against the plain path; then each task's eval step, counted on its own
-    (K3 or K6 1, K1/K2 11 each), against the plain path's."""
-    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_convvit_small
-    from eventpretrain_tpu_torch.models.dense_hub import (
-        dense_hub_convvit_small,
-    )
+def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
+                   train_want: dict, eval_want: dict) -> dict:
+    """cls at B=64 on N-Cars-shaped streams (K3 1 a step), semseg at
+    DSEC's 440x640 and flow at MVSEC's 260x346 at B=16 (K6 1), each with
+    ``make_hub(task)``'s hub, ``train_want``'s launches a step and
+    replayed drop-path masks at ``site_rates``, against the plain path
+    where ``train_want`` names a kernel (else the steps run the same code
+    on both paths, and one is run and timed); then each task's eval step,
+    counted on its own (K3 or K6 1 and ``eval_want``), against the plain
+    path's on the same weights."""
     from eventpretrain_tpu_torch.train.steps import (
         make_cls_eval_step,
         make_flow_eval_step,
         make_semseg_eval_step,
     )
 
-    kw = dict(dtype=torch.bfloat16, device=dev,
-              generator=torch.Generator().manual_seed(0),
-              drop_path_rate=CONVVIT_DROP)
     n = CONVVIT_FT_STEPS
-    k4 = {"fused_attn_layer": CONVVIT_DEPTH,
-          "fused_attn_layer_bwd": CONVVIT_DEPTH}
+    compare = bool(train_want)
     out, launches = {}, {}
     for task in ("cls", "semseg", "flow"):
+        hub = make_hub(task)
         if task == "cls":
-            hub = cls_hub_convvit_small(NUM_CLASSES, NUM_BINS, **kw)
             run = convvit_finetune_run(
-                "convvit cls", hub,
+                f"{label} cls", hub,
                 lambda h: make_cls_trainer(h, dev, n),
-                cls_pipeline(dev, True, n), dropout=False)
-            want = {"splat": 1, **k4}
+                cls_pipeline(dev, True, n), dropout=False,
+                site_rates=site_rates, compare=compare)
+            want = {"splat": 1, **train_want}
             val_pipe = cls_pipeline(dev, False, 1)
             evals = [make_cls_eval_step(h) for h in (run["hub"],
                                                      run["plain_hub"])]
         else:
-            classes = DENSE_CLASSES if task == "semseg" else 2
-            hub = dense_hub_convvit_small(classes, NUM_BINS,
-                                          decode_dropout=DENSE_DROP, **kw)
             make = make_dense_trainer if task == "semseg" else \
                 make_flow_trainer
             pipeline = dense_pipeline if task == "semseg" else flow_pipeline
@@ -3525,10 +3562,11 @@ def phase_convvit_finetune(dev) -> dict:
             # (a 2.0% gap at step 3 on an H100), so its first step is
             # held
             run = convvit_finetune_run(
-                f"convvit {task}", hub, lambda h, make=make: make(h, dev, n),
+                f"{label} {task}", hub, lambda h, make=make: make(h, dev, n),
                 pipeline(dev, True, n), dropout=True,
-                held=n if task == "semseg" else 1)
-            want = {"splat_tiled": 1, **k4}
+                held=n if task == "semseg" else 1, site_rates=site_rates,
+                compare=compare)
+            want = {"splat_tiled": 1, **train_want}
             val_pipe = pipeline(dev, False, 1)
             if task == "semseg":
                 evals = [make_semseg_eval_step(
@@ -3537,8 +3575,8 @@ def phase_convvit_finetune(dev) -> dict:
             else:
                 evals = [make_flow_eval_step(h)
                          for h in (run["hub"], run["plain_hub"])]
-        require_launches(f"convvit {task}", run["launches"], n, want)
-        launches[f"convvit_{task}_train"] = run["launches"]
+        require_launches(f"{label} {task}", run["launches"], n, want)
+        launches[f"{label}_{task}_train"] = run["launches"]
         # the eval steps on the same weights: the kernel path's
         run["plain_hub"].load_state_dict(run["hub"].state_dict())
         reset_counts()
@@ -3547,7 +3585,7 @@ def phase_convvit_finetune(dev) -> dict:
         torch.cuda.synchronize()
         ev = read_counts()
         ref = evals[1](val)
-        require(read_counts() == ev, f"convvit {task} eval: the plain path "
+        require(read_counts() == ev, f"{label} {task} eval: the plain path "
                                      "launched a kernel")
         if task == "semseg":
             # three steps from a random init leave the classes' logits
@@ -3563,11 +3601,11 @@ def phase_convvit_finetune(dev) -> dict:
             summary = {"pixels": total, "logits_rel": rel,
                        "moved": int((got - ref).abs().sum()) / 2
                        / max(total, 1)}
-            log(f"convvit semseg eval: {summary}")
+            log(f"{label} semseg eval: {summary}")
             require(total == labelled == int(ref.sum()),
-                    "the convvit semseg eval did not count every labelled "
+                    f"the {label} semseg eval did not count every labelled "
                     "pixel once")
-            require(rel <= LOSS_GAP_REL, "the convvit semseg eval's logits "
+            require(rel <= LOSS_GAP_REL, f"the {label} semseg eval's logits "
                                          "leave the plain path's")
         else:
             got = {k: float(v) for k, v in got.items()}
@@ -3576,22 +3614,52 @@ def phase_convvit_finetune(dev) -> dict:
             summary = {"value": got[key], "plain": ref[key],
                        "rel": abs(got[key] - ref[key]) / abs(ref[key])}
             require(all(np.isfinite(list(got.values()))),
-                    f"non-finite convvit {task} eval")
+                    f"non-finite {label} {task} eval")
             require(summary["rel"] <= LOSS_GAP_REL,
-                    f"the convvit {task} eval leaves the plain path's")
-        log(f"convvit {task} eval: {summary}; launches {ev}")
-        eval_want = {"fused_ln_attn_layer": CONVVIT_DEPTH,
-                     "fused_ln_mlp": CONVVIT_DEPTH,
-                     ("splat" if task == "cls" else "splat_tiled"): 1}
-        require_launches(f"convvit {task} eval", ev, 1, eval_want)
-        launches[f"convvit_{task}_eval"] = ev
-        run["record"].update(model=f"{task} hub, convvit_small", eval=summary)
+                    f"the {label} {task} eval leaves the plain path's")
+        log(f"{label} {task} eval: {summary}; launches {ev}")
+        require_launches(f"{label} {task} eval", ev, 1, {
+            **eval_want, ("splat" if task == "cls" else "splat_tiled"): 1})
+        launches[f"{label}_{task}_eval"] = ev
+        run["record"].update(model=f"{task} hub, {label}", eval=summary,
+                             drop_path_rate=drop)
         out[task] = run["record"]
-        log(f"convvit {task} step B={run['record']['batch']}: kernel "
-            f"{run['record']['step_ms']:.4g} ms, plain "
-            f"{run['record']['plain_step_ms']:.4g} ms")
+        rec = run["record"]
+        log(f"{label} {task} step B={rec['batch']}: "
+            + (f"kernel {rec['step_ms']:.4g} ms, plain "
+               f"{rec['plain_step_ms']:.4g} ms" if compare else
+               f"{rec['step_ms']:.4g} ms (no kernel in the step: one path)"))
         del run, evals, hub
     return dict(records=out, launches=launches)
+
+
+def phase_convvit_finetune(dev) -> dict:
+    """ConvViT-S, full width, drop-path 0.1, bf16, seed 0: cls at B=64 (K3
+    1, K4 11 + 11 a step), semseg and flow at B=16 (K6 1, K4 11 + 11),
+    each against the plain path; each eval step K3 or K6 1, K1/K2 11
+    each."""
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_convvit_small
+    from eventpretrain_tpu_torch.models.dense_hub import (
+        dense_hub_convvit_small,
+    )
+
+    kw = dict(dtype=torch.bfloat16, device=dev,
+              generator=torch.Generator().manual_seed(0),
+              drop_path_rate=CONVVIT_DROP)
+
+    def make_hub(task):
+        if task == "cls":
+            return cls_hub_convvit_small(NUM_CLASSES, NUM_BINS, **kw)
+        classes = DENSE_CLASSES if task == "semseg" else 2
+        return dense_hub_convvit_small(classes, NUM_BINS,
+                                       decode_dropout=DENSE_DROP, **kw)
+
+    return finetune_tasks(
+        dev, "convvit", make_hub, CONVVIT_SITE_RATES, CONVVIT_DROP,
+        {"fused_attn_layer": CONVVIT_DEPTH,
+         "fused_attn_layer_bwd": CONVVIT_DEPTH},
+        {"fused_ln_attn_layer": CONVVIT_DEPTH,
+         "fused_ln_mlp": CONVVIT_DEPTH})
 
 
 def phase_convvit_cli(dev) -> None:
@@ -3656,6 +3724,385 @@ def phase_convvit_cli(dev) -> None:
                 f"the {name} CLI's train steps did not take K4")
 
 
+# --------------------------------------------------------------- phase 5j
+# Slice 5b: the sparse Swin-T (widths 96, 192, 384, 768, depths 2, 2, 6,
+# 2, window 7) on the visible tokens under host plans. Rec pretraining
+# masks 24 of its 49 cells of 32 pixels (ratio 0.5): 1536 of the 3136
+# stage-1 tokens, one mask a batch, planned a step ahead on the host and
+# uploaded as one buffer; the Swin decoder's 8 blocks at (64, 49, 256), 8
+# heads, take K1/K2 both ways. The Swin blocks' windowed attention is plain
+# PyTorch, as JAX's is plain jnp; their MLP takes K5 in deterministic calls
+# where the gate admits it: stage 3 (C=384, hidden 1536, 196 tokens at
+# 224 px), 6 launches an eval forward. Stages 2 and 3 pair the 49 tokens
+# with CLIP's 14x14 grid through the 2x2 stride-2 conv and take no kernel
+# (training keeps K5 off).
+
+SWIN_STEPS = 4
+SWIN_DEC_BLOCKS = 8
+SWIN_K5_BLOCKS = 6  # stage 3's blocks
+SWIN_DROP = 0.1
+# two DropPath calls per block with a rate above 0, in call order: the 12
+# blocks' rates linspace(0, 0.1, 12), the first 0
+SWIN_SITE_RATES = np.repeat(np.linspace(0, SWIN_DROP, 12)[1:], 2)
+SWIN_MASK_RATIO = 0.5
+SWIN_PLANNED = 5  # step indices whose planning the host time takes
+
+
+def build_swin_hub(dev, with_decoder: bool = True, with_heads: bool = False):
+    from eventpretrain_tpu_torch.models.pretrain_hub import pretrain_hub_swin
+
+    return pretrain_hub_swin(
+        with_decoder=with_decoder, with_heads=with_heads,
+        dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(0), input_size=TRAIN_INPUT)
+
+
+def make_swin_trainer(hub, phase: str):
+    """The pretrain CLI's optimizer (lr 1e-3 * 64 / 256, wd 0.05, betas
+    (0.9, 0.95); the warmup one epoch of ``SWIN_STEPS``) and the phase's
+    step with the CLI's Swin schedule (cli/pretrain.py): 7x7 cells of 32
+    pixels at ratio 0.5, the patch grid at input_size // 4, window 7,
+    seed 0."""
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import (
+        make_con_step,
+        make_swin_rec_and_con_step,
+        make_swin_rec_step,
+    )
+
+    schedule = cosine_warmup_schedule(1e-3 * TRAIN_BATCH / 256, 0.0, 1, 400,
+                                      SWIN_STEPS)
+    state = TrainState(hub, build_optimizer(hub, weight_decay=0.05), schedule)
+    plan = dict(cell_grid=7, mask_ratio=SWIN_MASK_RATIO,
+                decoder_patch_size=32, input_resolution=TRAIN_INPUT // 4,
+                window_size=7, plan_seed=0)
+    if phase == "rec":
+        step = make_swin_rec_step(hub, **plan)
+    elif phase == "rec+con":
+        step = make_swin_rec_and_con_step(hub, **plan)
+    else:
+        step = make_con_step(hub)
+    return state, step
+
+
+def check_plan_handoff(what: str, step, state, steps: int) -> dict:
+    """A step's plans and masking cross to the card as one copy: the
+    masker uploaded one buffer a planned step (steps 0 .. ``steps`` - 1
+    and the two it prefetched), and every index tensor of a step's plans
+    and masking is a view of one tensor on the card. Also the host's
+    planning ms a step (the mask, the knapsack and the pack, the median
+    of ``SWIN_PLANNED`` steps' indices) and the buffer's bytes."""
+    import concurrent.futures
+
+    from eventpretrain_tpu_torch.models.swin import DeviceStagePlan
+
+    masker = step.masker
+    concurrent.futures.wait(list(masker._pending.values()))
+    uploads = masker.uploads
+    require(uploads == steps + 2, f"{what}: the masker uploaded {uploads} "
+                                  f"buffers for {steps} steps and 2 ahead")
+    plans, ids_keep, _, ids_restore = masker(state, TRAIN_BATCH)
+    leaves = [ids_keep, ids_restore]
+    for sp in plans:
+        for p in (sp.plan_even, sp.plan_odd):
+            leaves += list(p)
+        leaves += [sp.coords_flat] + ([] if sp.merge_child_idx is None
+                                      else [sp.merge_child_idx])
+    require(all(isinstance(sp, DeviceStagePlan) for sp in plans),
+            f"{what}: the plans are not device plans")
+    storages = {t.untyped_storage().data_ptr() for t in leaves}
+    require(len(storages) == 1 and all(t.is_cuda for t in leaves),
+            f"{what}: a step's {len(leaves)} index tensors lie in "
+            f"{len(storages)} tensors, not views of one on the card")
+    plan_ms = []
+    for s in range(100, 100 + SWIN_PLANNED):
+        t0 = time.perf_counter()
+        flat, _ = masker._compute_np(s)
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"uploads": uploads, "views_of_one_tensor": len(leaves),
+           "plan_bytes": int(flat.nbytes),
+           "plan_host_ms": statistics.median(plan_ms),
+           "kept_tokens": int(plans[0].coords_flat.shape[0])}
+    log(f"{what}: one upload a planned step ({uploads} for {steps} steps "
+        f"and 2 ahead), {len(leaves)} index tensors views of one tensor of "
+        f"{out['plan_bytes']} bytes; host planning "
+        f"{out['plan_host_ms']:.3g} ms a step (median of {SWIN_PLANNED}); "
+        f"{out['kept_tokens']} stage-1 tokens kept")
+    return out
+
+
+def phase_swin_rec(dev) -> dict:
+    """``SWIN_STEPS`` rec steps of Swin-T at B=64 on the kernel path
+    (counted) and on the plain path from the same init, batches and
+    schedule: the loss gap, the launches (K1/K2 8 + 8 a step), the plan's
+    one copy a step, and the step's ms, peak memory, device time and busy
+    share."""
+    hub = build_swin_hub(dev)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    batches = rec_batches(dev, SWIN_STEPS)
+    state, step = make_swin_trainer(hub, "rec")
+    pstate, pstep = make_swin_trainer(plain_hub, "rec")
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    gap = loss_gap("swin rec", kern, plain, LOSS_GAP_REL)
+    log(f"swin rec launches over {SWIN_STEPS} steps {launches}")
+    n = SWIN_DEC_BLOCKS
+    require_launches("swin rec", launches, SWIN_STEPS, {
+        "fused_ln_attn_layer": n, "fused_ln_attn_layer_bwd": n,
+        "fused_ln_mlp": n, "fused_ln_mlp_bwd": n})
+    handoff = check_plan_handoff("swin rec", step, state, SWIN_STEPS)
+    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
+                             batches, reps=REPS // 4)
+    record = {"model": "pretrain_hub_swin", "batch": TRAIN_BATCH,
+              "reps": REPS // 2, "mask_ratio": SWIN_MASK_RATIO,
+              "loss_gap": gap, "losses": [m["loss"] for m in kern],
+              **handoff, **step_record(runs, peak, TRAIN_BATCH)}
+    record["profile"] = device_profile(lambda: step(state, batches[0]), 3)
+    # the batches are on the card already: the plan's upload is the step's
+    # one host-to-device copy (the profile sees the planner thread's too)
+    require(record["profile"]["htod_copies"] == 1,
+            f"swin rec: {record['profile']['htod_copies']} host-to-device "
+            "copies a step, expected the plan's one")
+    log(f"swin rec step B={TRAIN_BATCH}: kernel {record['step_ms']:.4g} ms "
+        f"({record['peak_step_gib']:.3g} GiB above resident), plain "
+        f"{record['plain_step_ms']:.4g} ms; host planning "
+        f"{record['plan_host_ms']:.3g} ms a step")
+    log_profile(f"swin rec step B={TRAIN_BATCH}", record["profile"])
+    del plain_hub, pstate, pstep
+    return dict(launches=launches, record=record)
+
+
+def one_path_record(what: str, step, state, batches) -> dict:
+    """The host-clock ms of a path's steps (median of ``REPS // 4`` after
+    one warm-up, on its own batches in turn) and the memory a step adds
+    above what is resident."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    calls = [0]
+
+    def one_step():
+        calls[0] += 1
+        return step(state, batches[calls[0] % len(batches)])
+
+    times = host_ms(one_step, reps=REPS // 4, warmup=1)
+    out = {"batch": TRAIN_BATCH, "reps": REPS // 4,
+           "step_ms": statistics.median(times),
+           "samples_per_s": TRAIN_BATCH / statistics.median(times) * 1e3,
+           "peak_step_gib": (torch.cuda.max_memory_allocated() - base)
+           / 2**30}
+    log(f"{what} step B={TRAIN_BATCH}: {out['step_ms']:.4g} ms "
+        f"({out['peak_step_gib']:.3g} GiB above resident)")
+    return out
+
+
+def phase_swin_con(dev) -> dict:
+    """The contrastive phases of Swin-T at B=64 on the synthetic 197x512
+    CLIP tokens through the conv projection: ``SWIN_STEPS`` rec+con steps
+    (global InfoNCE) on the kernel path (counted: K1/K2 8 + 8 a step, the
+    decoder) and the plain path from the same init, batches and schedule;
+    then from its weights ``SWIN_STEPS`` adj steps (the trunk frozen but
+    its norm_layer, every frozen parameter unchanged bit for bit) and con
+    steps, counted: no kernel on their path."""
+    from eventpretrain_tpu_torch.cli.pretrain import init_from_checkpoint
+    from eventpretrain_tpu_torch.train.optim import freeze_except_norm
+
+    out = {"launches": {}, "records": {}}
+    joint_batches = con_batches(dev, "rec+con", SWIN_STEPS)
+    hub = build_swin_hub(dev, with_heads=True)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    state, step = make_swin_trainer(hub, "rec+con")
+    pstate, pstep = make_swin_trainer(plain_hub, "rec+con")
+    reset_counts()
+    kern = run_steps(step, state, joint_batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, joint_batches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    log(f"swin rec+con launches over {SWIN_STEPS} steps {launches}")
+    log("swin rec+con rec / con losses, kernel path: " + " ".join(
+        f"{m['rec_loss']:.4f}/{m['con_loss']:.4f}" for m in kern))
+    n = SWIN_DEC_BLOCKS
+    require_launches("swin rec+con", launches, SWIN_STEPS, {
+        "fused_ln_attn_layer": n, "fused_ln_attn_layer_bwd": n,
+        "fused_ln_mlp": n, "fused_ln_mlp_bwd": n})
+    gap = loss_gap("swin rec+con", kern, plain, CON_LOSS_GAP_REL)
+    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
+                             joint_batches, reps=REPS // 4)
+    out["launches"]["swin_rec_con_train"] = launches
+    out["records"]["rec_con_train"] = {
+        "model": "pretrain_hub_swin", "batch": TRAIN_BATCH,
+        "reps": REPS // 2, "loss_gap": gap,
+        "losses": [m["loss"] for m in kern],
+        **step_record(runs, peak, TRAIN_BATCH)}
+    del plain_hub, pstate, pstep
+
+    batches = con_batches(dev, "con", SWIN_STEPS)
+    adj_hub = build_swin_hub(dev, with_decoder=False, with_heads=True)
+    copied = init_from_checkpoint(adj_hub, hub.state_dict())
+    require(copied == len(adj_hub.state_dict()),
+            f"adj took {copied} of {len(adj_hub.state_dict())} tensors from "
+            "rec+con's hub")
+    del hub, state, step
+    freeze_except_norm(adj_hub)
+    frozen = {n: p.detach().clone() for n, p in adj_hub.named_parameters()
+              if not p.requires_grad}
+    for phase in ("adj", "con"):
+        if phase == "con":
+            for p in adj_hub.parameters():
+                p.requires_grad_(True)
+        state, step = make_swin_trainer(adj_hub, phase)
+        reset_counts()
+        metrics = run_steps(step, state, batches)
+        launches = read_counts()
+        log(f"swin {phase}: losses " + " ".join(
+            f"{m['loss']:.5f}" for m in metrics) + f"; launches {launches}")
+        require(all(np.isfinite([m["loss"] for m in metrics])),
+                f"non-finite swin {phase} loss")
+        require_launches(f"swin {phase}", launches, SWIN_STEPS, {})
+        if phase == "adj":
+            moved = [n for n, p in adj_hub.named_parameters()
+                     if n in frozen and not torch.equal(p, frozen[n])]
+            require(not moved, f"swin adj moved frozen parameters: "
+                               f"{moved[:4]}")
+            log(f"swin adj: {len(frozen)} frozen parameters unchanged bit "
+                "for bit")
+        out["launches"][f"swin_{phase}_train"] = launches
+        out["records"][f"{phase}_train"] = {
+            "model": "pretrain_hub_swin", "losses": [m["loss"]
+                                                     for m in metrics],
+            **one_path_record(f"swin {phase}", step, state, batches)}
+    return out
+
+
+def phase_swin_finetune(dev) -> dict:
+    """Swin-T, full width, drop-path 0.1, bf16, seed 0: cls at B=64 (K3 1
+    a step), semseg and flow at B=16 (K6 1), 22 replayed drop-path masks a
+    step; no other kernel in training, so the steps run once, losses held
+    finite, and are timed on that one path; each eval step K3 or K6 1 and
+    K5 6 (stage 3's MLPs), against the plain path's on the same
+    weights."""
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_swin_tiny
+    from eventpretrain_tpu_torch.models.dense_hub import dense_hub_swin_tiny
+
+    kw = dict(dtype=torch.bfloat16, device=dev,
+              generator=torch.Generator().manual_seed(0),
+              drop_path_rate=SWIN_DROP)
+
+    def make_hub(task):
+        if task == "cls":
+            return cls_hub_swin_tiny(NUM_CLASSES, NUM_BINS, **kw)
+        classes = DENSE_CLASSES if task == "semseg" else 2
+        return dense_hub_swin_tiny(classes, NUM_BINS,
+                                   decode_dropout=DENSE_DROP, **kw)
+
+    return finetune_tasks(dev, "swin", make_hub, SWIN_SITE_RATES, SWIN_DROP,
+                          {}, {"fused_mlp": SWIN_K5_BLOCKS})
+
+
+def phase_swin_cli(dev) -> None:
+    """The CLIs with ``--backbone swin``: ``pretrain --pr_phase rec`` (4
+    steps at B=64, counted: K1/K2 8 + 8 a step), ``pretrain --pr_phase
+    con-n`` from its checkpoint (the raw pipeline's K3 at 224, CLIP
+    ViT-B/16 in the loop, its 14x14 tokens through the conv projection to
+    the 49 cells; 4 steps, counted: K3 1 a step), then ``finetune_cls
+    --finetune`` from the rec checkpoint (the bridge's strict backbone
+    load of the Swin keys; 2 steps), ``finetune_semseg`` and
+    ``finetune_flow`` (JAX's smoke sources, 2 steps each, their evals on
+    K5)."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    from eventpretrain_tpu_torch.cli.finetune_cls import main as cls_main
+    from eventpretrain_tpu_torch.cli.finetune_flow import main as flow_main
+    from eventpretrain_tpu_torch.cli.finetune_semseg import main as seg_main
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    common = ["--device", str(dev), "--print_freq", "1", "--epochs", "1",
+              "--backbone", "swin"]
+    out = os.path.join("build", "chip_smoke_swin_rec")
+    t0 = time.perf_counter()
+    reset_counts()
+    state = pretrain_main(common + [
+        "--pr_phase", "rec", "--batch_size", str(TRAIN_BATCH),
+        "--mask_ratio", str(SWIN_MASK_RATIO), "--output_dir", out,
+        "--input_size", str(TRAIN_INPUT)])
+    launches = read_counts()
+    ckpt = os.path.join(out, "checkpoint.pth")
+    sd = load_torch_checkpoint(ckpt)
+    log(f"cli.pretrain --backbone swin --pr_phase rec: {state.step} steps "
+        f"in {time.perf_counter() - t0:.1f} s, checkpoint of {len(sd)} "
+        f"tensors; launches {launches}")
+    require(state.step == 4, f"the swin rec CLI ran {state.step} steps, "
+                             "expected 4")
+    require(set(sd) == set(state.module.state_dict()),
+            "the checkpoint's keys are not the hub's")
+    require(launches["fused_ln_attn_layer_bwd"] == 4 * SWIN_DEC_BLOCKS,
+            "the swin rec CLI's steps did not take K1's backward")
+    t0 = time.perf_counter()
+    reset_counts()
+    con_out = os.path.join("build", "chip_smoke_swin_con_n")
+    con_state = pretrain_main(common + [
+        "--pr_phase", "con-n", "--dataset", "synthetic", "--batch_size",
+        str(TRAIN_BATCH), "--init_from", ckpt, "--output_dir", con_out,
+        "--input_size", str(TRAIN_INPUT)])
+    launches = read_counts()
+    con_sd = load_torch_checkpoint(os.path.join(con_out, "checkpoint.pth"))
+    moved = [k for k in con_sd if k.startswith("backbone.swin_block")
+             and not torch.equal(con_sd[k], sd[k])]
+    log(f"cli.pretrain --backbone swin --pr_phase con-n: {con_state.step} "
+        f"steps in {time.perf_counter() - t0:.1f} s, checkpoint of "
+        f"{len(con_sd)} tensors, {len(moved)} trunk tensors moved from the "
+        f"rec checkpoint; launches {launches}")
+    require(con_state.step == 4, f"the swin con-n CLI ran {con_state.step} "
+                                 "steps, expected 4")
+    require(con_state.module.num_patches == 49,
+            "the swin con-n hub does not pair 49 tokens with CLIP's")
+    require(set(con_sd) == set(con_state.module.state_dict()),
+            "the con-n checkpoint's keys are not the hub's")
+    require(not any(k.startswith(("conv1.", "transformer.", "proj"))
+                    for k in con_sd), "the con-n checkpoint holds CLIP "
+                                      "tensors")
+    require(moved, "the swin con-n CLI did not train the trunk")
+    require(launches["splat"] == 4, "the swin con-n CLI's pipeline did not "
+                                    "take K3 once a step")
+    t0 = time.perf_counter()
+    res = cls_main(common + [
+        "--batch_size", str(TRAIN_BATCH), "--finetune", ckpt,
+        "--output_dir", os.path.join("build", "chip_smoke_swin_cls")])
+    cls_state = res["state"]
+    log(f"cli.finetune_cls --backbone swin --finetune: {cls_state.step} "
+        f"steps, val acc1 {res['val']['acc1']:.1f}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the CLI's synthetic source: 64 streams a class, 2 classes
+    require(cls_state.step == 128 // TRAIN_BATCH,
+            f"the swin cls CLI ran {cls_state.step} steps")
+    require(np.isfinite(res["val"]["loss"]), "non-finite swin cls CLI loss")
+    for name, main_fn in (("semseg", seg_main), ("flow", flow_main)):
+        t0 = time.perf_counter()
+        reset_counts()
+        res = main_fn(common + [
+            "--dataset", "synthetic", "--batch_size", str(DENSE_BATCH),
+            "--output_dir", os.path.join("build", f"chip_smoke_{name}_swin")])
+        launches = read_counts()
+        backbone = type(res["state"].module.backbone).__name__
+        log(f"cli.finetune_{name} --backbone swin ({backbone}): "
+            f"{res['state'].step} steps in {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
+        require(backbone == "SparseSwin", f"finetune_{name} --backbone swin "
+                                          f"built {backbone}")
+        require(res["state"].step == 2, f"the swin {name} CLI ran "
+                                        f"{res['state'].step} steps")
+        require(launches["fused_mlp"] >= SWIN_K5_BLOCKS,
+                f"the swin {name} CLI's eval did not take K5")
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -3700,7 +4147,7 @@ def device_profile(fn, calls: int) -> dict:
     one stream, so their times add; the profiler's own host cost lengthens
     the wall time, so the share is a lower bound); and the host's self CPU
     time per op (the 8 largest), which says where a host-bound step
-    spends its time."""
+    spends its time; and the host-to-device copies per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3713,7 +4160,10 @@ def device_profile(fn, calls: int) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     per: dict[str, float] = {}
     host: dict[str, float] = {}
+    htod = 0
     for e in prof.key_averages():
+        if e.key.startswith("Memcpy HtoD"):
+            htod += e.count
         if e.device_type == torch.autograd.DeviceType.CPU:
             host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / 1e3
         # device work only: user-annotated ranges (Optimizer.step#..., with
@@ -3756,6 +4206,7 @@ def device_profile(fn, calls: int) -> dict:
             "rows_ms": {k: v[0] / calls for k, v in rows.items()},
             "rows_launches": {k: v[1] / calls for k, v in rows.items()},
             "top_ms": [[k[:90], v / calls] for k, v in top],
+            "htod_copies": htod / calls,
             "host_ms": sum(host.values()) / calls,
             "top_host_ms": [[k[:90], v / calls] for k, v in top_host]}
 
@@ -3765,7 +4216,8 @@ def log_profile(what: str, prof: dict) -> None:
         log(f"profile {what}: the profiler recorded no device time")
         return
     log(f"profile {what}: {prof['device_ms']:.4g} ms of device time in "
-        f"{prof['wall_ms']:.4g} ms per call (busy {prof['busy_share']:.1%})")
+        f"{prof['wall_ms']:.4g} ms per call (busy {prof['busy_share']:.1%}), "
+        f"{prof['htod_copies']:.3g} host-to-device copies per call")
     log("  the GEMM: " + ", ".join(
         f"{layout} {ms:.4g} ms ({ms / prof['device_ms']:.1%})"
         for layout, ms in prof["gemm_ms"].items()))
@@ -3790,12 +4242,14 @@ def time_pair(fn, plain, calls: int = 1) -> tuple[float, float]:
 def timed_steps(paths: dict, batches: list, reps: int = REPS // 2
                 ) -> tuple[dict, dict]:
     """Host-clock ms of ``step(state, batch)`` calls on each path in turns
-    (plain, kernel, kernel, plain), ``reps`` a turn, each call a real
-    update of its own path's state; and the peak device memory a step adds
-    above what is resident, in GiB."""
-    runs = {True: [], False: []}
+    (plain, kernel, kernel, plain; a path ``paths`` lacks is left out),
+    ``reps`` a turn, each call a real update of its own path's state; and
+    the peak device memory a step adds above what is resident, in GiB."""
+    runs = {fused: [] for fused in paths}
     peak = {}
     for fused in (False, True, True, False):
+        if fused not in paths:
+            continue
         step, state = paths[fused]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -3815,6 +4269,8 @@ def timed_steps(paths: dict, batches: list, reps: int = REPS // 2
 def step_record(runs: dict, peak: dict, batch: int) -> dict:
     out = {}
     for fused, key in ((True, ""), (False, "plain_")):
+        if fused not in runs:
+            continue
         q1, med, q3 = statistics.quantiles(runs[fused], n=4)
         out.update({
             f"{key}step_ms": med, f"{key}step_ms_q1": q1,
@@ -4448,7 +4904,8 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, convvit, smi) -> None:
+                 dense, flow, host, loops, con, clip, convvit, swin,
+                 smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -4544,10 +5001,11 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # a shape is (L, C, heads) at the main path's batch, or (L, C, heads,
     # batch); the first is the row's, the others follow in "shapes". K1/K2
     # forward keep slice 1's shape (ViT-S, L=196, C=384) and add the rec
-    # path's two, the contrastive stages' dense ViT-B (L=196, C=768) and
+    # path's two, the contrastive stages' dense ViT-B (L=196, C=768),
     # ConvViT-S rec's encoder (L=49, C=384) and decoder (L=196, C=256, 8
-    # heads); their backward rows are the rec paths' decoder and encoder
-    # blocks and the dense ViT-B of stage 3. K4 runs in the cls train step
+    # heads) and Swin-T rec's decoder (L=49, C=256, 8 heads); their
+    # backward rows are the rec paths' decoder and encoder blocks and the
+    # dense ViT-B of stage 3. K4 runs in the cls train step
     # (ViT-S, and ViT-B for the CLI's --finetune run) and in ConvViT-S's
     # dense steps at B=16, K5 in the attention-map forward (ViT-S) and up
     # to the widest C of its gate.
@@ -4559,20 +5017,21 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
          attn + [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_attn_layer.py:357",
          [(196, 384, 12), (49, 768, 12), (196, 512, 16), (196, 768, 12),
-          (49, 384, 12), (196, 256, 8)],
+          (49, 384, 12), (196, 256, 8), (49, 256, 8)],
          False, k1_case, k1_work, None),
         ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:386",
          [(196, 512, 16), (49, 768, 12), (196, 768, 12), (49, 384, 12),
-          (196, 256, 8)], True, k1_case, k1_work, None),
+          (196, 256, 8), (49, 256, 8)], True, k1_case, k1_work, None),
         ("fused_ln_mlp", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:329",
          [(196, 384, 0), (49, 768, 0), (196, 512, 0), (196, 768, 0),
-          (49, 384, 0), (196, 256, 0)], False, k2_case, k2_work, None),
+          (49, 384, 0), (196, 256, 0), (49, 256, 0)], False, k2_case,
+         k2_work, None),
         ("fused_ln_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:356 (C<=512), :416 (C=768)",
          [(196, 512, 0), (49, 768, 0), (196, 768, 0), (49, 384, 0),
-          (196, 256, 0)], True, k2_case, k2_work, None),
+          (196, 256, 0), (49, 256, 0)], True, k2_case, k2_work, None),
         ("fused_attn_layer", csrc + "attention.cu", attn,
          "eventpretrain_tpu/ops/fused_attn_layer.py:202",
          [(196, 384, 12), (196, 768, 12), (196, 384, 12, DENSE_BATCH)],
@@ -4777,9 +5236,12 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # slice 3b's flow step (phase 5e) and the host half (phase 5f)
     e2e["flow_train"] = {**flow["record"], "card": smi}
     e2e["host_build"] = {**host, "card": smi}
-    # slice 5a's ConvViT steps and slice 4b-i's accumulation (phase 5i)
+    # slice 5a's ConvViT steps and slice 4b-i's accumulation (phase 5i),
+    # slice 5b's Swin steps (phase 5j)
     for key, rec in convvit.items():
         e2e[f"convvit_{key}"] = {**rec, "card": smi}
+    for key, rec in swin.items():
+        e2e[f"swin_{key}"] = {**rec, "card": smi}
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -4875,13 +5337,28 @@ def main() -> int:
                     for task, rec in cv_ft["records"].items()})
     phase_convvit_cli(dev)
     mark("ConvViT and accumulation")
+    sw_rec = phase_swin_rec(dev)
+    launches["swin_rec_train"] = sw_rec["launches"]
+    swin = {"rec_train": sw_rec["record"]}
+    del sw_rec
+    sw_con = phase_swin_con(dev)
+    launches.update(sw_con["launches"])
+    swin.update(sw_con["records"])
+    del sw_con
+    sw_ft = phase_swin_finetune(dev)
+    launches.update(sw_ft["launches"])
+    swin.update({f"{task}_train": rec
+                 for task, rec in sw_ft["records"].items()})
+    del sw_ft
+    phase_swin_cli(dev)
+    mark("Swin")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, convvit, smi)
+                 dense, flow, host, loops, con, clip, convvit, swin, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,15 @@ statistics (``running_mean``, ``running_var``, flax's ``batch_stats``) are
 buffers of the port's dense heads and projectors and load with the
 parameters (``export_torch_state_dict(params, batch_stats)``); only
 ``num_batches_tracked``, which the port's flax-style BatchNorm does not
-keep, is skipped when a file carries it. The ConvViT's tensors need
-nothing of their own: the exporter writes the depthwise kernels in OIHW
-(C, 1, 5, 5) and ``fpn.1``'s ``batch_stats`` as its running statistics
-(torch_export.py:31-37). ``init_from_state_dict`` is the finetune CLIs'
+keep, is skipped when a file carries it, and so are the sparse Swin's
+``relative_position_index`` and ``attn_mask`` buffers of a reference file,
+which the port recomputes from its plans (torch_import.py:216-221, JAX's
+``_SKIP_SUBSTRINGS``). The Swin's tensors load as the exporter writes them
+(torch_import.py:120-129): the relative-position bias tables as they are,
+``swin_block.S.downsample.reduction`` as a bias-free Linear. The
+ConvViT's tensors need nothing of their own: the exporter writes the
+depthwise kernels in OIHW (C, 1, 5, 5) and ``fpn.1``'s ``batch_stats`` as
+its running statistics (torch_export.py:31-37). ``init_from_state_dict`` is the finetune CLIs'
 ``--finetune``, JAX's ``init_variables_from(strict_backbone=True)``
 (torch_import.py:316-349). A JAX ``QueueState`` (the
 contrastive stages' queue, a (C, L, K) buffer and a pointer) crosses as
@@ -42,14 +47,18 @@ def load_torch_checkpoint(path: str) -> dict:
     return raw["model"]
 
 
+# buffers of a reference file that the port recomputes or does not keep
+_SKIPPED = ("num_batches_tracked", "relative_position_index", "attn_mask")
+
+
 def load_jax_state_dict(module: nn.Module, flat: Mapping) -> nn.Module:
     """Load ``{torch key: np.ndarray | torch.Tensor}`` into ``module``
-    strictly (``num_batches_tracked`` aside); each value is cast to its
-    parameter's or buffer's dtype and device."""
+    strictly (the buffers ``_SKIPPED`` names aside); each value is cast to
+    its parameter's or buffer's dtype and device."""
     sd = {
         k: v if isinstance(v, torch.Tensor)
         else torch.from_numpy(np.array(v))
-        for k, v in flat.items() if not k.endswith("num_batches_tracked")
+        for k, v in flat.items() if not any(s in k for s in _SKIPPED)
     }
     module.load_state_dict(sd, strict=True)
     return module
@@ -74,7 +83,7 @@ def init_from_state_dict(module: nn.Module, sd: Mapping,
     module.load_state_dict({k: v for k, v in sd.items() if k in own},
                            strict=False)
     return sorted(k for k in sd if k not in own
-                  and not k.endswith("num_batches_tracked"))
+                  and not any(s in k for s in _SKIPPED))
 
 
 def load_jax_queue(buffer, ptr, device="cpu") -> QueueState:

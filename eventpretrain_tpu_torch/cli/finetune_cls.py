@@ -1,13 +1,14 @@
 """Classification finetune entry point: raw events to a trained classifier.
 
 Counterpart of eventpretrain_tpu/cli/finetune_cls.py for ``--backbone
-vit`` and ``convvit`` on the synthetic and N-Cars sources, with the JAX
-CLI's flags and defaults for the data, the optimizer (AdamW (0.9, 0.999),
-the global-norm clip, layer decay) and the regularizers (drop-path 0.1,
-label smoothing 0.1). ``--device`` picks the card (default) or the CPU;
-on ``cuda`` the hub computes in bf16 (``--bf16``, the default), which
-routes the blocks that fuse through K1/K2 and, in training, the drop-path
-blocks' attention through K4.
+vit``, ``convvit`` and ``swin`` (Swin-T whatever ``--model_size``, as in
+JAX) on the synthetic and N-Cars sources, with the JAX CLI's flags and
+defaults for the data, the optimizer (AdamW (0.9, 0.999), the global-norm
+clip, layer decay) and the regularizers (drop-path 0.1, label smoothing
+0.1). ``--device`` picks the card (default) or the CPU; on ``cuda`` the
+hub computes in bf16 (``--bf16``, the default), which routes the blocks
+that fuse through K1/K2 and, in training, the drop-path blocks' attention
+through K4.
 
     python -m eventpretrain_tpu_torch.cli.finetune_cls --dataset synthetic \\
         --model_size small --epochs 2
@@ -41,6 +42,7 @@ from eventpretrain_tpu_torch.ckpt.bridge import (
     init_from_state_dict,
     load_torch_checkpoint,
 )
+from eventpretrain_tpu_torch.cli.finetune_semseg import REFUSED_BACKBONES
 from eventpretrain_tpu_torch.data.cls_pipeline import (
     ClsDataConfig,
     ClsPipeline,
@@ -50,6 +52,7 @@ from eventpretrain_tpu_torch.data.cls_pipeline import (
 from eventpretrain_tpu_torch.models.cls_hub import (
     cls_hub_convvit_base,
     cls_hub_convvit_small,
+    cls_hub_swin_tiny,
     cls_hub_vit_base,
     cls_hub_vit_small,
 )
@@ -158,10 +161,10 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_cls: --{name} is not ported yet; it "
                              f"comes with {slice_}")
-    if args.backbone not in ("vit", "convvit"):
+    if args.backbone in REFUSED_BACKBONES:
         raise SystemExit(f"finetune_cls: --backbone {args.backbone} is not "
-                         "ported yet; it comes with slice 5 (the other "
-                         "backbones)")
+                         "ported yet; it comes with "
+                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.accum_iter < 1:
         raise SystemExit(f"finetune_cls: --accum_iter must be at least 1, "
                          f"got {args.accum_iter}")
@@ -226,6 +229,8 @@ def main(argv=None) -> dict:
         ("vit", "base"): cls_hub_vit_base,
         ("convvit", "small"): cls_hub_convvit_small,
         ("convvit", "base"): cls_hub_convvit_base,
+        ("swin", "small"): cls_hub_swin_tiny,
+        ("swin", "base"): cls_hub_swin_tiny,
     }[(args.backbone, args.model_size)]
     hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,

@@ -1,9 +1,9 @@
 """Optical-flow finetune entry point: raw events to a trained flow hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_flow.py for ``--backbone
-convvit`` (the default, as in JAX) and ``vit``, with the JAX CLI's flags
-and defaults for the data (30000 events a
-sample, MVSEC's outdoor_day2 to train and the three indoor_flying splits to
+convvit`` (the default, as in JAX), ``vit`` and ``swin`` (Swin-T), with
+the JAX CLI's flags and defaults for the data (30000 events a sample,
+MVSEC's outdoor_day2 to train and the three indoor_flying splits to
 validate), the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
 gradient clip 3.0), the loss (decode 1.0 and auxiliary 0.4 times the L1 on
 valid pixels, flows over ``--max_flow`` left out), ``--sample_mode`` and the
@@ -43,6 +43,7 @@ import torch
 
 from eventpretrain_tpu_torch.cli.finetune_semseg import (
     BACKBONES,
+    REFUSED_BACKBONES,
     load_finetune,
 )
 from eventpretrain_tpu_torch.data.dense_pipeline import (
@@ -53,6 +54,7 @@ from eventpretrain_tpu_torch.data.dense_pipeline import (
 from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_base,
     dense_hub_convvit_small,
+    dense_hub_swin_tiny,
     dense_hub_vit_base,
     dense_hub_vit_small,
 )
@@ -150,10 +152,10 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_flow: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone not in ("vit", "convvit"):
+    if args.backbone in REFUSED_BACKBONES:
         raise SystemExit(f"finetune_flow: --backbone {args.backbone} is not "
-                         "ported yet; it comes with slice 5 (the other "
-                         "backbones)")
+                         "ported yet; it comes with "
+                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.num_bins in (2, 3):
         raise SystemExit(f"finetune_flow: --num_bins {args.num_bins} (the "
                          "ECDP/MEM count image) is not ported yet; it comes "
@@ -220,6 +222,8 @@ def main(argv=None) -> dict:
         ("vit", "base"): dense_hub_vit_base,
         ("convvit", "small"): dense_hub_convvit_small,
         ("convvit", "base"): dense_hub_convvit_base,
+        ("swin", "small"): dense_hub_swin_tiny,
+        ("swin", "base"): dense_hub_swin_tiny,
     }[(args.backbone, args.model_size)]
     hub = factory(
         2, args.num_bins, dtype=dtype, device=device,

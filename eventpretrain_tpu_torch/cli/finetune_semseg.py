@@ -2,13 +2,13 @@
 segmentation hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
-convvit`` (the default, as in JAX) and ``vit`` on the synthetic source,
-with the JAX CLI's flags and defaults for
-the data, the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
-no gradient clip unless asked), the loss weights (decode 1.0, auxiliary
-0.4), ``--sample_mode`` and the regularizers (drop-path 0.1, the heads'
-dropout 0.1). ``--device`` picks the card (default) or the CPU; on
-``cuda`` the hub computes in bf16 (``--bf16``, the default).
+convvit`` (the default, as in JAX), ``vit`` and ``swin`` (Swin-T whatever
+``--model_size``, as in JAX) on the synthetic source, with the JAX CLI's
+flags and defaults for the data, the optimizer (AdamW (0.9, 0.999), base lr
+1e-3, layer decay, no gradient clip unless asked), the loss weights (decode
+1.0, auxiliary 0.4), ``--sample_mode`` and the regularizers (drop-path 0.1,
+the heads' dropout 0.1). ``--device`` picks the card (default) or the CPU;
+on ``cuda`` the hub computes in bf16 (``--bf16``, the default).
 
     python -m eventpretrain_tpu_torch.cli.finetune_semseg \\
         --dataset synthetic --epochs 2 --batch_size 4
@@ -52,6 +52,7 @@ from eventpretrain_tpu_torch.eval.metrics import (
 from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_base,
     dense_hub_convvit_small,
+    dense_hub_swin_tiny,
     dense_hub_vit_base,
     dense_hub_vit_small,
 )
@@ -68,6 +69,14 @@ from eventpretrain_tpu_torch.train.steps import (
 
 BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp",
              "vit_mem", "swin_ecddp"]
+# the backbones of the JAX CLIs that the port does not have yet, each with
+# the slice that brings it (the finetune CLIs refuse them)
+REFUSED_BACKBONES = {
+    "vit_ecdp": "slice 5 (the ECDP baseline)",
+    "convvit_ecdp": "slice 5 (the ECDP baseline)",
+    "swin_ecddp": "slice 5 (the ECDP baseline, with ECDDP's Swin)",
+    "vit_mem": "slice 5 (the MEM baseline)",
+}
 
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
@@ -148,10 +157,10 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_semseg: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone not in ("vit", "convvit"):
+    if args.backbone in REFUSED_BACKBONES:
         raise SystemExit(f"finetune_semseg: --backbone {args.backbone} is "
-                         "not ported yet; it comes with slice 5 (the other "
-                         "backbones)")
+                         "not ported yet; it comes with "
+                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.dataset != "synthetic":
         raise SystemExit(f"finetune_semseg: --dataset {args.dataset} is not "
                          "ported yet; it comes with a later slice (the "
@@ -209,6 +218,8 @@ def main(argv=None) -> dict:
         ("vit", "base"): dense_hub_vit_base,
         ("convvit", "small"): dense_hub_convvit_small,
         ("convvit", "base"): dense_hub_convvit_base,
+        ("swin", "small"): dense_hub_swin_tiny,
+        ("swin", "base"): dense_hub_swin_tiny,
     }[(args.backbone, args.model_size)]
     hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,

@@ -1,25 +1,30 @@
-"""Pretrain entry point: the three stages of the paper on the ViT and
-ConvViT hubs (``--backbone``).
+"""Pretrain entry point: the three stages of the paper on the ViT, ConvViT
+and sparse Swin hubs (``--backbone``).
 
 Counterpart of eventpretrain_tpu/cli/pretrain.py for ``--pr_phase`` rec
-(stage 1, difference-guided masked modeling), adj (stage 2,
-backbone-fixed feature transition: the backbone frozen but its
-``norm_layer``), con (stage 3, focus-aimed contrast, the whole model
-trains) and rec+con (both objectives, summed), with the JAX CLI's flags
-and defaults; ``--device`` picks the card (default) or the CPU. On
-``cuda`` the hub computes in bf16 (``--bf16``, the default), which routes
-every block of the encoder and decoder through the K1/K2 kernels; stage 2
-runs them forward only. The contrastive phases read precomputed CLIP
-token embeddings (EF-ImageNet's ``<image>_clip_emb.pt``, or the synthetic
-source's) and pair the backbone's 196 tokens with CLIP ViT-B/16's 14x14
-grid, so they need ``--input_size 224``. ``adj-n`` and ``con-n`` are
-stages 2 and 3 with CLIP in the loop: raw N-ImageNet event streams
-(``--n_imagenet_root``) and their ImageNet images (``--imagenet_root``),
-or the synthetic raw source, through ``RawPretrainPipeline`` (K3 on the
-input-size canvas), each batch's images encoded on the card by the frozen
-CLIP ViT-B/16 (``ClipEncodingPipeline``; ``--clip_weights`` an OpenAI
-checkpoint, else a random tower from seed 0, with a warning). CLIP's
-parameters reach neither the optimizer nor a checkpoint.
+(stage 1, difference-guided masked modeling), adj (stage 2, backbone-fixed
+feature transition: the backbone frozen but its ``norm_layer``), con (stage
+3, focus-aimed contrast, the whole model trains) and rec+con (both
+objectives, summed), with the JAX CLI's flags and defaults; ``--device``
+picks the card (default) or the CPU. On ``cuda`` the hub computes in bf16
+(``--bf16``, the default), which routes every block of the encoder and
+decoder through the K1/K2 kernels; stage 2 runs them forward only. The
+contrastive phases read precomputed CLIP token embeddings (EF-ImageNet's
+``<image>_clip_emb.pt``, or the synthetic source's) and pair the backbone's
+196 tokens with CLIP ViT-B/16's 14x14 grid (Swin-T's 49 with the grid
+through a 2x2 stride-2 conv), so they need ``--input_size 224``.
+``--backbone swin`` is Swin-T whatever ``--model_size``, as in JAX: its rec
+and rec+con steps mask 32-pixel cells (``--mask_ratio``, one mask a batch,
+drawn from a schedule keyed by ``--seed`` and the step index,
+``--masking_strategy`` unused) and plan their windows on the host
+(``make_swin_rec_step``). ``adj-n`` and ``con-n`` are stages 2 and 3 with
+CLIP in the loop: raw N-ImageNet event streams (``--n_imagenet_root``) and
+their ImageNet images (``--imagenet_root``), or the synthetic raw source,
+through ``RawPretrainPipeline`` (K3 on the input-size canvas), each batch's
+images encoded on the card by the frozen CLIP ViT-B/16
+(``ClipEncodingPipeline``; ``--clip_weights`` an OpenAI checkpoint, else a
+random tower from seed 0, with a warning). CLIP's parameters reach neither
+the optimizer nor a checkpoint.
 
     python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase rec \\
         --dataset synthetic --model_size base --epochs 1
@@ -42,9 +47,9 @@ k batches of ``--batch_size`` into each update (``optax.MultiSteps``), as
 JAX does: the base lr scales with the effective batch ``batch_size * k``,
 the schedule counts updates (``steps // k`` an epoch), and the queue's
 length must be a multiple of the effective batch. The phases ``ecdp`` and
-``ecdp-ef``, ``--backbone swin``, ``--data_parallel``, ``--visualize`` and
-an orbax ``--init_from`` raise ``NotImplementedError`` naming the slice
-that brings them; JAX's other flags are not parsed.
+``ecdp-ef``, ``--data_parallel``, ``--visualize`` and an orbax
+``--init_from`` raise ``NotImplementedError`` naming the slice that
+brings them; JAX's other flags are not parsed.
 """
 
 from __future__ import annotations
@@ -77,6 +82,7 @@ from eventpretrain_tpu_torch.models.pretrain_hub import (
     pretrain_hub_convvit_base,
     pretrain_hub_convvit_small,
     pretrain_hub_small,
+    pretrain_hub_swin,
 )
 from eventpretrain_tpu_torch.objectives.contrastive import (
     QueueState,
@@ -93,6 +99,8 @@ from eventpretrain_tpu_torch.train.steps import (
     make_con_step,
     make_rec_and_con_step,
     make_rec_step,
+    make_swin_rec_and_con_step,
+    make_swin_rec_step,
 )
 
 PHASES = ["rec", "rec-n", "adj", "_adj", "adj-n", "con", "con-n", "rec+con",
@@ -199,10 +207,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--pr_phase {args.pr_phase} is not ported yet; it comes with "
             f"{_REFUSED_PHASES[args.pr_phase]}")
-    if args.backbone == "swin":
-        raise NotImplementedError(
-            "--backbone swin is not ported yet; it comes with slice 5 (the "
-            "sparse Swin and its host planner)")
     if args.accum_iter < 1:
         raise ValueError(f"--accum_iter must be at least 1, got "
                          f"{args.accum_iter}")
@@ -327,6 +331,8 @@ def main(argv=None):
         ("vit", "base"): pretrain_hub_base,
         ("convvit", "small"): pretrain_hub_convvit_small,
         ("convvit", "base"): pretrain_hub_convvit_base,
+        ("swin", "small"): pretrain_hub_swin,
+        ("swin", "base"): pretrain_hub_swin,
     }[(args.backbone, args.model_size)]
     hub = factory(
         num_bins=args.num_bins, frame_chans=args.frame_chans,
@@ -337,13 +343,15 @@ def main(argv=None):
         drop_rate=args.drop_rate, attn_drop_rate=args.attn_drop_rate,
         use_feature_fusion=args.use_feature_fusion,
     )
-    if contrastive and hub.num_patches != 196:
-        # token-level InfoNCE pairs the event tokens 1:1 with CLIP
-        # ViT-B/16's 14x14 token grid (cli/pretrain.py:355-366)
+    # token-level InfoNCE pairs the event tokens 1:1 with CLIP ViT-B/16's
+    # 14x14 token grid, Swin's 7x7 through the conv (cli/pretrain.py:
+    # 355-367)
+    want = 49 if args.backbone == "swin" else 196
+    if contrastive and hub.num_patches != want:
         raise ValueError(
             f"--pr_phase {args.pr_phase} pairs event tokens with CLIP's "
             f"tokens; --input_size must be 224 (got {args.input_size} -> "
-            f"{hub.num_patches} patches, need 196)")
+            f"{hub.num_patches} patches, need {want})")
     sd = None
     if args.init_from:
         sd = load_torch_checkpoint(args.init_from)
@@ -382,10 +390,23 @@ def main(argv=None):
                mask_ratio=args.mask_ratio,
                masking_strategy=args.masking_strategy,
                norm_pix_loss=args.norm_pix_loss)
-    if args.pr_phase == "rec":
-        step = make_rec_step(hub, **rec, generator=generator)
-    elif args.pr_phase in ("adj", "con"):
+    if args.pr_phase in ("adj", "con"):
         step = make_con_step(hub, **con)
+    elif args.backbone == "swin":
+        # the Swin schedule (cli/pretrain.py:525-553): 32-pixel cells, the
+        # patch grid at input_size // 4
+        swin = dict(cell_grid=int(hub.num_patches ** 0.5),
+                    mask_ratio=args.mask_ratio,
+                    decoder_patch_size=hub.patch_size,
+                    norm_pix_loss=args.norm_pix_loss,
+                    input_resolution=args.input_size // 4,
+                    window_size=hub.backbone.window_size,
+                    plan_seed=args.seed)
+        step = (make_swin_rec_step(hub, **swin, generator=generator)
+                if args.pr_phase == "rec"
+                else make_swin_rec_and_con_step(hub, **swin, **con))
+    elif args.pr_phase == "rec":
+        step = make_rec_step(hub, **rec, generator=generator)
     else:
         step = make_rec_and_con_step(hub, **rec, **con)
 

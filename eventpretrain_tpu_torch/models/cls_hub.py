@@ -1,9 +1,11 @@
-"""Classification hub: ViT or ConvViT backbone -> mean pool -> linear head.
+"""Classification hub: ViT, ConvViT or sparse Swin backbone -> mean pool
+-> linear head.
 
-Counterpart of eventpretrain_tpu/models/cls_hub.py:20-95 (the ViT and
-ConvViT hubs; the Swin, ECDP and MEM hubs wait for their backbones). A
-ConvViT hub's backbone has no stage decoders (``with_rec_decoders=False``),
-and the pool is the mean over its 14^2 tokens, as the ViT's. The module's
+Counterpart of eventpretrain_tpu/models/cls_hub.py:20-106 (the ViT,
+ConvViT and Swin hubs; the ECDP and MEM hubs wait for their backbones). A
+ConvViT or Swin hub's backbone has no stage decoders
+(``with_rec_decoders=False``), and the pool is the mean over its last
+tokens (14^2 of the ViT and ConvViT, Swin's 7^2). The module's
 mode is flax's ``train`` flag: ``hub.train()`` activates dropout and
 stochastic depth (``drop_rate``, ``attn_drop_rate``, ``drop_path_rate``,
 passed to the factories), whose masks come from the
@@ -23,6 +25,7 @@ from eventpretrain_tpu_torch.models.convvit import (
     convvit_small_patch16,
 )
 from eventpretrain_tpu_torch.models.layers import Linear, init_weights
+from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
@@ -99,4 +102,14 @@ def cls_hub_convvit_base(num_classes: int, num_bins: int = 5, *,
                          **bk) -> FtClsHub:
     """ConvViT-B hub without stage decoders (cls_hub.py:87-95)."""
     return _hub(convvit_base_patch16, num_classes, num_bins, dtype, device,
+                generator, with_rec_decoders=False, **bk)
+
+
+def cls_hub_swin_tiny(num_classes: int, num_bins: int = 5, *,
+                      dtype=torch.float32, device="cuda",
+                      generator: Optional[torch.Generator] = None,
+                      **bk) -> FtClsHub:
+    """Swin-T hub without stage decoders, the mean over its 49 stage-4
+    tokens at 224 px (cls_hub.py:97-106)."""
+    return _hub(swin_tiny_window7, num_classes, num_bins, dtype, device,
                 generator, with_rec_decoders=False, **bk)

@@ -73,6 +73,16 @@ def rec_decoder_small_patch16(encoder_dim: int, frame_chans: int = 1,
     return RecDecoder(encoder_dim, **cfg)
 
 
+def rec_decoder_swin_tiny_patch32(encoder_dim: int, frame_chans: int = 1,
+                                  **kwargs) -> RecDecoder:
+    """decoder.py:90-96: the sparse Swin's, C=256, depth 8, 8 heads, one
+    token a 32-pixel mask cell (49 at 224 px)."""
+    cfg = dict(patch_size=32, embed_dim=256, depth=8, num_heads=8,
+               frame_chans=frame_chans, num_patches=49)
+    cfg.update(kwargs)
+    return RecDecoder(encoder_dim, **cfg)
+
+
 def rec_decoder_base_patch16(encoder_dim: int, frame_chans: int = 1,
                              **kwargs) -> RecDecoder:
     """decoder.py:98-103: C=512, depth 8, 16 heads."""

@@ -1,15 +1,17 @@
-"""Dense-task hub: the ViT or ConvViT backbone's pyramid -> UPerHead +
-FCNHead.
+"""Dense-task hub: the ViT, ConvViT or sparse Swin backbone's pyramid ->
+UPerHead + FCNHead.
 
-Counterpart of eventpretrain_tpu/models/dense_hub.py:20-118 (``FtDenseHub``
-and the ViT and ConvViT factories); the Swin, ECDP and MEM hubs wait for
+Counterpart of eventpretrain_tpu/models/dense_hub.py:20-133 (``FtDenseHub``
+and the ViT, ConvViT and Swin factories); the ECDP and MEM hubs wait for
 their backbones. A ViT's pyramid is four 14^2 maps of its width; a
 ConvViT's is its two stage maps (56^2, 28^2), the 14^2 tokens and the FPN
 level (6^2, the backbone's ``with_fpn``), of widths (d0, d1, d2, d2), and
-its BatchNorm moves like the heads'. The module's mode is flax's
-``train`` flag: ``hub.train()`` activates drop-path, the heads' channel
-dropout and the BatchNorm statistics of the batch (updating the running
-ones); ``hub.eval()`` is deterministic and uses the running statistics.
+its BatchNorm moves like the heads'; Swin-T's is its four stages' tokens
+as maps (56^2 x 96, 28^2 x 192, 14^2 x 384, 7^2 x 768). The module's
+mode is flax's ``train`` flag: ``hub.train()`` activates drop-path, the
+heads' channel dropout and the BatchNorm statistics of the batch
+(updating the running ones); ``hub.eval()`` is deterministic and uses the
+running statistics.
 Drop-path and dropout masks come from the
 :class:`~eventpretrain_tpu_torch.models.layers.DropPathSource` the train
 step sets.
@@ -28,6 +30,7 @@ from eventpretrain_tpu_torch.models.convvit import (
 )
 from eventpretrain_tpu_torch.models.dense_heads import FCNHead, UPerHead
 from eventpretrain_tpu_torch.models.layers import init_weights
+from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
@@ -132,3 +135,16 @@ def dense_hub_convvit_base(num_classes: int, num_bins: int = 5, *,
     return _hub(convvit_base_patch16, (d0, d1, d2, d2), num_classes,
                 num_bins, dtype, device, generator, sample_mode,
                 decode_dropout, with_rec_decoders=False, with_fpn=True, **bk)
+
+
+def dense_hub_swin_tiny(num_classes: int, num_bins: int = 5, *,
+                        dtype=torch.float32, device="cuda",
+                        generator: Optional[torch.Generator] = None,
+                        sample_mode: str = "bilinear",
+                        decode_dropout: float = 0.1, **bk) -> FtDenseHub:
+    """Swin-T: the pyramid 56^2 x 96, 28^2 x 192, 14^2 x 384, 7^2 x 768
+    (dense_hub.py:121-133; the widths follow ``embed_dims``)."""
+    widths = bk.get("embed_dims", (96, 192, 384, 768))
+    return _hub(swin_tiny_window7, widths, num_classes, num_bins, dtype,
+                device, generator, sample_mode, decode_dropout,
+                with_rec_decoders=False, **bk)

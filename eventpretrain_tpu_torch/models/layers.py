@@ -453,12 +453,25 @@ class ProjectorMlp(nn.Sequential):
         return x
 
 
+# the std of a standard normal truncated to [-2, 2] (flax's initializer
+# divides by it)
+_TRUNC2_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Deterministic random init from an explicit CPU generator: Linear and
     Conv weights LeCun-normal (std 1/sqrt(fan_in), flax's default kernel
-    scale), biases 0, LayerNorm 1 and 0."""
+    scale), biases 0, LayerNorm 1 and 0, a Swin block's relative-position
+    bias table as flax's ``truncated_normal(0.02)``: a normal truncated
+    at 2 of its std, that std chosen so the truncated law's is 0.02."""
     for m in module.modules():
+        table = getattr(m, "relative_position_bias_table", None)
+        if isinstance(table, nn.Parameter):
+            std = 0.02 / _TRUNC2_STD
+            table.copy_(nn.init.trunc_normal_(
+                torch.empty(table.shape), std=std, a=-2 * std, b=2 * std,
+                generator=generator))
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator)

@@ -44,6 +44,13 @@ class TrainState:
     def accum_steps(self) -> int:
         return self.optimizer.defaults.get("accum_steps", 1)
 
+    @property
+    def microsteps(self) -> int:
+        """The count of ``apply_gradients`` calls so far: JAX's
+        ``TrainState.step``, which counts microsteps under accumulation.
+        The Swin steps key their mask schedule by it."""
+        return self.step * self.accum_steps + self.micro_step
+
     def apply_gradients(self) -> torch.Tensor:
         """One update from the gradients in ``.grad``, or under
         accumulation one microstep; returns the overflow-safe global norm

@@ -4,7 +4,9 @@ flow).
 
 Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
 :101-160, ``_queue_loss`` :85-98 (global scope), ``make_con_step``
-:163-220, ``make_rec_and_con_step`` :223-295, ``make_cls_train_step``
+:163-220, ``make_rec_and_con_step`` :223-295, the sparse Swin's
+``_HostCellMasker`` :388-537, ``make_swin_rec_step`` :540-604 and
+``make_swin_rec_and_con_step`` :877-948, ``make_cls_train_step``
 :298-345, ``make_cls_eval_step`` :348-385, ``make_semseg_train_step``
 :607-648, ``make_semseg_eval_step`` :651-675, ``make_flow_train_step``
 :679-717 and ``make_flow_eval_step`` :720-761, with ``_valid_row_mask``
@@ -19,8 +21,10 @@ the queue moving as every step's do, and its metrics the microstep's;
 
 from __future__ import annotations
 
+import concurrent.futures
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from eventpretrain_tpu_torch.eval.metrics import (
@@ -32,6 +36,8 @@ from eventpretrain_tpu_torch.models.layers import (
     DropPathSource,
     set_drop_path_source,
 )
+from eventpretrain_tpu_torch.models.swin import pack_plans_np, unpack_plans
+from eventpretrain_tpu_torch.models.swin_plan import build_swin_plans
 from eventpretrain_tpu_torch.objectives.cls import (
     cls_loss,
     per_sample_cls_loss,
@@ -196,6 +202,183 @@ def make_rec_and_con_step(hub, *, patch_size: int, num_patches: int,
         return {"loss": loss.detach(), "rec_loss": rec.detach(),
                 "con_loss": con.detach(), "grad_norm": grad_norm}
 
+    return step
+
+
+# the domain tags of the two Swin mask schedules (steps.py:388-391), which
+# keep them apart from each other and from pipelines seeded alike
+_SWIN_REC_TAG = 0x5717A5
+_SWIN_REC_CON_TAG = 0x5717C0
+# the steps the Swin masker plans and uploads ahead of the one it serves
+_PLAN_AHEAD = 2
+
+
+class _HostCellMasker:
+    """The Swin step's shared cell mask and its plans, made on the host
+    (steps.py:394-537). The mask of step ``s`` is
+    ``np.random.default_rng([plan_seed, domain_tag, s])``'s noise argsorted,
+    the first ``len_keep`` cells kept, pure numpy: the port plans JAX's
+    masks bit for bit at the same step index, ``state.microsteps``: JAX's
+    ``state.step``, here a host integer and so always exact, which a
+    resumed run restores.
+
+    One worker thread plans ``_PLAN_AHEAD`` steps ahead (the knapsack is tens
+    of ms at Swin-T/224) and uploads each step's packed buffer
+    (:func:`~eventpretrain_tpu_torch.models.swin.pack_plans_np`) to the
+    card as one copy: from pinned memory, non-blocking, on the stream the
+    step's kernels then run on. Each upload pins a fresh host buffer, and
+    torch's pinned-memory cache hands a block out again only after the
+    copy that read it has ended, so no host buffer is reused under a copy.
+    ``uploads`` counts the copies."""
+
+    def __init__(self, plan_seed: int, domain_tag: int, num_cells: int,
+                 len_keep: int, *, input_resolution: int, window_size: int,
+                 cell_grid: int, device):
+        self.plan_seed = plan_seed
+        self.domain_tag = domain_tag
+        self.num_cells = num_cells
+        self.len_keep = len_keep
+        self.input_resolution = input_resolution
+        self.window_size = window_size
+        self.cell_grid = cell_grid
+        self.device = torch.device(device)
+        self.uploads = 0
+        self._pending: dict = {}
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="swin-plan")
+
+    def _compute_np(self, step: int):
+        """``(flat int32, layout)`` of step ``step`` (steps.py:477-500)."""
+        noise = np.random.default_rng(
+            [self.plan_seed, self.domain_tag, step]).random(self.num_cells)
+        ids_shuffle = np.argsort(noise)
+        ids_restore = np.argsort(ids_shuffle)
+        ids_keep = ids_shuffle[:self.len_keep]
+        mask = np.ones(self.num_cells, np.float32)
+        mask[ids_keep] = 0.0
+        plans = build_swin_plans(
+            mask.astype(bool),
+            input_resolution=(self.input_resolution,) * 2,
+            window_size=self.window_size, cell_grid=self.cell_grid)
+        return pack_plans_np(plans, ids_keep, mask, ids_restore)
+
+    def _upload(self, step: int):
+        flat, layout = self._compute_np(step)
+        host = torch.from_numpy(flat)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self.uploads += 1
+        return host.to(self.device, non_blocking=True), layout
+
+    def flat_layout(self, state):
+        """The uploaded buffer and layout of this call's step."""
+        step = state.microsteps
+        for s in range(step, step + _PLAN_AHEAD + 1):
+            if s not in self._pending:
+                self._pending[s] = self._pool.submit(self._upload, s)
+        fut = self._pending.pop(step)
+        for s in [s for s in self._pending if s < step]:
+            self._pending.pop(s).cancel()
+        return fut.result()
+
+    def __call__(self, state, batch_size: int):
+        """``(plans, ids_keep, mask, ids_restore)`` of this call's step on
+        the card (``models/swin.py::unpack_plans``)."""
+        flat, layout = self.flat_layout(state)
+        return unpack_plans(flat, layout, batch_size)
+
+
+def _swin_rec_loss_fn(hub, tag: int, cell_grid: int, mask_ratio: float,
+                      decoder_patch_size: int, norm_pix_loss: bool,
+                      input_resolution: int, window_size: int,
+                      plan_seed: int):
+    """``(rec_loss(state, batch), masker)``: the step's mask
+    and plans from the schedule (a batch's ``ids_keep``/``mask`` are
+    ignored, as in JAX), ``forward_rec`` under them, and the
+    reconstruction loss."""
+    num_cells = cell_grid ** 2
+    masker = _HostCellMasker(
+        plan_seed, tag, num_cells, int(num_cells * (1 - mask_ratio)),
+        input_resolution=input_resolution, window_size=window_size,
+        cell_grid=cell_grid, device=next(hub.parameters()).device)
+
+    def rec_loss(state, batch: dict) -> torch.Tensor:
+        evg = batch["evg"]
+        plans, ids_keep, mask, ids_restore = masker(state, evg.shape[0])
+        pred, *_ = hub.forward_rec(evg, ids_keep, ids_restore, plans=plans)
+        return reconstruct_loss(pred, batch["frame"], mask,
+                                patch_size=decoder_patch_size,
+                                norm_pix_loss=norm_pix_loss,
+                                mask_ratio=mask_ratio)
+
+    return rec_loss, masker
+
+
+def make_swin_rec_step(hub, *, cell_grid: int = 7, mask_ratio: float = 0.5,
+                       decoder_patch_size: int = 32,
+                       norm_pix_loss: bool = True,
+                       input_resolution: int = 56, window_size: int = 7,
+                       plan_seed: int = 0,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Callable:
+    """``step(state, batch) -> metrics``: stage 1 of the sparse Swin
+    (steps.py:540-604): the batch-shared cell mask of the step's index
+    ``state.microsteps`` and its plans (:class:`_HostCellMasker`, tag
+    ``0x5717A5``), ``forward_rec``, the reconstruction loss over 32-pixel
+    cells, the backward and one AdamW update. ``batch = {'evg', 'frame'}``;
+    stochastic depth draws from ``generator``. ``step.masker`` is the
+    schedule."""
+    rec_loss, masker = _swin_rec_loss_fn(
+        hub, _SWIN_REC_TAG, cell_grid, mask_ratio, decoder_patch_size,
+        norm_pix_loss, input_resolution, window_size, plan_seed)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        hub.train()
+        set_drop_path_source(hub, DropPathSource(generator))
+        loss = rec_loss(state, batch)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    step.masker = masker
+    return step
+
+
+def make_swin_rec_and_con_step(hub, *, cell_grid: int = 7,
+                               mask_ratio: float = 0.5,
+                               decoder_patch_size: int = 32,
+                               norm_pix_loss: bool = True,
+                               input_resolution: int = 56,
+                               window_size: int = 7, use_queue: bool = False,
+                               temperature: float = 0.07,
+                               plan_seed: int = 0,
+                               queue_mode: str = "global",
+                               generator: Optional[torch.Generator] = None
+                               ) -> Callable:
+    """``step(state, batch) -> metrics``: the joint step of the sparse
+    Swin (steps.py:877-948): the reconstruction loss as in
+    :func:`make_swin_rec_step` (its own schedule, tag ``0x5717C0``) plus
+    ``forward_con``'s InfoNCE as in :func:`make_con_step`; one backward of
+    their sum and one AdamW update. ``batch`` holds ``evg``, ``frame`` and
+    ``clip_emb``; ``metrics`` ``loss``, ``rec_loss``, ``con_loss`` and
+    ``grad_norm``."""
+    rec_loss, masker = _swin_rec_loss_fn(
+        hub, _SWIN_REC_CON_TAG, cell_grid, mask_ratio, decoder_patch_size,
+        norm_pix_loss, input_resolution, window_size, plan_seed)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        hub.train()
+        set_drop_path_source(hub, DropPathSource(generator))
+        rec = rec_loss(state, batch)
+        con = _con_loss(hub, batch, state, use_queue, temperature,
+                        queue_mode)
+        loss = rec + con
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "rec_loss": rec.detach(),
+                "con_loss": con.detach(), "grad_norm": grad_norm}
+
+    step.masker = masker
     return step
 
 

@@ -775,7 +775,7 @@ def test_cli_trains_evaluates_and_writes_a_loadable_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "swin"], ["--dataset", "dsec"], ["--resume", "x"],
+    ["--backbone", "swin_ecddp"], ["--dataset", "dsec"], ["--resume", "x"],
     ["--export_torch", "x.pth"], ["--visualize"], ["--data_parallel"],
     ["--num_bins", "3"],
 ], ids=lambda f: f[0].lstrip("-"))

@@ -509,7 +509,7 @@ def test_cli_trains_and_validates_on_the_synthetic_source(monkeypatch,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backbone", "swin"], ["--visualize"], ["--resume", "x"],
+    ["--backbone", "swin_ecddp"], ["--visualize"], ["--resume", "x"],
     ["--data_parallel"], ["--num_bins", "3"], ["--dataset", "mvsec"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):

@@ -32,6 +32,8 @@ def _sources():
 def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "eventpretrain_tpu_torch.cli.serve" in mods
+    assert {"eventpretrain_tpu_torch.models.swin",
+            "eventpretrain_tpu_torch.models.swin_plan"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'eventpretrain_tpu', 'PIL',\n"
