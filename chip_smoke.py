@@ -20,19 +20,21 @@ backend's refusal of a shape, which its timing records as null):
 2. Kernel parity on the card, each kernel against its plain PyTorch version
    on the same inputs: the splat (K3) on both routes, each call on the one
    ``splat_route`` names: the cluster route at B=64, E=30000, 128x128x5
-   and at B=64, E=30300, 224x224x5 (the raw pretrain path's), the global
+   and at B=64, E=30300, 224x224x5 (the raw pretrain path's) and
+   224x224x2 (the ECDP count image's 2 polarity weights), the global
    route at B=8 of that shape and at DSEC's 440x640x5 (B=2, 200000
    events), strays past every edge; the tiled splat (K6) at B=2 of
    DSEC's shape, both entry points, with and without bin ranges, and the
    2-bin count image with and without bin ranges, on bucketed events with
    hand-placed strays; the LN
-   attention (K1) and LN MLP (K2) sub-blocks in bf16 at (8, 196, 384) and
-   (8, 196, 768), 12 heads; the bare attention layer (K4) at (8, 196, 384)
+   attention (K1) and LN MLP (K2) sub-blocks in bf16 at (8, 196, 384),
+   (8, 196, 768) and the ECDP step's (64, 51, 384), 12 heads; the bare attention layer (K4) at (8, 196, 384)
    and (8, 196, 768), 12 heads, and the bare MLP (K5) at (8, 196, 384) and
    (8, 196, 512); their backward kernels with the same ``dy`` at K1
    (8, 49, 768) H=12, (8, 196, 512) H=16, (8, 196, 384) H=12,
-   (8, 196, 768) H=12, K2 (8, 49, 768), (8, 196, 512), (8, 196, 384),
-   (8, 196, 768), K4 C=384, 768 and K5 C=384, 512; their GEMM alone
+   (8, 196, 768) H=12, (64, 51, 384) H=12, K2 (8, 49, 768),
+   (8, 196, 512), (8, 196, 384), (8, 196, 768), (64, 51, 384), K4 C=384,
+   768 and K5 C=384, 512; their GEMM alone
    (csrc/ln_gemm.cu) against its plain version ``gemm_reference``: every
    launch of K1/K4 at (64, 196, 384), K2/K5 at (64, 196, 512) and K2 at
    (64, 49, 768), forward and backward, and every layout and epilogue at a
@@ -210,6 +212,32 @@ backend's refusal of a shape, which its timing records as null):
    --backbone swin --finetune`` from the rec checkpoint, and
    ``cli.finetune_semseg.main`` and ``cli.finetune_flow.main`` with
    ``--backbone swin``.
+5k. Slice 5c, the ECDP baseline: ViT-S ECDP (two learned tokens, two
+   views masked to 49 of 196 patches, 51 tokens a block, the heads 4096
+   wide) at B=64, bf16, seed 0 on the synthetic 2-channel grids with
+   replayed masks: 4 ``make_ecdp_step`` steps on the kernel path
+   (counted: K1/K2 24 + 24 forward and 12 + 12 backward a step, the EMA
+   key encoder's 12 blocks forward only), the plain path and the plain
+   path in f32; the loss gap of the first 3 (two on the initial weights,
+   one after the first real update) held at 2%, every step's loss within
+   2% of the f32 path's, step 0's whole gradient no further from the f32
+   path's than 1.25 times the plain bf16 path's; before them the query
+   backbone alone under a fixed random cotangent (K1/K2 12 + 12 both ways
+   at L=51), its gradients within 5e-2 of the plain path's and within
+   1.25 times its distance from f32; the key path alone (K1/K2 12 + 12,
+   no backward); 4 steps against the two 65536-key queues; 4 on the raw
+   path (``EcdpRawPretrainPipeline`` at N-ImageNet's sensor, K3 2 a
+   batch on 224x224x2, its cluster route, phase 5h's CLIP tower in the
+   loop for the class token); 4 ConvViT-S ECDP steps (K1/K2 22 + 22
+   forward, 11 + 11 backward); ViT-ECDP-S semseg at DSEC's 440x640 and
+   flow at MVSEC's 260x346, B=16, ``--num_bins 2`` (K6 1 on the tiled
+   count image, K1/K2 1 + 1 and K4 11 + 11 a step, 22 replayed drop-path
+   masks) for 3 steps each against the plain path, and each eval step
+   (K6 1, K1/K2 12) against the plain path's; then
+   ``cli.pretrain.main --pr_phase ecdp``
+   (4 steps, counted), ``cli.finetune_cls.main --backbone vit_ecdp
+   --num_bins 2 --finetune`` from its checkpoint and
+   ``cli.finetune_semseg.main --backbone vit_ecdp --num_bins 2``.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -238,15 +266,16 @@ backend's refusal of a shape, which its timing records as null):
    flow batch's wire data; K3, K6 and K8 also from CUDA graphs of
    10 calls (the card alone); K1/K2 also at the contrastive stages'
    (64, 196, 768) H12, ConvViT-S rec's encoder (64, 49, 384) H12 and
-   decoder (64, 196, 256) H8 and Swin-T rec's decoder (64, 49, 256) H8,
-   forward and backward, beside ``sdpa``; K4
-   also at ConvViT-S's dense (16, 196, 384) H12; K3 also at
-   the raw pretrain path's (64, 5, 30300) on 224x224x5; the rec and
+   decoder (64, 196, 256) H8, Swin-T rec's decoder (64, 49, 256) H8 and
+   the ECDP step's (64, 51, 384) H12, forward and backward, beside
+   ``sdpa``; K4 also at ConvViT-S's dense (16, 196, 384) H12; K3 also at
+   the raw pretrain path's (64, 5, 30300) on 224x224x5 and the ECDP raw
+   path's (64, 2, 30300) on 224x224x2; the rec and
    cls train steps' ms, samples/s and peak memory on both paths (and the
    semseg step's at B=16, the adj, con, rec+con, adj-n and con-n steps' at
    B=64, 5 steps a turn; the flow step's from phase 5e; the ConvViT
    steps' and the accumulation check's from phase 5i; the Swin steps'
-   from phase 5j), CLIP's device ms
+   from phase 5j; the ECDP steps' from phase 5k), CLIP's device ms
    a batch, the cls, dense and raw pretrain pipelines' host time per
    batch, phase 5f's host builds and phase 5d's delivered
    samples/s; ``ln_backward``, ``colsum`` and ``ln_rows`` at
@@ -293,6 +322,8 @@ TRAIN_BATCH = 64
 TRAIN_INPUT = 224
 TRAIN_STEPS = 10
 TRAIN_BLOCKS = 12 + 8
+# the ECDP step's masked ViT-S: 2 learned tokens before 49 of 196 patches
+ECDP_TOKENS = 2 + 49
 # slice 3: the dense hub at DSEC's shape (sensor, events per sample, the
 # semseg CLI's batch)
 DSEC_HW = (440, 640)
@@ -554,8 +585,15 @@ def k5_args(gen, b, l, c, dev):
     return (a[0],) + a[3:]
 
 
-def splat_args(rng, batch, dev, grid_hw=CANVAS, capacity=EVENTS):
-    from eventpretrain_tpu_torch.ops.events import bilinear_bin_weights
+def splat_args(rng, batch, dev, grid_hw=CANVAS, capacity=EVENTS,
+               ecdp: bool = False):
+    """K3's operands from synthetic events with strays past every edge:
+    the voxel grid's ``NUM_BINS`` bilinear weights, or with ``ecdp`` the
+    count image's 2 polarity weights, zeroed past each count."""
+    from eventpretrain_tpu_torch.ops.events import (
+        _polarity_weights,
+        bilinear_bin_weights,
+    )
 
     ev, counts, _ = make_events(rng, batch, sensor_hw=grid_hw,
                                 capacity=capacity, out_of_frame=True)
@@ -563,7 +601,8 @@ def splat_args(rng, batch, dev, grid_hw=CANVAS, capacity=EVENTS):
     counts = torch.from_numpy(counts).to(dev)
     x = ev[..., 0].to(torch.int32).contiguous()
     y = ev[..., 1].to(torch.int32).contiguous()
-    wb = bilinear_bin_weights(ev, counts, NUM_BINS).transpose(1, 2)
+    wb = (_polarity_weights(ev, counts) if ecdp
+          else bilinear_bin_weights(ev, counts, NUM_BINS).transpose(1, 2))
     return y, x, wb.contiguous()
 
 
@@ -695,9 +734,10 @@ def phase_k3_parity(dev) -> tuple[float, float]:
     """K3 against its plain version on both routes, each call on the route
     ``splat_route`` names: the cluster route at the served and cls batch
     (B=64, E=30000, the 128x128x5 canvas) and at the raw pretrain path's
-    (B=64, E=30300, the 224x224x5 canvas), the global route at the served
-    B=8 and at DSEC's 440x640x5 (B=2, 200000 events), strays past every
-    edge in all."""
+    (B=64, E=30300, the 224x224x5 canvas, and the ECDP count image's
+    224x224x2: 2 polarity weights zeroed past each count), the global
+    route at the served B=8 and at DSEC's 440x640x5 (B=2, 200000 events),
+    strays past every edge in all."""
     from eventpretrain_tpu_torch.ops.splat import (
         splat,
         splat_reference,
@@ -706,20 +746,21 @@ def phase_k3_parity(dev) -> tuple[float, float]:
 
     rng = np.random.default_rng(1)
     worst = 0.0
-    for batch, grid_hw, capacity in ((64, CANVAS, EVENTS),
-                                     (8, CANVAS, EVENTS),
-                                     (2, DSEC_HW, DSEC_EVENTS),
-                                     (TRAIN_BATCH, (TRAIN_INPUT, TRAIN_INPUT),
-                                      RAW_CAPACITY)):
-        y, x, wb = splat_args(rng, batch, dev, grid_hw, capacity)
+    raw = (TRAIN_BATCH, (TRAIN_INPUT, TRAIN_INPUT), RAW_CAPACITY)
+    for batch, grid_hw, capacity, ecdp in ((64, CANVAS, EVENTS, False),
+                                           (8, CANVAS, EVENTS, False),
+                                           (2, DSEC_HW, DSEC_EVENTS, False),
+                                           (*raw, False), (*raw, True)):
+        y, x, wb = splat_args(rng, batch, dev, grid_hw, capacity, ecdp)
         hw = dict(height=grid_hw[0], width=grid_hw[1])
-        route = splat_route(batch, *grid_hw, NUM_BINS)
+        route = splat_route(batch, *grid_hw, wb.shape[1])
         before = dict(splat.launches_by_route)
         got, ref = splat(y, x, wb, **hw), splat_reference(y, x, wb, **hw)
         torch.cuda.synchronize()
         took = {r: n - before[r] for r, n in splat.launches_by_route.items()}
         err = (got - ref).abs().max().item()
-        log(f"splat ({batch}, {NUM_BINS}, {capacity}) -> {tuple(got.shape)}"
+        log(f"splat ({batch}, {wb.shape[1]}, {capacity}) -> "
+            f"{tuple(got.shape)}"
             f" on the {route} route ({took}): max_abs_err {err:.3g} (tol "
             f"{SPLAT_ATOL}), sum {got.sum().item():.6g} vs "
             f"{ref.sum().item():.6g}")
@@ -830,6 +871,18 @@ def phase_kernel_parity(dev) -> dict:
                                plain(*args, **kw))
             if c == 384:
                 errs[name] = (err, tol)
+    # K1/K2 at the ECDP step's masked ViT-S: 2 tokens and 49 of 196
+    # patches (L = 51, not a multiple of 16), at its batch
+    for name, fn, plain, args, kw in (
+            ("fused_ln_attn_layer", fused_ln_attn_layer,
+             fused_ln_attn_layer_reference,
+             k1_args(gen, TRAIN_BATCH, ECDP_TOKENS, 384, dev),
+             dict(num_heads=12, scale=32 ** -0.5)),
+            ("fused_ln_mlp", fused_ln_mlp, fused_ln_mlp_reference,
+             k2_args(gen, TRAIN_BATCH, ECDP_TOKENS, 384, dev), {})):
+        err, _, tol = hold(name, [TRAIN_BATCH, ECDP_TOKENS, 384],
+                           fn(*args, **kw), plain(*args, **kw))
+        errs[name] = (max(errs[name][0], err), max(errs[name][1], tol))
     # K4 at the cls train step's widths (ViT-S, ViT-B), K5 at ViT-S and the
     # widest C its gate takes
     for name, fn, plain, make, shapes in (
@@ -880,14 +933,17 @@ def phase_backward_parity(dev) -> dict:
 
     gen = torch.Generator().manual_seed(5)
     errs = {}
-    cases = [("fused_ln_attn_layer_bwd", l, c, h)
+    cases = [("fused_ln_attn_layer_bwd", l, c, h, 8)
              for l, c, h in ((49, 768, 12), (196, 512, 16), (196, 384, 12),
                              (196, 768, 12))]
-    cases += [("fused_ln_mlp_bwd", l, c, 0)
+    cases += [("fused_ln_mlp_bwd", l, c, 0, 8)
               for l, c in ((49, 768), (196, 512), (196, 384), (196, 768))]
-    cases += [("fused_attn_layer_bwd", 196, c, 12) for c in (384, 768)]
-    cases += [("fused_mlp_bwd", 196, c, 0) for c in (384, 512)]
-    for name, l, c, h in cases:
+    # the ECDP query encoder's blocks at its batch (L = 51)
+    cases += [("fused_ln_attn_layer_bwd", ECDP_TOKENS, 384, 12, TRAIN_BATCH),
+              ("fused_ln_mlp_bwd", ECDP_TOKENS, 384, 0, TRAIN_BATCH)]
+    cases += [("fused_attn_layer_bwd", 196, c, 12, 8) for c in (384, 768)]
+    cases += [("fused_mlp_bwd", 196, c, 0, 8) for c in (384, 512)]
+    for name, l, c, h, b in cases:
         kw = dict(num_heads=h, scale=(c // h) ** -0.5) if h else {}
         make, fn, plain, names, nin = {
             "fused_ln_attn_layer_bwd": (
@@ -901,10 +957,10 @@ def phase_backward_parity(dev) -> dict:
             "fused_mlp_bwd": (k5_args, fused_mlp_bwd,
                               fused_mlp_bwd_reference, BARE_GRAD_NAMES, 4),
         }[name]
-        args = make(gen, 8, l, c, dev)
-        dy = (torch.randn((8, l, c), generator=gen)).to(dev, torch.bfloat16)
+        args = make(gen, b, l, c, dev)
+        dy = (torch.randn((b, l, c), generator=gen)).to(dev, torch.bfloat16)
         worst_abs, worst, _ = hold(
-            name, [8, l, c] + ([h] if h else []), fn(*args, dy, **kw),
+            name, [b, l, c] + ([h] if h else []), fn(*args, dy, **kw),
             plain(*args[:nin], dy, **kw), names)
         prev = errs.get(name, (0.0, SUBBLOCK_REL_TOL, 0.0))
         errs[name] = (max(prev[0], worst_abs), SUBBLOCK_REL_TOL,
@@ -1774,7 +1830,7 @@ def build_cls_train_hub(dev, dtype=torch.bfloat16):
     )
 
 
-def cls_pipeline(dev, train: bool, batches: int):
+def cls_pipeline(dev, train: bool, batches: int, num_bins: int = NUM_BINS):
     """N-Cars-shaped synthetic streams (sensor 100x120, 30000 events)
     through the cls pipeline at B=64 with the u32 codec."""
     from eventpretrain_tpu_torch.data.cls_pipeline import (
@@ -1787,7 +1843,8 @@ def cls_pipeline(dev, train: bool, batches: int):
         num_classes=NUM_CLASSES,
         samples_per_class=TRAIN_BATCH * batches // NUM_CLASSES,
         num_events=EVENTS, sensor_hw=SENSOR_HW, seed=0 if train else 1000)
-    cfg = ClsDataConfig(num_classes=NUM_CLASSES, transfer_codec="u32")
+    cfg = ClsDataConfig(num_classes=NUM_CLASSES, num_bins=num_bins,
+                        transfer_codec="u32")
     return ClsPipeline(source, cfg, TRAIN_BATCH, train=train, seed=0,
                        device=dev)
 
@@ -2010,7 +2067,8 @@ def build_dense_hub(dev):
     )
 
 
-def dense_pipeline(dev, train: bool, batches: int):
+def dense_pipeline(dev, train: bool, batches: int,
+                   num_bins: int = NUM_BINS):
     """DSEC-shape synthetic streams (sensor 440x640, 200000 events, labels
     at 440x640) through the dense pipeline at B=16, u32 codec, tiling on
     "auto" (on: 440 * 640 > 65536)."""
@@ -2024,7 +2082,7 @@ def dense_pipeline(dev, train: bool, batches: int):
         "semseg", n=DENSE_BATCH * batches, num_classes=DENSE_CLASSES,
         sensor_hw=DSEC_HW, num_events=DSEC_EVENTS, seed=0 if train else 1000)
     cfg = DenseDataConfig(
-        task="semseg", num_bins=NUM_BINS, input_size=TRAIN_INPUT,
+        task="semseg", num_bins=num_bins, input_size=TRAIN_INPUT,
         fix_events_num=DSEC_EVENTS, val_fix_events_num=DSEC_EVENTS,
         sensor_height=DSEC_HW[0], sensor_width=DSEC_HW[1],
         label_size=DSEC_HW, tiled_raster="auto")
@@ -2442,7 +2500,7 @@ def build_flow_hub(dev):
     )
 
 
-def flow_pipeline(dev, train: bool, batches: int):
+def flow_pipeline(dev, train: bool, batches: int, num_bins: int = NUM_BINS):
     """MVSEC-shape synthetic streams (sensor 260x346, 30000 events, flow
     and validity at 260x346) through the dense pipeline at B=16, u32 codec
     (the gt as f16), tiling on "auto"."""
@@ -2456,7 +2514,7 @@ def flow_pipeline(dev, train: bool, batches: int):
         "flow", n=DENSE_BATCH * batches, sensor_hw=MVSEC_HW,
         num_events=MVSEC_EVENTS, seed=0 if train else 1000)
     cfg = DenseDataConfig(
-        task="flow", num_bins=NUM_BINS, input_size=TRAIN_INPUT,
+        task="flow", num_bins=num_bins, input_size=TRAIN_INPUT,
         fix_events_num=MVSEC_EVENTS, val_fix_events_num=MVSEC_EVENTS,
         sensor_height=MVSEC_HW[0], sensor_width=MVSEC_HW[1],
         label_size=MVSEC_HW, tiled_raster="auto")
@@ -3520,10 +3578,13 @@ def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
 
 
 def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
-                   train_want: dict, eval_want: dict) -> dict:
-    """cls at B=64 on N-Cars-shaped streams (K3 1 a step), semseg at
-    DSEC's 440x640 and flow at MVSEC's 260x346 at B=16 (K6 1), each with
-    ``make_hub(task)``'s hub, ``train_want``'s launches a step and
+                   train_want: dict, eval_want: dict,
+                   tasks: tuple = ("cls", "semseg", "flow"),
+                   num_bins: int = NUM_BINS) -> dict:
+    """Each of ``tasks``: cls at B=64 on N-Cars-shaped streams (K3 1 a
+    step), semseg at DSEC's 440x640 and flow at MVSEC's 260x346 at B=16
+    (K6 1), the pipelines' representation of ``num_bins`` channels, each
+    with ``make_hub(task)``'s hub, ``train_want``'s launches a step and
     replayed drop-path masks at ``site_rates``, against the plain path
     where ``train_want`` names a kernel (else the steps run the same code
     on both paths, and one is run and timed); then each task's eval step,
@@ -3538,16 +3599,16 @@ def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
     n = CONVVIT_FT_STEPS
     compare = bool(train_want)
     out, launches = {}, {}
-    for task in ("cls", "semseg", "flow"):
+    for task in tasks:
         hub = make_hub(task)
         if task == "cls":
             run = convvit_finetune_run(
                 f"{label} cls", hub,
                 lambda h: make_cls_trainer(h, dev, n),
-                cls_pipeline(dev, True, n), dropout=False,
+                cls_pipeline(dev, True, n, num_bins), dropout=False,
                 site_rates=site_rates, compare=compare)
             want = {"splat": 1, **train_want}
-            val_pipe = cls_pipeline(dev, False, 1)
+            val_pipe = cls_pipeline(dev, False, 1, num_bins)
             evals = [make_cls_eval_step(h) for h in (run["hub"],
                                                      run["plain_hub"])]
         else:
@@ -3563,11 +3624,11 @@ def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
             # held
             run = convvit_finetune_run(
                 f"{label} {task}", hub, lambda h, make=make: make(h, dev, n),
-                pipeline(dev, True, n), dropout=True,
+                pipeline(dev, True, n, num_bins), dropout=True,
                 held=n if task == "semseg" else 1, site_rates=site_rates,
                 compare=compare)
             want = {"splat_tiled": 1, **train_want}
-            val_pipe = pipeline(dev, False, 1)
+            val_pipe = pipeline(dev, False, 1, num_bins)
             if task == "semseg":
                 evals = [make_semseg_eval_step(
                     h, num_classes=DENSE_CLASSES, ignore_label=DENSE_IGNORE)
@@ -4101,6 +4162,520 @@ def phase_swin_cli(dev) -> None:
                                         f"{res['state'].step} steps")
         require(launches["fused_mlp"] >= SWIN_K5_BLOCKS,
                 f"the swin {name} CLI's eval did not take K5")
+
+
+# --------------------------------------------------------------- phase 5k
+# Slice 5c: the ECDP baseline. ViT-S ECDP at B=64, bf16: two views masked
+# to 49 of 196 patches, the two learned tokens prepended (51 tokens a
+# block); the query encoder's 12 blocks take K1/K2 forward and backward,
+# the EMA key encoder's 12 forward only, under no_grad. The heads (4096
+# wide) and the objectives are plain PyTorch. On the raw path the two
+# views' 2-channel count images come from K3 on the 224x224x2 canvas (its
+# cluster route: 2 CTAs of one channel a sample), CLIP ViT-B/16's class
+# token from phase 5h's tower.
+
+ECDP_STEPS = 4
+# The warmup's first update runs at lr 0 (schedule(0) = 0), so losses 0
+# and 1 are both taken on the initial weights and loss 2 is the first
+# after a real update (lr / 4). At this init the step's gradient is
+# ill-conditioned in bf16: the two learned tokens come out of the backbone
+# nearly alike for every sample, and the projectors' BatchNorms normalise
+# what differs, so the rounding of the common part becomes a large share
+# of the normalised signal (on an H100 each bf16 path's step-0 gradient is
+# 52-55% of its norm away from the f32 path's, and 60% from the other's).
+# Held, so: the loss gap of the first three steps (2%); each step's loss
+# within 2% of the same steps' in f32 on the plain path (from the same
+# init, batches and masks); the kernel path's step-0 gradient no further
+# from the f32 path's than ECDP_WITNESS_RATIO times the plain bf16 path's;
+# and, where nothing amplifies rounding, the query backbone alone under a
+# fixed random cotangent on its two token embeddings: forward and
+# backward through its 12 blocks (K1/K2 at L=51, padded to 64) on the
+# first batch and mask, every backbone gradient within ECDP_GRAD_REL of
+# the plain path's (global norm of the difference over the plain norm,
+# as the accumulation's check) and no further from f32 than the ratio.
+ECDP_HELD = 3
+ECDP_GRAD_REL = 5e-2
+ECDP_WITNESS_RATIO = 1.25
+ECDP_QUEUE = 65536  # the CLI's --queue_length
+ECDP_DEPTH = 12
+CONVVIT_ECDP_DEPTH = 11
+# a step: the query's blocks forward and backward, the key's forward
+ECDP_WANT = {"fused_ln_attn_layer": 2 * ECDP_DEPTH,
+             "fused_ln_mlp": 2 * ECDP_DEPTH,
+             "fused_ln_attn_layer_bwd": ECDP_DEPTH,
+             "fused_ln_mlp_bwd": ECDP_DEPTH}
+
+
+def build_ecdp(dev, convvit: bool = False, dtype=torch.bfloat16):
+    from eventpretrain_tpu_torch.models.ecdp_hub import (
+        ecdp_model_convvit_small,
+        ecdp_model_small,
+    )
+
+    make = ecdp_model_convvit_small if convvit else ecdp_model_small
+    return make(dtype=dtype, device=dev,
+                generator=torch.Generator().manual_seed(0),
+                input_size=TRAIN_INPUT)
+
+
+def ecdp_batches(dev, steps: int, seed: int = 0) -> list[dict]:
+    """``steps`` B=64 ECDP batches of the synthetic 2-channel source
+    through ``EcdpPretrainPipeline``, each with the two views' maskings
+    (replayed on both paths)."""
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        EcdpPretrainPipeline,
+        PretrainDataConfig,
+        SyntheticPretrainSource,
+    )
+    from eventpretrain_tpu_torch.ops.masking import random_masking
+
+    source = SyntheticPretrainSource(n=TRAIN_BATCH * steps, size=TRAIN_INPUT,
+                                     num_bins=2, clip_tokens=1, seed=seed)
+    cfg = PretrainDataConfig(pr_phase="ecdp", num_bins=2,
+                             input_size=TRAIN_INPUT)
+    gen = torch.Generator(dev).manual_seed(seed)
+    batches = []
+    for batch in EcdpPretrainPipeline(source, cfg, TRAIN_BATCH, seed=seed,
+                                      device=dev):
+        for view in ("q", "k"):
+            ids_keep, mask, _ = random_masking(
+                gen, TRAIN_BATCH, (TRAIN_INPUT // 16) ** 2, 0.75, device=dev)
+            batch.update({f"ids_keep_{view}": ids_keep,
+                          f"mask_{view}": mask})
+        batches.append(batch)
+    return batches
+
+
+def make_ecdp_trainer(model, use_queue: bool = False):
+    """The CLI's optimizer, schedule (lr 1e-3 * 64 / 256, one epoch of
+    warmup over ``ECDP_STEPS``, so the steps move the weights), key encoder
+    (the model's copy, on the model's path) and step, with the CLI's
+    defaults; the queues of ``ECDP_QUEUE`` keys with ``use_queue``."""
+    from eventpretrain_tpu_torch.models.ecdp_hub import make_key_encoder
+    from eventpretrain_tpu_torch.objectives.ecdp import init_sample_queue
+    from eventpretrain_tpu_torch.train.optim import (
+        build_optimizer,
+        cosine_warmup_schedule,
+    )
+    from eventpretrain_tpu_torch.train.state import TrainState
+    from eventpretrain_tpu_torch.train.steps import make_ecdp_step
+
+    dev = next(model.parameters()).device
+    schedule = cosine_warmup_schedule(1e-3 * TRAIN_BATCH / 256, 0.0, 1, 400,
+                                      ECDP_STEPS)
+    queue = None
+    if use_queue:
+        queue = tuple(init_sample_queue(torch.Generator(dev).manual_seed(i),
+                                        256, ECDP_QUEUE, device=dev)
+                      for i in (1, 2))
+    state = TrainState(model, build_optimizer(model, weight_decay=0.05,
+                                              betas=(0.9, 0.95)),
+                       schedule, queue=queue,
+                       key_encoder=make_key_encoder(model))
+    step = make_ecdp_step(model, num_patches=model.num_patches,
+                          use_queue=use_queue,
+                          total_epochs=400, steps_per_epoch=ECDP_STEPS,
+                          generator=torch.Generator(dev).manual_seed(0))
+    return state, step
+
+
+def ecdp_grad_group(name: str) -> str:
+    """The part of an ECDP model a parameter belongs to: the backbone, a
+    projector (``encoder.*``), a predictor or ``clip_emb_proj``."""
+    parts = name.split(".")
+    return ".".join(parts[:2] if parts[0] == "encoder" else parts[:1])
+
+
+def first_update_gradient(state) -> list:
+    """A list that the first update of ``state`` fills with the gradient
+    it applies (after the clip, before AdamW): a dict of f32 vectors, each
+    part's parameters (``ecdp_grad_group``) in their order, flattened; the
+    hook then removes itself."""
+    got = []
+    named = list(state.module.named_parameters())
+
+    def hook(optimizer, args, kwargs):
+        parts = {}
+        for name, p in named:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            parts.setdefault(ecdp_grad_group(name), []).append(
+                g.float().flatten())
+        got.append({k: torch.cat(v) for k, v in parts.items()})
+        handle.remove()
+
+    handle = state.optimizer.register_step_pre_hook(hook)
+    return got
+
+
+def rel_dist(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``|a - b| / |b|`` in the global 2-norm."""
+    return ((a - b).norm() / b.norm()).item()
+
+
+def grad_dists(gk, gp, g32) -> dict:
+    """The kernel, plain and f32 paths' gradient vectors against each
+    other (``rel_dist``) and the share of components whose signs agree."""
+    sign = lambda a, b: (a.sign() == b.sign()).float().mean().item()
+    return {"kernel_plain": rel_dist(gk, gp),
+            "kernel_f32": rel_dist(gk, g32),
+            "plain_f32": rel_dist(gp, g32),
+            "sign_kernel_plain": sign(gk, gp),
+            "sign_kernel_f32": sign(gk, g32),
+            "sign_plain_f32": sign(gp, g32),
+            "norm_f32": g32.norm().item()}
+
+
+def ecdp_backbone_backward(models: list, batch: dict) -> dict:
+    """The query backbone of each of the kernel, plain and f32 models
+    (same weights), forward on ``batch``'s ``img_q`` at its mask and
+    backward from one fixed random cotangent on the two token embeddings;
+    the gradients are cleared after. Held as ``ECDP_HELD`` says, with the
+    tokens' outputs within 2% of their scale; also reports how far the
+    tokens differ across the batch, next to their size."""
+    dev = batch["img_q"].device
+    gen = torch.Generator(dev).manual_seed(5)
+    outs, grads = [], []
+    cts = None
+    for model in models:
+        bk = model.encoder.backbone
+        bk.train()
+        ev, im, _ = bk.encode_masked(batch["img_q"], batch["ids_keep_q"],
+                                     batch["mask_q"])
+        if cts is None:
+            cts = [torch.randn(t.shape, generator=gen, device=dev)
+                   for t in (ev, im)]
+        ((ev.float() * cts[0]).sum() + (im.float() * cts[1]).sum()
+         ).backward()
+        outs.append(torch.stack([ev.float(), im.float()]).detach())
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in bk.parameters()]))
+        model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    out_rel = ((outs[0] - outs[1]).abs().max()
+               / outs[1].abs().max()).item()
+    x = outs[2]
+    spread = ((x - x.mean(1, keepdim=True)).norm() / x.norm()).item()
+    res = {"tokens_rel": out_rel, "tokens_spread_f32": spread,
+           **grad_dists(*grads)}
+    log("ecdp backbone under a fixed cotangent: " + json.dumps(res))
+    require(out_rel <= LOSS_GAP_REL, "ecdp: the backbone's tokens leave the "
+                                     "plain path's")
+    require(res["kernel_plain"] <= ECDP_GRAD_REL,
+            "ecdp: the backbone's gradients leave the plain path's")
+    require(res["kernel_f32"] <= ECDP_WITNESS_RATIO * res["plain_f32"],
+            "ecdp: the backbone's gradients are further from f32 than the "
+            "plain bf16 path's allows")
+    return res
+
+
+def ecdp_witness(kern: list, plain: list, f32: list, grads: list) -> dict:
+    """The ECDP steps against the f32 path (see ``ECDP_HELD``): ``grads``
+    the step-0 gradients of the kernel, plain and f32 paths, by part;
+    ``kern``, ``plain``, ``f32`` their steps' metrics."""
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    whole = [torch.cat(list(g.values())) for g in grads]
+    loss = {k: [m["loss"] for m in ms]
+            for k, ms in (("kernel", kern), ("plain", plain), ("f32", f32))}
+    out = {
+        "grad": grad_dists(*whole),
+        "grad_by_part": {k: grad_dists(*(g[k] for g in grads))
+                         for k in grads[0]},
+        "grad_norms": {k: [m["grad_norm"] for m in ms] for k, ms in (
+            ("kernel", kern), ("plain", plain), ("f32", f32))},
+        "losses_f32": loss["f32"],
+        "loss_gaps_kernel_f32": rel(loss["kernel"], loss["f32"]),
+        "loss_gaps_plain_f32": rel(loss["plain"], loss["f32"]),
+    }
+    del whole
+    log("ecdp f32 witness: " + json.dumps(out))
+    require(max(out["loss_gaps_kernel_f32"]) <= CON_LOSS_GAP_REL,
+            "ecdp: the kernel path's loss leaves the f32 path's")
+    g = out["grad"]
+    require(g["kernel_f32"] <= ECDP_WITNESS_RATIO * g["plain_f32"],
+            "ecdp: the kernel path's step-0 gradient is further from the "
+            "f32 path's than the plain bf16 path's allows")
+    return out
+
+
+def ecdp_key_forward_only(key, batch) -> dict:
+    """The key path alone, counted: its 12 blocks forward and no backward
+    kernel."""
+    from eventpretrain_tpu_torch.models.ecdp_hub import forward_key
+
+    reset_counts()
+    k = forward_key(key, batch["img_k"], batch["ids_keep_k"],
+                    batch["mask_k"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    require(not k.requires_grad, "the key path carries a gradient")
+    require_launches("ecdp key path", launches, 1, {
+        "fused_ln_attn_layer": ECDP_DEPTH, "fused_ln_mlp": ECDP_DEPTH})
+    return launches
+
+
+def phase_ecdp_training(dev, clip_tower) -> dict:
+    """ViT-S ECDP at B=64: ``ECDP_STEPS`` steps on the kernel path
+    (counted: K1/K2 24 + 24 forward, 12 + 12 backward a step) and the
+    plain path from the same init, batches and masks, the loss gap of the
+    first ``ECDP_HELD``, the backbone under a fixed cotangent
+    (``ecdp_backbone_backward``), the steps against the f32 path
+    (``ecdp_witness``), and both paths timed; the key path alone (12 + 12
+    forward, no backward);
+    the same steps against the two 65536-key queues (one path); the raw
+    path (``EcdpRawPretrainPipeline`` at N-ImageNet's sensor, K3 2 a
+    batch on the 224x224x2 canvas, CLIP's class token in the loop,
+    counted with its steps); and ConvViT-S ECDP (K1/K2 22 + 22 forward,
+    11 + 11 backward a step; one path)."""
+    from eventpretrain_tpu_torch.data.pretrain_pipeline import (
+        ClipEncodingPipeline,
+        EcdpRawPretrainPipeline,
+        RawPretrainDataConfig,
+        SyntheticRawPretrainSource,
+    )
+    from eventpretrain_tpu_torch.ops.splat import splat
+
+    out = {"launches": {}, "records": {}}
+    t0 = time.perf_counter()
+    batches = ecdp_batches(dev, ECDP_STEPS)
+    log(f"ecdp batches: {len(batches)} x img_q "
+        f"{tuple(batches[0]['img_q'].shape)}, clip_emb "
+        f"{tuple(batches[0]['clip_emb'].shape)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    model = build_ecdp(dev)
+    plain_model = copy.deepcopy(model)
+    set_fused(plain_model, False)
+    f32_model = build_ecdp(dev, dtype=torch.float32)
+    f32_model.load_state_dict(model.state_dict())
+    set_fused(f32_model, False)
+    state, step = make_ecdp_trainer(model)
+    pstate, pstep = make_ecdp_trainer(plain_model)
+    fstate, fstep = make_ecdp_trainer(f32_model)
+    backbone = ecdp_backbone_backward([model, plain_model, f32_model],
+                                      batches[0])
+    grads = [first_update_gradient(s) for s in (state, pstate, fstate)]
+    reset_counts()
+    kern = run_steps(step, state, batches)
+    launches = read_counts()
+    plain = run_steps(pstep, pstate, batches)
+    f32 = run_steps(fstep, fstate, batches)
+    require(read_counts() == launches,
+            "the plain or the f32 path launched a kernel")
+    log(f"ecdp launches over {ECDP_STEPS} steps {launches}")
+    for what, ms in (("kernel", kern), ("plain", plain)):
+        log(f"ecdp image / event / kl losses, {what} path: " + " ".join(
+            f"{m['loss_image']:.4f}/{m['loss_event']:.4f}/"
+            f"{m['loss_kl']:.5f}" for m in ms))
+    log("ecdp momentum " + " ".join(f"{m['ema_momentum']:.6f}"
+                                     for m in kern))
+    require_launches("ecdp", launches, ECDP_STEPS, ECDP_WANT)
+    gap = loss_gap("ecdp", kern[:ECDP_HELD], plain[:ECDP_HELD],
+                   CON_LOSS_GAP_REL)
+    later = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+             for a, b in zip(kern[ECDP_HELD:], plain[ECDP_HELD:])]
+    log("ecdp later steps' loss gaps " + " ".join(f"{g:.3g}" for g in later))
+    require(all(np.isfinite([m["loss"] for m in kern + plain + f32])),
+            "non-finite ecdp loss")
+    witness = ecdp_witness(kern, plain, f32, [g[0] for g in grads])
+    del grads, f32_model, fstate, fstep
+    key_launches = ecdp_key_forward_only(state.key_encoder, batches[0])
+    runs, peak = timed_steps({True: (step, state), False: (pstep, pstate)},
+                             batches, reps=REPS // 4)
+    out["launches"]["ecdp_train"] = launches
+    out["launches"]["ecdp_key_path"] = key_launches
+    rec = {"model": "ecdp_model_small", "batch": TRAIN_BATCH,
+           "reps": REPS // 2, "loss_gap": gap, "held_steps": ECDP_HELD,
+           "later_loss_gaps": later, "f32_witness": witness,
+           "backbone_cotangent": backbone,
+           "losses": [m["loss"] for m in kern],
+           **step_record(runs, peak, TRAIN_BATCH)}
+    rec["profile"] = device_profile(lambda: step(state, batches[0]), 3)
+    log(f"ecdp step B={TRAIN_BATCH}: kernel {rec['step_ms']:.4g} ms "
+        f"({rec['peak_step_gib']:.3g} GiB above resident), plain "
+        f"{rec['plain_step_ms']:.4g} ms; loss gap {gap:.3g}")
+    log_profile(f"ecdp step B={TRAIN_BATCH}", rec["profile"])
+    out["records"]["ecdp_train"] = rec
+    del plain_model, pstate, pstep
+
+    # the queues: the same model on, one path
+    qstate, qstep = make_ecdp_trainer(model, use_queue=True)
+    reset_counts()
+    qm = run_steps(qstep, qstate, batches)
+    launches = read_counts()
+    ptrs = [q.ptr for q in qstate.queue]
+    log(f"ecdp queue ({ECDP_QUEUE} keys): losses " + " ".join(
+        f"{m['loss']:.5f}" for m in qm) + f"; pointers {ptrs}; launches "
+        f"{launches}")
+    require(all(np.isfinite([m["loss"] for m in qm])),
+            "non-finite ecdp queue loss")
+    require(ptrs == [ECDP_STEPS * TRAIN_BATCH % ECDP_QUEUE] * 2,
+            f"the ecdp queues' pointers are {ptrs}")
+    require_launches("ecdp queue", launches, ECDP_STEPS, ECDP_WANT)
+    out["launches"]["ecdp_queue_train"] = launches
+    out["records"]["ecdp_queue_train"] = {
+        "model": "ecdp_model_small", "queue_length": ECDP_QUEUE,
+        "losses": [m["loss"] for m in qm],
+        **one_path_record("ecdp queue", qstep, qstate, batches)}
+    del qstate, qstep
+
+    # the raw path: the views' count images through K3, CLIP in the loop
+    source = SyntheticRawPretrainSource(n=TRAIN_BATCH * ECDP_STEPS,
+                                        hw=RAW_HW, num_events=RAW_EVENTS,
+                                        seed=0)
+    pipe = EcdpRawPretrainPipeline(
+        source, RawPretrainDataConfig(num_bins=2, input_size=TRAIN_INPUT,
+                                      fix_events_num=RAW_FIX_EVENTS),
+        TRAIN_BATCH, train=True, seed=0, device=dev)
+    rstate, rstep = make_ecdp_trainer(model)
+    reset_counts()
+    t0 = time.perf_counter()
+    raw_batches, rm = [], []
+    for batch in ClipEncodingPipeline(pipe, clip_tower, cls_only=True):
+        raw_batches.append(batch)
+        rm.append(rstep(rstate, batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    by_route = dict(splat.launches_by_route)
+    rm = [{k: float(v) for k, v in m.items()} for m in rm]
+    host_ms = pipe.host_seconds / pipe.batches * 1e3
+    log(f"ecdp raw: {len(raw_batches)} batches of img_q "
+        f"{tuple(raw_batches[0]['img_q'].shape)}, clip_emb "
+        f"{tuple(raw_batches[0]['clip_emb'].shape)}; host build "
+        f"{host_ms:.1f} ms a batch; pipeline, CLIP and steps {wall:.1f} s; "
+        f"losses " + " ".join(f"{m['loss']:.5f}" for m in rm)
+        + f"; launches {launches}, K3 by route {by_route}")
+    require(len(raw_batches) == ECDP_STEPS, "ecdp raw: batches")
+    require(all(np.isfinite([m["loss"] for m in rm])),
+            "non-finite ecdp raw loss")
+    require(by_route == {"cluster": 2 * ECDP_STEPS, "global": 0},
+            f"ecdp raw: K3 took the routes {by_route}")
+    require_launches("ecdp raw", launches, ECDP_STEPS,
+                     {**ECDP_WANT, "splat": 2})
+    out["launches"]["ecdp_raw_train"] = launches
+    out["records"]["ecdp_raw_train"] = {
+        "model": "ecdp_model_small", "host_batch_ms": host_ms,
+        "epoch_wall_s": wall, "losses": [m["loss"] for m in rm],
+        **one_path_record("ecdp raw", rstep, rstate, raw_batches)}
+    del rstate, rstep, raw_batches, model, state, step
+
+    # ConvViT-S ECDP: the tokens go in at stage 3
+    cmodel = build_ecdp(dev, convvit=True)
+    cstate, cstep = make_ecdp_trainer(cmodel)
+    reset_counts()
+    cm = run_steps(cstep, cstate, batches)
+    launches = read_counts()
+    log(f"convvit ecdp: losses " + " ".join(f"{m['loss']:.5f}" for m in cm)
+        + f"; launches {launches}")
+    require(all(np.isfinite([m["loss"] for m in cm])),
+            "non-finite convvit ecdp loss")
+    n = CONVVIT_ECDP_DEPTH
+    require_launches("convvit ecdp", launches, ECDP_STEPS, {
+        "fused_ln_attn_layer": 2 * n, "fused_ln_mlp": 2 * n,
+        "fused_ln_attn_layer_bwd": n, "fused_ln_mlp_bwd": n})
+    out["launches"]["convvit_ecdp_train"] = launches
+    out["records"]["convvit_ecdp_train"] = {
+        "model": "ecdp_model_convvit_small",
+        "losses": [m["loss"] for m in cm],
+        **one_path_record("convvit ecdp", cstep, cstate, batches)}
+    return out
+
+
+# ViT-ECDP-S finetuning on the 2-channel count image: the dense hub at
+# drop-path 0.1 (rates linspace(0, 0.1, 12), the first 0), so block 0 takes
+# K1/K2 and blocks 1-11 K4, at 198 tokens (the two learned tokens and 196
+# patches)
+ECDP_FT_SITE_RATES = np.repeat(np.linspace(0, CONVVIT_DROP, ECDP_DEPTH)[1:],
+                               2)
+
+
+def phase_ecdp_finetune(dev) -> dict:
+    """ViT-ECDP-S, full width, drop-path 0.1, bf16, seed 0, ``--num_bins
+    2``: semseg at DSEC's 440x640 and flow at MVSEC's 260x346, B=16, each
+    batch's count image through K6 on the tiled layout (1 a step), K1/K2
+    1 + 1 and K4 11 + 11 a step, against the plain path; each eval step
+    K6 1 and K1/K2 12 each, against the plain path's on the same
+    weights."""
+    from eventpretrain_tpu_torch.models.dense_hub import (
+        dense_hub_vit_ecdp_small,
+    )
+
+    def make_hub(task):
+        return dense_hub_vit_ecdp_small(
+            DENSE_CLASSES if task == "semseg" else 2, 2, dtype=torch.bfloat16,
+            device=dev, generator=torch.Generator().manual_seed(0),
+            drop_path_rate=CONVVIT_DROP, decode_dropout=DENSE_DROP)
+
+    n = ECDP_DEPTH - 1
+    return finetune_tasks(
+        dev, "vit_ecdp", make_hub, ECDP_FT_SITE_RATES, CONVVIT_DROP,
+        {"fused_ln_attn_layer": 1, "fused_ln_mlp": 1,
+         "fused_ln_attn_layer_bwd": 1, "fused_ln_mlp_bwd": 1,
+         "fused_attn_layer": n, "fused_attn_layer_bwd": n},
+        {"fused_ln_attn_layer": ECDP_DEPTH, "fused_ln_mlp": ECDP_DEPTH},
+        tasks=("semseg", "flow"), num_bins=2)
+
+
+def phase_ecdp_cli(dev) -> None:
+    """The CLIs: ``pretrain --pr_phase ecdp`` (ViT-S, the synthetic
+    source, 4 steps at B=64, counted: K1/K2 24 + 24 forward, 12 + 12
+    backward a step; its checkpoint with the EMA tree), then
+    ``finetune_cls --backbone vit_ecdp --num_bins 2 --finetune`` from it
+    (K3 on the 2-channel count image; 2 steps) and ``finetune_semseg
+    --backbone vit_ecdp --num_bins 2`` (2 steps; its synthetic 64x64 sensor takes the untiled count image,
+    K3)."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_ecdp_checkpoint
+    from eventpretrain_tpu_torch.cli.finetune_cls import main as cls_main
+    from eventpretrain_tpu_torch.cli.finetune_semseg import main as seg_main
+    from eventpretrain_tpu_torch.cli.pretrain import main as pretrain_main
+
+    common = ["--device", str(dev), "--print_freq", "1", "--epochs", "1"]
+    out = os.path.join("build", "chip_smoke_ecdp")
+    t0 = time.perf_counter()
+    reset_counts()
+    state = pretrain_main(common + [
+        "--pr_phase", "ecdp", "--batch_size", str(TRAIN_BATCH),
+        "--output_dir", out, "--input_size", str(TRAIN_INPUT)])
+    launches = read_counts()
+    ckpt = os.path.join(out, "checkpoint.pth")
+    sd, ema = load_ecdp_checkpoint(ckpt)
+    log(f"cli.pretrain --pr_phase ecdp: {state.step} steps in "
+        f"{time.perf_counter() - t0:.1f} s, checkpoint of {len(sd)} + "
+        f"{len(ema)} (EMA) tensors; launches {launches}")
+    require(state.step == 4, f"the ecdp CLI ran {state.step} steps")
+    require(set(sd) == set(state.module.state_dict())
+            and set(ema) == set(state.key_encoder.state_dict()),
+            "the ecdp checkpoint's keys are not the model's and the EMA's")
+    require_launches("cli ecdp", launches, 4, ECDP_WANT)
+    t0 = time.perf_counter()
+    reset_counts()
+    res = cls_main(common + [
+        "--backbone", "vit_ecdp", "--num_bins", "2", "--batch_size",
+        str(TRAIN_BATCH), "--finetune", ckpt,
+        "--output_dir", os.path.join("build", "chip_smoke_ecdp_cls")])
+    launches = read_counts()
+    log(f"cli.finetune_cls --backbone vit_ecdp --num_bins 2 --finetune: "
+        f"{res['state'].step} steps, val acc1 {res['val']['acc1']:.1f}, in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    require(res["state"].step == 128 // TRAIN_BATCH,
+            f"the vit_ecdp cls CLI ran {res['state'].step} steps")
+    require(np.isfinite(res["val"]["loss"]), "non-finite vit_ecdp cls loss")
+    require(launches["splat"] >= 3 and launches["fused_attn_layer_bwd"] > 0,
+            "the vit_ecdp cls CLI did not take K3 and K4")
+    t0 = time.perf_counter()
+    reset_counts()
+    res = seg_main(common + [
+        "--backbone", "vit_ecdp", "--num_bins", "2", "--batch_size",
+        str(DENSE_BATCH), "--output_dir",
+        os.path.join("build", "chip_smoke_ecdp_semseg")])
+    launches = read_counts()
+    log(f"cli.finetune_semseg --backbone vit_ecdp --num_bins 2: "
+        f"{res['state'].step} steps in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    require(res["state"].step == 2, f"the vit_ecdp semseg CLI ran "
+                                    f"{res['state'].step} steps")
+    # the CLI's synthetic 64x64 sensor takes the untiled count image
+    require(launches["splat"] >= 3,
+            "the vit_ecdp semseg CLI did not take K3")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4863,8 +5438,10 @@ def k8_row(dev, errs, total, launches, smi) -> dict:
     return row
 
 
-def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
-    """K3 at (b, 5, capacity) on a ``grid_hw`` x 5 canvas (synthetic
+def k3_timing(dev, b: int, grid_hw, capacity: int, smi,
+              ecdp: bool = False) -> dict:
+    """K3 at (b, 5, capacity) on a ``grid_hw`` x 5 canvas, or with ``ecdp``
+    at (b, 2, capacity) on the count image's ``grid_hw`` x 2 (synthetic
     events with strays, as phase 2's), one call an event pair beside its
     plain version, from a CUDA graph of 10 calls, and beside the library
     call, ``index_put_(accumulate=True)`` alone on the in-frame cells and
@@ -4877,14 +5454,15 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
     )
 
     y, x, wb = splat_args(np.random.default_rng(3), b, dev, grid_hw,
-                          capacity)
+                          capacity, ecdp)
     h, w = grid_hw
+    c = wb.shape[1]
     hw = dict(height=h, width=w)
     ok = (y >= 0) & (y < h) & (x >= 0) & (x < w)
     cell = ((torch.arange(b, device=dev)[:, None] * h + y.long()) * w
             + x.long())[ok]
     vals = wb.transpose(1, 2)[ok].float()
-    acc = torch.zeros((b * h * w, NUM_BINS), device=dev)
+    acc = torch.zeros((b * h * w, c), device=dev)
     ms, plain_ms = time_pair(lambda: splat(y, x, wb, **hw),
                              lambda: splat_reference(y, x, wb, **hw))
     # the card alone, without the wrapper's host work
@@ -4892,19 +5470,19 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi) -> dict:
     lib_ms = cuda_ms(lambda: acc.index_put_((cell,), vals, accumulate=True))
     nbytes = (y.numel() + x.numel()) * 4 + wb.numel() * 4 + acc.numel() * 4
     bms, bby = bound(wb.numel(), nbytes)
-    log(f"time splat ({b}, {NUM_BINS}, {capacity}) -> {h}x{w}x{NUM_BINS}: "
+    log(f"time splat ({b}, {c}, {capacity}) -> {h}x{w}x{c}: "
         f"kernel {ms:.4g} ms (graph-timed {device_ms * 1e3:.4g} us), plain "
         f"{plain_ms:.4g} ms, index_put_ {lib_ms:.4g} ms, bound {bms:.4g} ms "
         f"({bby}) ({smi})")
-    return {"kernel_route": splat_route(b, h, w, NUM_BINS), "ms": ms,
+    return {"kernel_route": splat_route(b, h, w, c), "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": bby, "library_ms": lib_ms,
-            "shape": [b, NUM_BINS, capacity], "grid": [h, w, NUM_BINS],
+            "shape": [b, c, capacity], "grid": [h, w, c],
             "flops": wb.numel(), "bytes": nbytes}
 
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, convvit, swin,
+                 dense, flow, host, loops, con, clip, convvit, swin, ecdp,
                  smi) -> None:
     import torch.nn.functional as F
 
@@ -5017,21 +5595,24 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
          attn + [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_attn_layer.py:357",
          [(196, 384, 12), (49, 768, 12), (196, 512, 16), (196, 768, 12),
-          (49, 384, 12), (196, 256, 8), (49, 256, 8)],
+          (49, 384, 12), (196, 256, 8), (49, 256, 8),
+          (ECDP_TOKENS, 384, 12)],
          False, k1_case, k1_work, None),
         ("fused_ln_attn_layer_bwd", csrc + "attention_bwd.cu", attn_bwd,
          "eventpretrain_tpu/ops/fused_attn_layer.py:386",
          [(196, 512, 16), (49, 768, 12), (196, 768, 12), (49, 384, 12),
-          (196, 256, 8), (49, 256, 8)], True, k1_case, k1_work, None),
+          (196, 256, 8), (49, 256, 8), (ECDP_TOKENS, 384, 12)], True,
+         k1_case, k1_work, None),
         ("fused_ln_mlp", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:329",
          [(196, 384, 0), (49, 768, 0), (196, 512, 0), (196, 768, 0),
-          (49, 384, 0), (196, 256, 0), (49, 256, 0)], False, k2_case,
-         k2_work, None),
+          (49, 384, 0), (196, 256, 0), (49, 256, 0), (ECDP_TOKENS, 384, 0)],
+         False, k2_case, k2_work, None),
         ("fused_ln_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:356 (C<=512), :416 (C=768)",
          [(196, 512, 0), (49, 768, 0), (196, 768, 0), (49, 384, 0),
-          (196, 256, 0), (49, 256, 0)], True, k2_case, k2_work, None),
+          (196, 256, 0), (49, 256, 0), (ECDP_TOKENS, 384, 0)], True,
+         k2_case, k2_work, None),
         ("fused_attn_layer", csrc + "attention.cu", attn,
          "eventpretrain_tpu/ops/fused_attn_layer.py:202",
          [(196, 384, 12), (196, 768, 12), (196, 384, 12, DENSE_BATCH)],
@@ -5065,6 +5646,19 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     k3_raw.update(max_abs_err=raw_err, tol=SPLAT_ATOL,
                   launches_by_path={p: launches[p]["splat"]
                                     for p in ("adj_n_train", "con_n_train")})
+    # the ECDP raw path's count image, held first at the same shape
+    ry, rx, rwb = splat_args(np.random.default_rng(14), TRAIN_BATCH, dev,
+                             (TRAIN_INPUT, TRAIN_INPUT), RAW_CAPACITY, True)
+    ecdp_err = (splat(ry, rx, rwb, **rhw)
+                - splat_reference(ry, rx, rwb, **rhw)).abs().max().item()
+    require(ecdp_err <= SPLAT_ATOL, "splat at 224x224x2 disagrees with "
+                                    "splat_reference")
+    del ry, rx, rwb
+    k3_ecdp = k3_timing(dev, TRAIN_BATCH, (TRAIN_INPUT, TRAIN_INPUT),
+                        RAW_CAPACITY, smi, ecdp=True)
+    k3_ecdp.update(max_abs_err=ecdp_err, tol=SPLAT_ATOL,
+                   launches_by_path={"ecdp_raw_train":
+                                     launches["ecdp_raw_train"]["splat"]})
     err, tol = errs["splat"]
     kernels.append({
         "name": "splat", "route": "cuda", "source": csrc + "splat.cu",
@@ -5073,7 +5667,8 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         "launches": total["splat"],
         "launches_by_path": {p: launches[p]["splat"] for p in launches},
         "max_abs_err": err, "tol": tol, **k3,
-        "library": "index_put_(accumulate=True)", "shapes": [k3_raw],
+        "library": "index_put_(accumulate=True)",
+        "shapes": [k3_raw, k3_ecdp],
     })
     kernels.append(k6_row(dense, flow, errs, total, launches, smi))
     for (name, source, also, replaces, shapes, backward, case, work,
@@ -5242,6 +5837,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
         e2e[f"convvit_{key}"] = {**rec, "card": smi}
     for key, rec in swin.items():
         e2e[f"swin_{key}"] = {**rec, "card": smi}
+    # slice 5c's ECDP steps (phase 5k)
+    for key, rec in ecdp.items():
+        e2e[key] = {**rec, "card": smi}
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -5352,13 +5950,23 @@ def main() -> int:
     del sw_ft
     phase_swin_cli(dev)
     mark("Swin")
+    ecdp = phase_ecdp_training(dev, clip["clip"]["model"])
+    launches.update(ecdp["launches"])
+    ecdp_ft = phase_ecdp_finetune(dev)
+    launches.update(ecdp_ft["launches"])
+    ecdp["records"].update({f"vit_ecdp_{task}_train": rec
+                            for task, rec in ecdp_ft["records"].items()})
+    del ecdp_ft
+    phase_ecdp_cli(dev)
+    mark("ECDP baseline")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
     launches.update(loop_launches)
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
-                 dense, flow, host, loops, con, clip, convvit, swin, smi)
+                 dense, flow, host, loops, con, clip, convvit, swin,
+                 ecdp["records"], smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

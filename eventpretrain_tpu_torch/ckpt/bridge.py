@@ -25,7 +25,16 @@ contrastive stages' queue, a (C, L, K) buffer and a pointer) crosses as
 its two arrays (``load_jax_queue``). The CLIP tower, which the exporter
 does not cover, crosses by ``clip_state_dict_from_flax``: the inverse of
 ``models/clip.py::load_clip_visual_weights``' mapping (clip.py:117-168)
-into OpenAI's key space without its ``visual.`` prefix.
+into OpenAI's key space without its ``visual.`` prefix. The ECDP model's
+keys are the exporter's as they are (``encoder.backbone.tokens``, the
+heads' ``fc{i}``/``bn{i}``, ``clip_emb_proj.weight``), and its EMA tree
+(JAX's ``ema_params``) crosses as a second state dict,
+``export_torch_state_dict(ema_params)``, which the port's key encoder
+loads strictly: it keeps no BatchNorm statistics, as the tree holds none.
+The ECDP CLI's checkpoint carries it as ``"ema"`` beside ``"model"``
+(``load_ecdp_checkpoint``); ``finetune_state_dict`` lifts its query
+encoder to ``backbone.*`` for the finetune CLIs, as JAX's ECDP dialect
+lifts ``encoder_q.*`` (torch_import.py:52-57).
 """
 
 from __future__ import annotations
@@ -45,6 +54,24 @@ def load_torch_checkpoint(path: str) -> dict:
     if not isinstance(raw, dict) or "model" not in raw:
         raise ValueError(f"{path}: expected a {{'model': state_dict}} file")
     return raw["model"]
+
+
+def load_ecdp_checkpoint(path: str) -> tuple[dict, dict]:
+    """``(model, ema)`` state dicts of the ECDP CLI's checkpoint."""
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(raw, dict) or "ema" not in raw:
+        raise ValueError(f"{path}: expected an ECDP checkpoint with 'ema'")
+    return raw["model"], raw["ema"]
+
+
+def finetune_state_dict(sd: Mapping) -> dict:
+    """A checkpoint's tensors as the finetune CLIs fill a hub from them:
+    an ECDP model's query encoder (``encoder.backbone.*`` and its
+    projection heads) lifted to ``backbone.*`` and ``*_head_proj.*``;
+    any other file's keys as they are."""
+    if not any(k.startswith("encoder.backbone.") for k in sd):
+        return dict(sd)
+    return {k.removeprefix("encoder."): v for k, v in sd.items()}
 
 
 # buffers of a reference file that the port recomputes or does not keep

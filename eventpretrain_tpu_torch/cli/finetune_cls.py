@@ -1,8 +1,10 @@
 """Classification finetune entry point: raw events to a trained classifier.
 
 Counterpart of eventpretrain_tpu/cli/finetune_cls.py for ``--backbone
-vit``, ``convvit`` and ``swin`` (Swin-T whatever ``--model_size``, as in
-JAX) on the synthetic and N-Cars sources, with the JAX CLI's flags and
+vit``, ``convvit``, ``swin`` (Swin-T whatever ``--model_size``, as in
+JAX), ``vit_ecdp`` and ``convvit_ecdp`` (the head over the two learned
+tokens; ``--num_bins 2`` is the 2-channel count image, through K3) on the
+synthetic and N-Cars sources, with the JAX CLI's flags and
 defaults for the data, the optimizer (AdamW (0.9, 0.999), the global-norm
 clip, layer decay) and the regularizers (drop-path 0.1, label smoothing
 0.1). ``--device`` picks the card (default) or the CPU; on ``cuda`` the
@@ -20,7 +22,8 @@ through K4.
 ``cli/pretrain.py`` (or this CLI) wrote, as JAX's ``init_backbone_from``
 does: every backbone parameter must be in the file, the file's tensors the
 hub lacks (a rec checkpoint's decoders) go unused, and the rest of the hub
-takes the file's tensors where it has them. ``--accum_iter k`` averages
+takes the file's tensors where it has them; an ECDP checkpoint's query
+encoder fills the backbone (``ckpt.bridge.finetune_state_dict``). ``--accum_iter k`` averages
 the gradients of k batches into each update (the base lr scales with
 ``batch_size * k``, the schedule counts updates). Each epoch appends a
 JSON line to ``<output_dir>/log.txt`` and writes
@@ -39,6 +42,7 @@ import time
 import torch
 
 from eventpretrain_tpu_torch.ckpt.bridge import (
+    finetune_state_dict,
     init_from_state_dict,
     load_torch_checkpoint,
 )
@@ -51,9 +55,13 @@ from eventpretrain_tpu_torch.data.cls_pipeline import (
 )
 from eventpretrain_tpu_torch.models.cls_hub import (
     cls_hub_convvit_base,
+    cls_hub_convvit_ecdp_base,
+    cls_hub_convvit_ecdp_small,
     cls_hub_convvit_small,
     cls_hub_swin_tiny,
     cls_hub_vit_base,
+    cls_hub_vit_ecdp_base,
+    cls_hub_vit_ecdp_small,
     cls_hub_vit_small,
 )
 from eventpretrain_tpu_torch.train.loop import evaluate, train_one_epoch
@@ -172,10 +180,10 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"finetune_cls: --dataset {args.dataset} is not "
                          "ported yet; it comes with slice 5 (the other cls "
                          "sources)")
-    if args.num_bins in (2, 3):
-        raise SystemExit(f"finetune_cls: --num_bins {args.num_bins} (the "
-                         "ECDP/MEM count image) is not ported yet; it comes "
-                         "with slice 5 (the ECDP and MEM baselines)")
+    if args.num_bins == 3:
+        raise SystemExit(f"finetune_cls: --num_bins 3 (the MEM count "
+                         "image) is not ported yet; it comes with slice "
+                         "5 (the MEM baseline)")
 
 
 def make_sources(args):
@@ -201,8 +209,10 @@ def load_backbone(hub, path: str) -> None:
     ``init_backbone_from(strict_backbone=True)`` does
     (``ckpt.bridge.init_from_state_dict``): a backbone parameter the file
     lacks raises ``KeyError``, a shape that differs raises, the file's
-    keys the hub lacks go unused."""
-    unused = init_from_state_dict(hub, load_torch_checkpoint(path))
+    keys the hub lacks go unused; an ECDP checkpoint's query encoder
+    stands for the backbone."""
+    unused = init_from_state_dict(
+        hub, finetune_state_dict(load_torch_checkpoint(path)))
     if unused:
         print(f"{path}: {len(unused)} tensors unused (e.g. {unused[:4]})")
 
@@ -231,6 +241,10 @@ def main(argv=None) -> dict:
         ("convvit", "base"): cls_hub_convvit_base,
         ("swin", "small"): cls_hub_swin_tiny,
         ("swin", "base"): cls_hub_swin_tiny,
+        ("vit_ecdp", "small"): cls_hub_vit_ecdp_small,
+        ("vit_ecdp", "base"): cls_hub_vit_ecdp_base,
+        ("convvit_ecdp", "small"): cls_hub_convvit_ecdp_small,
+        ("convvit_ecdp", "base"): cls_hub_convvit_ecdp_base,
     }[(args.backbone, args.model_size)]
     hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,
@@ -258,7 +272,7 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=13 if args.backbone == "convvit" else 12,
+        num_layers=13 if args.backbone.startswith("convvit") else 12,
         backbone_type=args.backbone, accum_steps=args.accum_iter,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)

@@ -1,7 +1,8 @@
 """Optical-flow finetune entry point: raw events to a trained flow hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_flow.py for ``--backbone
-convvit`` (the default, as in JAX), ``vit`` and ``swin`` (Swin-T), with
+convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T),
+``vit_ecdp`` and ``convvit_ecdp`` (``--num_bins 2``: the count image), with
 the JAX CLI's flags and defaults for the data (30000 events a sample,
 MVSEC's outdoor_day2 to train and the three indoor_flying splits to
 validate), the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
@@ -53,9 +54,13 @@ from eventpretrain_tpu_torch.data.dense_pipeline import (
 )
 from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_base,
+    dense_hub_convvit_ecdp_base,
+    dense_hub_convvit_ecdp_small,
     dense_hub_convvit_small,
     dense_hub_swin_tiny,
     dense_hub_vit_base,
+    dense_hub_vit_ecdp_base,
+    dense_hub_vit_ecdp_small,
     dense_hub_vit_small,
 )
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
@@ -156,10 +161,10 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"finetune_flow: --backbone {args.backbone} is not "
                          "ported yet; it comes with "
                          f"{REFUSED_BACKBONES[args.backbone]}")
-    if args.num_bins in (2, 3):
-        raise SystemExit(f"finetune_flow: --num_bins {args.num_bins} (the "
-                         "ECDP/MEM count image) is not ported yet; it comes "
-                         "with slice 5 (the ECDP and MEM baselines)")
+    if args.num_bins == 3:
+        raise SystemExit(f"finetune_flow: --num_bins 3 (the MEM count "
+                         "image) is not ported yet; it comes with slice "
+                         "5 (the MEM baseline)")
     if args.dataset == "mvsec" and not args.data_root:
         raise SystemExit("finetune_flow: --dataset mvsec needs --data_root")
 
@@ -224,6 +229,10 @@ def main(argv=None) -> dict:
         ("convvit", "base"): dense_hub_convvit_base,
         ("swin", "small"): dense_hub_swin_tiny,
         ("swin", "base"): dense_hub_swin_tiny,
+        ("vit_ecdp", "small"): dense_hub_vit_ecdp_small,
+        ("vit_ecdp", "base"): dense_hub_vit_ecdp_base,
+        ("convvit_ecdp", "small"): dense_hub_convvit_ecdp_small,
+        ("convvit_ecdp", "base"): dense_hub_convvit_ecdp_base,
     }[(args.backbone, args.model_size)]
     hub = factory(
         2, args.num_bins, dtype=dtype, device=device,
@@ -246,7 +255,7 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=13 if args.backbone == "convvit" else 12,
+        num_layers=13 if args.backbone.startswith("convvit") else 12,
         backbone_type=args.backbone,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)

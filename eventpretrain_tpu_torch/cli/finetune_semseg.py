@@ -2,8 +2,10 @@
 segmentation hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
-convvit`` (the default, as in JAX), ``vit`` and ``swin`` (Swin-T whatever
-``--model_size``, as in JAX) on the synthetic source, with the JAX CLI's
+convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T whatever
+``--model_size``, as in JAX), ``vit_ecdp`` and ``convvit_ecdp`` on the
+synthetic source (``--num_bins 2``: the 2-channel count image), with the
+JAX CLI's
 flags and defaults for the data, the optimizer (AdamW (0.9, 0.999), base lr
 1e-3, layer decay, no gradient clip unless asked), the loss weights (decode
 1.0, auxiliary 0.4), ``--sample_mode`` and the regularizers (drop-path 0.1,
@@ -22,8 +24,10 @@ and raises, as in JAX), the tensors the hub lacks go unused, and the heads
 take the file's tensors, BatchNorm running statistics included, where it
 has them. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
 writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
-"epoch": ...}``. Flags of the JAX CLI that the port does not have yet
-raise an error naming the slice that brings them; DSEC and DDD17 wait for
+"epoch": ...}``; an ECDP checkpoint's query encoder fills the backbone
+(``ckpt.bridge.finetune_state_dict``). Flags of the JAX CLI that the port
+does not have yet (``swin_ecddp``, ``vit_mem``, ``--num_bins 3``) raise an
+error naming the slice that brings them; DSEC and DDD17 wait for
 their data and for ``h5py``/``PIL`` on the machine that runs the port.
 """
 
@@ -37,6 +41,7 @@ import time
 import torch
 
 from eventpretrain_tpu_torch.ckpt.bridge import (
+    finetune_state_dict,
     init_from_state_dict,
     load_torch_checkpoint,
 )
@@ -51,9 +56,13 @@ from eventpretrain_tpu_torch.eval.metrics import (
 )
 from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_base,
+    dense_hub_convvit_ecdp_base,
+    dense_hub_convvit_ecdp_small,
     dense_hub_convvit_small,
     dense_hub_swin_tiny,
     dense_hub_vit_base,
+    dense_hub_vit_ecdp_base,
+    dense_hub_vit_ecdp_small,
     dense_hub_vit_small,
 )
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
@@ -72,9 +81,7 @@ BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp",
 # the backbones of the JAX CLIs that the port does not have yet, each with
 # the slice that brings it (the finetune CLIs refuse them)
 REFUSED_BACKBONES = {
-    "vit_ecdp": "slice 5 (the ECDP baseline)",
-    "convvit_ecdp": "slice 5 (the ECDP baseline)",
-    "swin_ecddp": "slice 5 (the ECDP baseline, with ECDDP's Swin)",
+    "swin_ecddp": "slice 5 (ECDDP's Swin, with MEM and EvRepSL)",
     "vit_mem": "slice 5 (the MEM baseline)",
 }
 
@@ -166,10 +173,10 @@ def _refuse_unported(args) -> None:
                          "ported yet; it comes with a later slice (the "
                          "DSEC/DDD17 readers; they need the data, h5py and "
                          "PIL)")
-    if args.num_bins in (2, 3):
-        raise SystemExit(f"finetune_semseg: --num_bins {args.num_bins} (the "
-                         "ECDP/MEM count image) is not ported yet; it comes "
-                         "with slice 5 (the ECDP and MEM baselines)")
+    if args.num_bins == 3:
+        raise SystemExit(f"finetune_semseg: --num_bins 3 (the MEM count "
+                         "image) is not ported yet; it comes with slice "
+                         "5 (the MEM baseline)")
 
 
 def make_sources(args):
@@ -190,8 +197,10 @@ def load_finetune(hub, path: str) -> None:
     (``ckpt.bridge.init_from_state_dict``): a backbone parameter the file
     lacks raises ``KeyError``, a shape that differs raises, the heads and
     the BatchNorm statistics take what the file holds, and the file's
-    tensors the hub lacks go unused."""
-    unused = init_from_state_dict(hub, load_torch_checkpoint(path))
+    tensors the hub lacks go unused; an ECDP checkpoint's query encoder
+    stands for the backbone."""
+    unused = init_from_state_dict(
+        hub, finetune_state_dict(load_torch_checkpoint(path)))
     if unused:
         print(f"{path}: {len(unused)} tensors unused (e.g. {unused[:4]})")
 
@@ -220,6 +229,10 @@ def main(argv=None) -> dict:
         ("convvit", "base"): dense_hub_convvit_base,
         ("swin", "small"): dense_hub_swin_tiny,
         ("swin", "base"): dense_hub_swin_tiny,
+        ("vit_ecdp", "small"): dense_hub_vit_ecdp_small,
+        ("vit_ecdp", "base"): dense_hub_vit_ecdp_base,
+        ("convvit_ecdp", "small"): dense_hub_convvit_ecdp_small,
+        ("convvit_ecdp", "base"): dense_hub_convvit_ecdp_base,
     }[(args.backbone, args.model_size)]
     hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,
@@ -242,7 +255,7 @@ def main(argv=None) -> dict:
     optimizer = build_optimizer(
         hub, weight_decay=args.weight_decay, betas=(0.9, 0.999),
         layer_decay=args.layer_decay if args.use_layer_decay else 1.0,
-        num_layers=13 if args.backbone == "convvit" else 12,
+        num_layers=13 if args.backbone.startswith("convvit") else 12,
         backbone_type=args.backbone,
     )
     state = TrainState(hub, optimizer, schedule, clip_grad=args.clip_grad)

@@ -46,10 +46,28 @@ the next stage's ``--init_from``, the serve loader and
 k batches of ``--batch_size`` into each update (``optax.MultiSteps``), as
 JAX does: the base lr scales with the effective batch ``batch_size * k``,
 the schedule counts updates (``steps // k`` an epoch), and the queue's
-length must be a multiple of the effective batch. The phases ``ecdp`` and
-``ecdp-ef``, ``--data_parallel``, ``--visualize`` and an orbax
-``--init_from`` raise ``NotImplementedError`` naming the slice that
-brings them; JAX's other flags are not parsed.
+length must be a multiple of the effective batch.
+
+``--pr_phase ecdp`` (``ecdp-ef`` is its alias) is the ECDP baseline
+(cli/pretrain.py:747-940): two masked views of 2-channel count images, the
+query encoder and its EMA key encoder (``--ema_m``, cosine to 1), the
+image and event InfoNCE (``--use_queue``: per-sample queues of
+``--queue_length`` keys, no multiple of the batch needed) and the
+sinkhorn-KL, weighted by ``--lambda_image/event/kl``. Its sources: the
+synthetic 2-channel grids, EF-ImageNet (``--data_root``) and raw
+N-ImageNet (``--n_imagenet_root`` with ``--imagenet_root``, CLIP in the
+loop, its class token, or ``--clip_emb_root``), whose count images K3
+builds on the card. ``--backbone convvit`` is ConvViT-ECDP, every other
+backbone ViT-ECDP, as in JAX. Its checkpoint holds the key encoder as
+``"ema"`` beside ``"model"`` (and the queues); ``--init_from`` and
+``--accum_iter``, which JAX's ECDP phase does not read, are refused.
+
+    python -m eventpretrain_tpu_torch.cli.pretrain --pr_phase ecdp \\
+        --dataset synthetic --epochs 1
+
+``--data_parallel``, ``--visualize`` and an orbax ``--init_from`` raise
+``NotImplementedError`` naming the slice that brings them; JAX's other
+flags are not parsed.
 """
 
 from __future__ import annotations
@@ -64,6 +82,8 @@ import torch
 from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
 from eventpretrain_tpu_torch.data.pretrain_pipeline import (
     ClipEncodingPipeline,
+    EcdpPretrainPipeline,
+    EcdpRawPretrainPipeline,
     EFImageNetSource,
     NImageNetPairedSource,
     PretrainDataConfig,
@@ -77,6 +97,13 @@ from eventpretrain_tpu_torch.models.clip import (
     clip_vit_b16,
     load_clip_visual_weights,
 )
+from eventpretrain_tpu_torch.models.ecdp_hub import (
+    ecdp_model_base,
+    ecdp_model_convvit_base,
+    ecdp_model_convvit_small,
+    ecdp_model_small,
+    make_key_encoder,
+)
 from eventpretrain_tpu_torch.models.pretrain_hub import (
     pretrain_hub_base,
     pretrain_hub_convvit_base,
@@ -88,6 +115,7 @@ from eventpretrain_tpu_torch.objectives.contrastive import (
     QueueState,
     init_queue,
 )
+from eventpretrain_tpu_torch.objectives.ecdp import init_sample_queue
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
 from eventpretrain_tpu_torch.train.optim import (
     build_optimizer,
@@ -97,6 +125,7 @@ from eventpretrain_tpu_torch.train.optim import (
 from eventpretrain_tpu_torch.train.state import TrainState
 from eventpretrain_tpu_torch.train.steps import (
     make_con_step,
+    make_ecdp_step,
     make_rec_and_con_step,
     make_rec_step,
     make_swin_rec_and_con_step,
@@ -105,15 +134,11 @@ from eventpretrain_tpu_torch.train.steps import (
 
 PHASES = ["rec", "rec-n", "adj", "_adj", "adj-n", "con", "con-n", "rec+con",
           "ecdp", "ecdp-ef"]
-# cli/pretrain.py:198-207; the ECDP phases are refused
+# cli/pretrain.py:198-207
 PHASE_ALIASES = {"rec-n": "rec", "_adj": "adj", "adj-n": "adj",
-                 "con-n": "con"}
+                 "con-n": "con", "ecdp-ef": "ecdp"}
 CLIP_IN_LOOP_PHASES = ("adj-n", "con-n")
 CON_PHASES = ("adj", "con", "rec+con")
-_REFUSED_PHASES = {
-    "ecdp": "slice 5 (the ECDP baseline)",
-    "ecdp-ef": "slice 5 (the ECDP baseline)",
-}
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
 _NOT_PORTED = {
@@ -132,7 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_imagenet_root", default=None,
                    help="raw N-ImageNet event .npz tree (adj-n/con-n)")
     p.add_argument("--imagenet_root", default=None,
-                   help="paired ImageNet JPEG tree (adj-n/con-n)")
+                   help="paired ImageNet JPEG tree (adj-n/con-n, ecdp)")
+    p.add_argument("--clip_emb_root", default=None,
+                   help="precomputed CLIP embeddings of the N-ImageNet "
+                        "streams (ecdp, instead of --imagenet_root)")
     p.add_argument("--clip_weights", default=None,
                    help="OpenAI CLIP ViT-B/16 checkpoint for in-loop "
                         "encoding; random init with a warning if omitted")
@@ -162,6 +190,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="without --data_parallel every scope is the whole "
                         "batch's BatchNorm statistics ('global')")
     p.add_argument("--temperature", type=float, default=0.07)
+    p.add_argument("--ema_m", type=float, default=0.99,
+                   help="ecdp: the key encoder's base EMA momentum")
+    p.add_argument("--lambda_image", type=float, default=1.0)
+    p.add_argument("--lambda_event", type=float, default=1.0)
+    p.add_argument("--lambda_kl", type=float, default=2.0)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--accum_iter", type=int, default=1,
                    help="microsteps of --batch_size an update averages")
@@ -203,10 +236,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.pr_phase in _REFUSED_PHASES:
-        raise NotImplementedError(
-            f"--pr_phase {args.pr_phase} is not ported yet; it comes with "
-            f"{_REFUSED_PHASES[args.pr_phase]}")
     if args.accum_iter < 1:
         raise ValueError(f"--accum_iter must be at least 1, got "
                          f"{args.accum_iter}")
@@ -297,6 +326,8 @@ def main(argv=None):
     clip_in_loop = args.pr_phase in CLIP_IN_LOOP_PHASES
     args.pr_phase = PHASE_ALIASES.get(args.pr_phase, args.pr_phase)
     _refuse_unported(args)
+    if args.pr_phase == "ecdp":
+        return main_ecdp(args)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     need_decoder = args.pr_phase in ("rec", "rec+con")
@@ -410,22 +441,31 @@ def main(argv=None):
     else:
         step = make_rec_and_con_step(hub, **rec, **con)
 
-    os.makedirs(args.output_dir, exist_ok=True)
-    path = os.path.join(args.output_dir, "checkpoint.pth")
-    for epoch in range(args.epochs):
-        t0 = time.time()
+    def make_pipe(epoch):
         if clip_in_loop:
-            pipe = ClipEncodingPipeline(
+            return ClipEncodingPipeline(
                 RawPretrainPipeline(source, cfg, args.batch_size,
                                     train=True, seed=args.seed + epoch,
                                     num_workers=args.num_workers,
                                     device=device), clip)
-        else:
-            pipe = PretrainPipeline(source, cfg, args.batch_size, train=True,
-                                    seed=args.seed + epoch,
-                                    num_workers=args.num_workers,
-                                    device=device)
-        state, metrics = train_one_epoch(step, state, pipe, epoch=epoch,
+        return PretrainPipeline(source, cfg, args.batch_size, train=True,
+                                seed=args.seed + epoch,
+                                num_workers=args.num_workers, device=device)
+
+    return train_epochs(args, state, step, make_pipe)
+
+
+def train_epochs(args, state: TrainState, step, make_pipe) -> TrainState:
+    """``args.epochs`` epochs of ``step`` over ``make_pipe(epoch)``: each
+    epoch's mean metrics printed and appended to ``<output_dir>/log.txt``
+    as a JSON line, ``<output_dir>/checkpoint.pth`` written every
+    ``save_model_freq`` epochs and at the end."""
+    os.makedirs(args.output_dir, exist_ok=True)
+    path = os.path.join(args.output_dir, "checkpoint.pth")
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        state, metrics = train_one_epoch(step, state, make_pipe(epoch),
+                                         epoch=epoch,
                                          print_freq=args.print_freq)
         record = {"epoch": epoch,
                   **{f"train_{k}": v for k, v in metrics.items()},
@@ -438,15 +478,122 @@ def main(argv=None):
     return state
 
 
+def ecdp_source(args):
+    """``(source, raw)`` of the ECDP phase (cli/pretrain.py:763-808): raw
+    N-ImageNet streams with their images or precomputed embeddings, the
+    synthetic 2-channel grids with one CLIP token, or EF-ImageNet."""
+    if args.dataset == "n_imagenet":
+        if not (args.n_imagenet_root
+                and (args.imagenet_root or args.clip_emb_root)):
+            raise SystemExit("--dataset n_imagenet needs --n_imagenet_root "
+                             "plus one of --imagenet_root (in-loop CLIP) / "
+                             "--clip_emb_root")
+        return NImageNetPairedSource(
+            args.n_imagenet_root, imagenet_root=args.imagenet_root,
+            clip_emb_root=args.clip_emb_root,
+            num_classes=args.pretrain_num_classes), True
+    if args.dataset == "synthetic":
+        return SyntheticPretrainSource(
+            n=max(args.batch_size * 4, 32), size=args.input_size,
+            num_bins=2, clip_tokens=1, seed=args.seed), False
+    if not args.data_root:
+        raise SystemExit("--data_root required for ef_imagenet")
+    return EFImageNetSource(args.data_root, pr_phase="con"), False
+
+
+def main_ecdp(args) -> TrainState:
+    """The ECDP baseline's pretraining (cli/pretrain.py:747-940)."""
+    for flag, bad in (("--init_from", args.init_from),
+                      ("--accum_iter", args.accum_iter != 1)):
+        if bad:
+            raise ValueError(f"--pr_phase ecdp does not read {flag}, as in "
+                             "JAX")
+    args.num_bins = 2
+    device = torch.device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    source, raw = ecdp_source(args)
+    clip = (build_clip(dtype, device, args.clip_weights)
+            if raw and args.imagenet_root else None)
+    factory = {
+        ("vit", "small"): ecdp_model_small,
+        ("vit", "base"): ecdp_model_base,
+        ("convvit", "small"): ecdp_model_convvit_small,
+        ("convvit", "base"): ecdp_model_convvit_base,
+    }["convvit" if args.backbone == "convvit" else "vit", args.model_size]
+    model = factory(dtype=dtype, device=device,
+                    generator=torch.Generator().manual_seed(args.seed),
+                    input_size=args.input_size,
+                    drop_path_rate=args.drop_path_rate,
+                    drop_rate=args.drop_rate,
+                    attn_drop_rate=args.attn_drop_rate)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model params: {n_params / 1e6:.2f}M ({dtype} compute, f32 "
+          f"parameters, {device})")
+    steps_per_epoch = max(len(source) // args.batch_size, 1)
+    lr = (args.lr if args.lr is not None
+          else args.blr * args.batch_size / 256)
+    schedule = cosine_warmup_schedule(lr, args.min_lr, args.warmup_epochs,
+                                      args.epochs, steps_per_epoch)
+    optimizer = build_optimizer(model, weight_decay=args.weight_decay,
+                                betas=(0.9, 0.95), num_layers=12)
+    queue = None
+    if args.use_queue:
+        queue = tuple(init_sample_queue(
+            torch.Generator(device).manual_seed(args.seed + i),
+            model.encoder.config["proj_dim"], args.queue_length,
+            device=device) for i in (1, 2))
+    state = TrainState(model, optimizer, schedule, queue=queue,
+                       key_encoder=make_key_encoder(model))
+    step = make_ecdp_step(
+        model, num_patches=model.num_patches, mask_ratio=args.mask_ratio,
+        use_queue=args.use_queue, lambda_image=args.lambda_image,
+        lambda_event=args.lambda_event, lambda_kl=args.lambda_kl,
+        base_ema_momentum=args.ema_m, total_epochs=args.epochs,
+        steps_per_epoch=steps_per_epoch,
+        generator=torch.Generator(device).manual_seed(args.seed))
+    cfg = PretrainDataConfig(pr_phase="ecdp", num_bins=2,
+                             input_size=args.input_size,
+                             crop_min=args.crop_min)
+    raw_cfg = RawPretrainDataConfig(num_bins=2, input_size=args.input_size,
+                                    crop_min=args.crop_min,
+                                    fix_events_num=args.fix_events_num)
+    def make_pipe(epoch):
+        if not raw:
+            return EcdpPretrainPipeline(source, cfg, args.batch_size,
+                                        train=True, seed=args.seed + epoch,
+                                        num_workers=args.num_workers,
+                                        device=device)
+        pipe = EcdpRawPretrainPipeline(
+            source, raw_cfg, args.batch_size, train=True,
+            seed=args.seed + epoch, num_workers=args.num_workers,
+            device=device)
+        return (pipe if clip is None
+                else ClipEncodingPipeline(pipe, clip, cls_only=True))
+
+    return train_epochs(args, state, step, make_pipe)
+
+
 def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
     """``{"model": state_dict, "epoch"}`` on the CPU; the queue, where the
     state has one, as the reference's ``queue`` (C, L, K) and
-    ``queue_ptr`` (1,) buffers."""
-    sd = {k: v.detach().cpu() for k, v in state.module.state_dict().items()}
-    if state.queue is not None:
+    ``queue_ptr`` (1,) buffers. An ECDP state adds its key encoder's
+    parameters as ``"ema"`` and its queues, where it has them, as
+    ``queue_image``/``queue_event`` (C, K) with their ``*_ptr``."""
+    def cpu(module):
+        return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+    sd = cpu(state.module)
+    out = {"model": sd, "epoch": epoch}
+    if state.key_encoder is not None:
+        out["ema"] = cpu(state.key_encoder)
+        for name, q in zip(("queue_image", "queue_event"),
+                           state.queue or ()):
+            out[name] = q.buffer.detach().cpu()
+            out[f"{name}_ptr"] = torch.tensor([q.ptr], dtype=torch.long)
+    elif state.queue is not None:
         sd["queue"] = state.queue.buffer.detach().cpu()
         sd["queue_ptr"] = torch.tensor([state.queue.ptr], dtype=torch.long)
-    torch.save({"model": sd, "epoch": epoch}, path)
+    torch.save(out, path)
 
 
 if __name__ == "__main__":

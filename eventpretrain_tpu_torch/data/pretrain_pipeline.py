@@ -13,6 +13,12 @@ picks what a batch holds: the frame where it reconstructs (``rec``,
 ``rec+con``), the precomputed CLIP embeddings, un-augmented f32 (1 + L,
 512) token rows, where it contrasts (``adj``, ``con``, ``rec+con``).
 
+The ECDP baseline's pipelines (pretrain_pipeline.py:276-345, 594-722)
+yield two independently augmented views of each sample, ``img_q`` and
+``img_k``, each normalised as ``(x / (amax + 1) - 0.5) * 2``, with the
+CLIP class-token embedding (B, 512): from the precomputed 2-channel grids,
+or from the raw streams through the 2-channel count image (K3).
+
 The raw N-ImageNet path of ``adj-n`` and ``con-n`` (pretrain_pipeline.py:
 354-500, 725-781) builds its grids from event streams instead: on the
 host a fixed-count window, the C++ erase-and-add augment and packing
@@ -39,6 +45,9 @@ from eventpretrain_tpu_torch.data.event_transforms import (
     erase_and_add_events,
 )
 from eventpretrain_tpu_torch.data.io_pool import make_pool, map_loads
+from eventpretrain_tpu_torch.data.representations import (
+    normalize_representation,
+)
 from eventpretrain_tpu_torch.models.clip import encode_images
 from eventpretrain_tpu_torch.native import (
     augment_pack_event_batch,
@@ -133,6 +142,68 @@ class PretrainPipeline:
                     batch["clip_emb"] = torch.from_numpy(
                         np.stack(clips)).to(self.device)
                 yield batch
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+
+class EcdpPretrainPipeline:
+    """ECDP batches ``{'img_q', 'img_k': (B, S, S, C), 'clip_emb': (B,
+    512)}`` on ``device`` from precomputed grids (pretrain_pipeline.py:
+    276-345): each view's grids from a load of its own (one pool round a
+    view, so sources with stochastic frames give the views their own),
+    the view parameters drawn for q then k, the nearest view augment and
+    the per-image normalisation; the CLIP embedding from the q loads, its
+    class token where the source holds the token grid."""
+
+    def __init__(self, source, cfg: PretrainDataConfig, batch_size: int,
+                 train: bool = True, seed: int = 0, num_workers: int = 8,
+                 device="cuda"):
+        self.source = source
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+        self.num_workers = num_workers
+        self.device = torch.device(device)
+
+    def __len__(self) -> int:
+        return len(self.source) // self.batch_size
+
+    def __iter__(self) -> Iterator[dict]:
+        cfg = self.cfg
+        order = np.arange(len(self.source))
+        if self.train:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        size = (cfg.input_size, cfg.input_size)
+        pool = make_pool(self.num_workers)
+        try:
+            for b in range(len(self)):
+                idx = order[b * bs:(b + 1) * bs]
+                views, clips = ([], []), []
+                for v in range(2):
+                    for item in map_loads(self.source.load, idx, pool):
+                        views[v].append(np.asarray(item["evg"], np.float32))
+                        if v == 0:
+                            clip = np.asarray(item["clip_emb"], np.float32)
+                            clips.append(clip[0] if clip.ndim == 2 else clip)
+                out = []
+                for v in range(2):
+                    evg = torch.from_numpy(np.stack(views[v])).to(
+                        self.device, non_blocking=True)
+                    h, w = evg.shape[1], evg.shape[2]
+                    params = (sample_view_params(
+                        self.rng, len(idx), h, w, scale_min=cfg.crop_min,
+                        device=self.device) if self.train
+                        else identity_view_params(len(idx), h, w,
+                                                  self.device))
+                    out.append(normalize_representation(apply_view_augment(
+                        evg, params, size, "nearest",
+                        negate_on_tflip=cfg.num_bins in (5, 6)), 2))
+                yield {"img_q": out[0], "img_k": out[1],
+                       "clip_emb": torch.from_numpy(np.stack(clips)).to(
+                           self.device)}
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)
@@ -379,6 +450,47 @@ class RawPretrainDataConfig:
     fix_events_num: int = 30000
 
 
+def _pack_capacity(cap: int, augmenting: bool) -> int:
+    """The packing capacity of ``cap``-event windows: erase_and_add can
+    grow a full window by up to 1%."""
+    return cap + max(cap // 100, 1) if augmenting else cap
+
+
+def _draw_windows(rng, streams, cap: int, random_start: bool) -> list:
+    """Each stream's window of ``cap`` events, in stream order: from a
+    random start where ``random_start`` and the stream is longer, else
+    from its first event."""
+    windows = []
+    for ev in streams:
+        n = ev.shape[0]
+        start = int(rng.integers(0, n - cap)) if random_start and n > cap \
+            else 0
+        windows.append((start, min(start + cap, n)))
+    return windows
+
+
+def _pack_windows(rng, streams, windows, hws, capacity: int,
+                  augmenting: bool, out=None):
+    """``(packed, counts)`` of the streams' windows: with ``augmenting``
+    through the C++ erase-and-add augment with one seed a sample (the numpy
+    augment under ``"numpy-forced"``), else the plain packing; into
+    ``out`` where its shape fits."""
+    if augmenting:
+        seeds = rng.integers(0, 2 ** 63, len(streams))
+        done = augment_pack_event_batch(streams, windows, hws, capacity,
+                                        seeds, out=out)
+        if done is not None:
+            return done
+        # "numpy-forced": the numpy specification
+        return pack_event_batch([
+            erase_and_add_events(
+                rng, s[a:b].astype(np.float64), hw).astype(np.float32)
+            for s, (a, b), hw in zip(streams, windows, hws)
+        ], capacity, out=out)
+    return pack_event_batch([s[a:b] for s, (a, b) in zip(streams, windows)],
+                            capacity, out=out)
+
+
 class RawPretrainPipeline:
     """Raw-event batches ``{'evg': (B, S, S, bins) f32, 'image': (B, 224,
     224, 3) uint8}`` on ``device`` for ``adj-n`` and ``con-n``, S =
@@ -417,26 +529,6 @@ class RawPretrainPipeline:
     def __len__(self) -> int:
         return max(len(self.source) // self.batch_size, 1)
 
-    def _pack(self, streams, windows, hws, capacity: int, augmenting: bool):
-        buf = self._pack_buffers[self._buf_i]
-        if augmenting:
-            seeds = self.rng.integers(0, 2 ** 63, len(streams))
-            done = augment_pack_event_batch(streams, windows, hws, capacity,
-                                            seeds, out=buf)
-            if done is None:  # "numpy-forced": the numpy specification
-                done = pack_event_batch([
-                    erase_and_add_events(
-                        self.rng, s[a:b].astype(np.float64), hw
-                    ).astype(np.float32)
-                    for s, (a, b), hw in zip(streams, windows, hws)
-                ], capacity, out=buf)
-        else:
-            done = pack_event_batch(
-                [s[a:b] for s, (a, b) in zip(streams, windows)], capacity,
-                out=buf)
-        self._pack_buffers[self._buf_i] = done[0]
-        return done
-
     def __iter__(self) -> Iterator[dict]:
         cfg = self.cfg
         order = np.arange(len(self.source))
@@ -444,9 +536,7 @@ class RawPretrainPipeline:
             self.rng.shuffle(order)
         bs = self.batch_size
         cap = cfg.fix_events_num
-        augmenting = self.train
-        # erase_and_add can grow a full window by up to 1%
-        pack_cap = cap + max(cap // 100, 1) if augmenting else cap
+        pack_cap = _pack_capacity(cap, self.train)
         size = cfg.input_size
         dev = self.device
         pool = make_pool(self.num_workers)
@@ -454,20 +544,19 @@ class RawPretrainPipeline:
             for b in range(len(self)):
                 t0 = time.perf_counter()
                 idx = order[b * bs:(b + 1) * bs]
-                streams, windows, hws, images = [], [], [], []
+                streams, hws, images = [], [], []
                 for item in map_loads(self.source.load, idx, pool):
-                    ev = np.asarray(item["events"])
-                    n = ev.shape[0]
-                    start = (int(self.rng.integers(0, n - cap))
-                             if self.train and n > cap else 0)
-                    windows.append((start, min(start + cap, n)))
-                    streams.append(ev.astype(np.float32))
+                    streams.append(np.asarray(item["events"]).astype(
+                        np.float32))
                     hws.append(tuple(item["hw"]))
                     images.append(np.asarray(item["image"], np.uint8))
+                windows = _draw_windows(self.rng, streams, cap, self.train)
                 self._buf_i ^= 1
                 i = self._buf_i
-                packed, counts = self._pack(streams, windows, hws, pack_cap,
-                                            augmenting)
+                packed, counts = _pack_windows(
+                    self.rng, streams, windows, hws, pack_cap, self.train,
+                    out=self._pack_buffers[i])
+                self._pack_buffers[i] = packed
                 _rescale_packed_coords(packed, hws, size)
                 if self.train:
                     params = sample_view_params(
@@ -493,6 +582,103 @@ class RawPretrainPipeline:
                     out_size=size, mode="nearest",
                     t_range=torch.from_numpy(t_range).to(dev))
                 yield {"evg": evg, "image": torch.from_numpy(image).to(dev)}
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+
+class EcdpRawPretrainPipeline:
+    """Raw ECDP batches ``{'img_q', 'img_k': (B, S, S, 2) f32, 'image':
+    (B, 224, 224, 3) uint8}`` on ``device``, or ``'clip_emb'`` (B, 512) in
+    place of the image where the source holds precomputed embeddings
+    (pretrain_pipeline.py:594-722), S = ``cfg.input_size``.
+
+    Each view of a batch, q then k, from the once-loaded streams, in the
+    JAX pipeline's order of draws: each sample's window of
+    ``fix_events_num`` events (a random start wherever the stream is
+    longer, also in evaluation), the C++ erase-and-add augment with one
+    seed a sample in training (1% of packing headroom), the coordinates
+    rescaled to S, the view parameters; then on the device the 2-channel
+    count image on the S x S canvas through K3, the nearest view augment
+    and the per-image normalisation (``cls_pipeline._device_preprocess``
+    with ``num_bins=2``). The packed f32 events cross as they are, as in
+    JAX. Packing writes one host buffer, read before the next view packs.
+    ``host_seconds`` and ``batches`` add up the host time spent building
+    batches."""
+
+    def __init__(self, source, cfg: RawPretrainDataConfig, batch_size: int,
+                 train: bool = True, seed: int = 0, num_workers: int = 8,
+                 device="cuda"):
+        self.source = source
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.train = train
+        self.rng = np.random.default_rng(seed)
+        self.num_workers = num_workers
+        self.device = torch.device(device)
+        self._pack_buffer = None
+        self.host_seconds = 0.0
+        self.batches = 0
+
+    def __len__(self) -> int:
+        return max(len(self.source) // self.batch_size, 1)
+
+    def _one_view(self, streams, hws) -> torch.Tensor:
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        windows = _draw_windows(self.rng, streams, cfg.fix_events_num, True)
+        packed, counts = _pack_windows(
+            self.rng, streams, windows, hws,
+            _pack_capacity(cfg.fix_events_num, self.train), self.train,
+            out=self._pack_buffer)
+        self._pack_buffer = packed
+        _rescale_packed_coords(packed, hws, cfg.input_size)
+        size = cfg.input_size
+        dev = self.device
+        if self.train:
+            params = sample_view_params(self.rng, len(streams), size, size,
+                                        scale_min=cfg.crop_min, device=dev)
+        else:
+            params = identity_view_params(len(streams), size, size, dev)
+        self.host_seconds += time.perf_counter() - t0
+        # the buffer is read here and not after: a copy to the card from
+        # pageable memory returns once it is done, and on the CPU the
+        # rasterisation makes new tensors
+        return _device_preprocess(
+            torch.from_numpy(packed).to(dev),
+            torch.from_numpy(counts).to(dev),
+            torch.from_numpy(np.full((len(streams), 2), size,
+                                     np.int32)).to(dev),
+            params, num_bins=2, height=size, width=size, out_size=size,
+            mode="nearest")
+
+    def __iter__(self) -> Iterator[dict]:
+        order = np.arange(len(self.source))
+        if self.train:
+            self.rng.shuffle(order)
+        bs = self.batch_size
+        pool = make_pool(self.num_workers)
+        try:
+            for b in range(len(self)):
+                t0 = time.perf_counter()
+                idx = order[b * bs:(b + 1) * bs]
+                streams, hws, extras = [], [], []
+                for item in map_loads(self.source.load, idx, pool):
+                    streams.append(np.ascontiguousarray(item["events"],
+                                                        np.float32))
+                    hws.append(tuple(item["hw"]))
+                    if "clip_emb" in item:
+                        emb = np.asarray(item["clip_emb"], np.float32)
+                        extras.append(emb[0] if emb.ndim == 2 else emb)
+                    else:
+                        extras.append(np.asarray(item["image"], np.uint8))
+                self.host_seconds += time.perf_counter() - t0
+                out = {"img_q": self._one_view(streams, hws),
+                       "img_k": self._one_view(streams, hws)}
+                key = "clip_emb" if extras[0].ndim == 1 else "image"
+                out[key] = torch.from_numpy(np.stack(extras)).to(self.device)
+                self.batches += 1
+                yield out
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)

@@ -2,11 +2,12 @@
 normalisation.
 
 Counterpart of eventpretrain_tpu/data/representations.py:33-133. The port
-has the temporal-bilinear voxel grid (``num_bins`` not in {2, 3}), and over
-a tile-bucketed layout (``tile_table``, :67-100) the voxel grid and the
+has the temporal-bilinear voxel grid (``num_bins`` not in {2, 3}), the
+2-bin ECDP count image through the splat (K3, :102-105), and over a
+tile-bucketed layout (``tile_table``, :67-100) the voxel grid and the
 2-bin count image through the tiled splat (K6). The MEM (3) image needs
-``remove_hot_pixels``, and the untiled count images and EvRep are not
-ported either: they raise ``NotImplementedError`` naming slice 5.
+``remove_hot_pixels``, which is not ported, and neither is EvRep: they
+raise ``NotImplementedError`` naming slice 5.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 
 from eventpretrain_tpu_torch.ops.events import (
+    events_to_image_ecdp_batch,
     events_to_voxel_grid_batch,
     polarity_weights_coordvalid,
 )
@@ -59,9 +61,8 @@ def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
             events, tile_table, t_range, chunk_trange, num_bins=num_bins,
             height=height, width=width)
     if num_bins == 2:
-        raise NotImplementedError(
-            "the untiled num_bins=2 ECDP count image is not ported yet; it "
-            "comes with slice 5")
+        return events_to_image_ecdp_batch(events, counts, height=height,
+                                          width=width)
     return events_to_voxel_grid_batch(
         events, counts, num_bins=num_bins, height=height, width=width
     )

@@ -1,11 +1,14 @@
-"""Classification hub: ViT, ConvViT or sparse Swin backbone -> mean pool
--> linear head.
+"""Classification hub: ViT, ConvViT, sparse Swin, ViT-ECDP or
+ConvViT-ECDP backbone -> pool -> linear head.
 
-Counterpart of eventpretrain_tpu/models/cls_hub.py:20-106 (the ViT,
-ConvViT and Swin hubs; the ECDP and MEM hubs wait for their backbones). A
-ConvViT or Swin hub's backbone has no stage decoders
+Counterpart of eventpretrain_tpu/models/cls_hub.py:20-155 (the ViT,
+ConvViT, Swin and ECDP hubs; the MEM and Swin-ECDDP hubs wait for their
+backbones). A ConvViT or Swin hub's backbone has no stage decoders
 (``with_rec_decoders=False``), and the pool is the mean over its last
-tokens (14^2 of the ViT and ConvViT, Swin's 7^2). The module's
+tokens (14^2 of the ViT and ConvViT, Swin's 7^2), or with
+``pool="token_concat"`` their concatenation; an ECDP backbone's dense
+encode returns its pooled embedding itself, the two learned tokens
+concatenated (B, 2C), which the head takes as it is. The module's
 mode is flax's ``train`` flag: ``hub.train()`` activates dropout and
 stochastic depth (``drop_rate``, ``attn_drop_rate``, ``drop_path_rate``,
 passed to the factories), whose masks come from the
@@ -24,23 +27,38 @@ from eventpretrain_tpu_torch.models.convvit import (
     convvit_base_patch16,
     convvit_small_patch16,
 )
+from eventpretrain_tpu_torch.models.convvit_ecdp import (
+    convvit_ecdp_base_patch16,
+    convvit_ecdp_small_patch16,
+)
 from eventpretrain_tpu_torch.models.layers import Linear, init_weights
 from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
 )
+from eventpretrain_tpu_torch.models.vit_ecdp import (
+    vit_ecdp_base_patch16,
+    vit_ecdp_small_patch16,
+)
 
 
 class FtClsHub(nn.Module):
-    """Mean-pooled tokens -> Linear(num_classes). The ECDP token-concat
-    pool comes with the ECDP backbones."""
+    """Pooled tokens -> Linear(num_classes) (cls_hub.py:20-55): ``pool``
+    "mean" or "token_concat"; an ECDP backbone's embedding unpooled."""
 
-    def __init__(self, backbone: nn.Module, num_classes: int):
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 pool: str = "mean"):
         super().__init__()
+        if pool not in ("mean", "token_concat"):
+            raise ValueError(pool)
         self.backbone = backbone
+        self.pool = pool
+        in_dim = getattr(backbone, "pool_dim", None) or (
+            backbone.embed_dim * (backbone.num_patches
+                                  if pool == "token_concat" else 1))
         self.classify_head = Linear(
-            backbone.embed_dim, num_classes, dtype=backbone.dtype,
+            in_dim, num_classes, dtype=backbone.dtype,
             device=backbone.norm_layer.weight.device,
         )
 
@@ -48,10 +66,17 @@ class FtClsHub(nn.Module):
         """``x (B, H, W, num_bins)`` -> ``(emb_h, logits, attn)``; ``attn``
         is the last block's (B, heads, L, L) attention with
         ``return_attn``, else None."""
-        _, _, emb_h, _, attn = self.backbone.encode_dense(
+        out = self.backbone.encode_dense(
             x, return_attn=return_attn, return_pyramid=False
         )
-        return emb_h, self.classify_head(emb_h.mean(dim=1)), attn
+        if len(out) == 3:
+            emb_h, _, attn = out
+            pooled = emb_h
+        else:
+            emb_h, attn = out[2], out[4]
+            pooled = (emb_h.mean(dim=1) if self.pool == "mean"
+                      else emb_h.reshape(emb_h.shape[0], -1))
+        return emb_h, self.classify_head(pooled), attn
 
 
 def _hub(make_backbone, num_classes: int, num_bins: int, dtype, device,
@@ -113,3 +138,40 @@ def cls_hub_swin_tiny(num_classes: int, num_bins: int = 5, *,
     tokens at 224 px (cls_hub.py:97-106)."""
     return _hub(swin_tiny_window7, num_classes, num_bins, dtype, device,
                 generator, with_rec_decoders=False, **bk)
+
+
+def cls_hub_vit_ecdp_small(num_classes: int, num_bins: int = 2, *,
+                           dtype=torch.float32, device="cuda",
+                           generator: Optional[torch.Generator] = None,
+                           **bk) -> FtClsHub:
+    """ViT-ECDP-S hub over the concatenated [event, image] tokens
+    (cls_hub.py:108-117), randomly initialised from ``generator``."""
+    return _hub(vit_ecdp_small_patch16, num_classes, num_bins, dtype,
+                device, generator, **bk)
+
+
+def cls_hub_vit_ecdp_base(num_classes: int, num_bins: int = 2, *,
+                          dtype=torch.float32, device="cuda",
+                          generator: Optional[torch.Generator] = None,
+                          **bk) -> FtClsHub:
+    """ViT-ECDP-B hub (cls_hub.py:120-127)."""
+    return _hub(vit_ecdp_base_patch16, num_classes, num_bins, dtype, device,
+                generator, **bk)
+
+
+def cls_hub_convvit_ecdp_small(num_classes: int, num_bins: int = 2, *,
+                               dtype=torch.float32, device="cuda",
+                               generator: Optional[torch.Generator] = None,
+                               **bk) -> FtClsHub:
+    """ConvViT-ECDP-S hub (cls_hub.py:130-141)."""
+    return _hub(convvit_ecdp_small_patch16, num_classes, num_bins, dtype,
+                device, generator, **bk)
+
+
+def cls_hub_convvit_ecdp_base(num_classes: int, num_bins: int = 2, *,
+                              dtype=torch.float32, device="cuda",
+                              generator: Optional[torch.Generator] = None,
+                              **bk) -> FtClsHub:
+    """ConvViT-ECDP-B hub (cls_hub.py:144-155)."""
+    return _hub(convvit_ecdp_base_patch16, num_classes, num_bins, dtype,
+                device, generator, **bk)

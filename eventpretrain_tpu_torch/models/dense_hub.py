@@ -1,9 +1,12 @@
-"""Dense-task hub: the ViT, ConvViT or sparse Swin backbone's pyramid ->
-UPerHead + FCNHead.
+"""Dense-task hub: the ViT, ConvViT, sparse Swin, ViT-ECDP or
+ConvViT-ECDP backbone's pyramid -> UPerHead + FCNHead.
 
-Counterpart of eventpretrain_tpu/models/dense_hub.py:20-133 (``FtDenseHub``
-and the ViT, ConvViT and Swin factories); the ECDP and MEM hubs wait for
-their backbones. A ViT's pyramid is four 14^2 maps of its width; a
+Counterpart of eventpretrain_tpu/models/dense_hub.py:20-206 (``FtDenseHub``
+and the ViT, ConvViT, Swin and ECDP factories); the MEM and Swin-ECDDP
+hubs wait for their backbones. A ViT's pyramid is four 14^2 maps of its
+width, an ECDP backbone's four 14^2 maps of its patch tokens (its dense
+encode returns ``(emb, out_embs, attn)``, ``emb_h`` then the tokens'
+concatenation); a
 ConvViT's is its two stage maps (56^2, 28^2), the 14^2 tokens and the FPN
 level (6^2, the backbone's ``with_fpn``), of widths (d0, d1, d2, d2), and
 its BatchNorm moves like the heads'; Swin-T's is its four stages' tokens
@@ -28,12 +31,20 @@ from eventpretrain_tpu_torch.models.convvit import (
     convvit_base_patch16,
     convvit_small_patch16,
 )
+from eventpretrain_tpu_torch.models.convvit_ecdp import (
+    convvit_ecdp_base_patch16,
+    convvit_ecdp_small_patch16,
+)
 from eventpretrain_tpu_torch.models.dense_heads import FCNHead, UPerHead
 from eventpretrain_tpu_torch.models.layers import init_weights
 from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
+)
+from eventpretrain_tpu_torch.models.vit_ecdp import (
+    vit_ecdp_base_patch16,
+    vit_ecdp_small_patch16,
 )
 
 
@@ -64,8 +75,9 @@ class FtDenseHub(nn.Module):
         """``x (B, H, W, num_bins)`` -> ``(emb_h, out_embs, decode, aux)``:
         the normed last tokens, the pyramid, and both heads' logits
         ``(B, h, w, num_classes)`` at the pyramid's finest resolution."""
-        _, _, emb_h, out_embs, _ = self.backbone.encode_dense(
-            x, return_attn=False, return_pyramid=True)
+        out = self.backbone.encode_dense(x, return_attn=False,
+                                         return_pyramid=True)
+        emb_h, out_embs = out[:2] if len(out) == 3 else out[2:4]
         return (emb_h, out_embs, self.decode_head(out_embs),
                 self.auxiliary_head(out_embs))
 
@@ -148,3 +160,54 @@ def dense_hub_swin_tiny(num_classes: int, num_bins: int = 5, *,
     return _hub(swin_tiny_window7, widths, num_classes, num_bins, dtype,
                 device, generator, sample_mode, decode_dropout,
                 with_rec_decoders=False, **bk)
+
+
+def dense_hub_vit_ecdp_small(num_classes: int, num_bins: int = 2, *,
+                             dtype=torch.float32, device="cuda",
+                             generator: Optional[torch.Generator] = None,
+                             sample_mode: str = "bilinear",
+                             decode_dropout: float = 0.1,
+                             **bk) -> FtDenseHub:
+    """ViT-ECDP-S: four 14^2 token maps at C=384 (dense_hub.py:137-149)."""
+    return _hub(vit_ecdp_small_patch16, (bk.get("embed_dim", 384),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_vit_ecdp_base(num_classes: int, num_bins: int = 2, *,
+                            dtype=torch.float32, device="cuda",
+                            generator: Optional[torch.Generator] = None,
+                            sample_mode: str = "bilinear",
+                            decode_dropout: float = 0.1,
+                            **bk) -> FtDenseHub:
+    """ViT-ECDP-B: four 14^2 token maps at C=768 (dense_hub.py:151-161)."""
+    return _hub(vit_ecdp_base_patch16, (bk.get("embed_dim", 768),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_convvit_ecdp_small(num_classes: int, num_bins: int = 2, *,
+                                 dtype=torch.float32, device="cuda",
+                                 generator: Optional[torch.Generator] = None,
+                                 sample_mode: str = "bilinear",
+                                 decode_dropout: float = 0.1,
+                                 **bk) -> FtDenseHub:
+    """ConvViT-ECDP-S: four 14^2 maps of the stage-3 tokens at C=384, JAX's
+    repair of the reference's dense forward (dense_hub.py:164-179)."""
+    return _hub(convvit_ecdp_small_patch16,
+                (bk.get("embed_dims", (128, 256, 384))[2],) * 4, num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_convvit_ecdp_base(num_classes: int, num_bins: int = 2, *,
+                                dtype=torch.float32, device="cuda",
+                                generator: Optional[torch.Generator] = None,
+                                sample_mode: str = "bilinear",
+                                decode_dropout: float = 0.1,
+                                **bk) -> FtDenseHub:
+    """ConvViT-ECDP-B: four 14^2 maps at C=768 (dense_hub.py:182-196)."""
+    return _hub(convvit_ecdp_base_patch16,
+                (bk.get("embed_dims", (256, 384, 768))[2],) * 4, num_classes,
+                num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)

@@ -48,6 +48,7 @@ holds the port against JAX and the kernel path against the plain path).
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -353,17 +354,21 @@ class ViTBlock(nn.Module):
 class PatchEmbed(nn.Module):
     """Strided-conv patch embedding with LayerNorm (eps 1e-5) + exact GELU
     (layers.py:399-429). ``(B, H, W, C)`` -> ``(B, H/p, W/p, embed_dim)``.
-    The plain variant of the ECDP/MEM backbones comes with them."""
+    ``use_norm_act=False`` is the plain conv of the ECDP/MEM backbones."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int, *,
-                 dtype=torch.float32, device=None):
+                 use_norm_act: bool = True, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.proj = Conv2d(in_chans, embed_dim, patch_size, patch_size,
                            dtype=dtype, device=device)
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+        self.norm = (nn.LayerNorm(embed_dim, eps=1e-5, device=device)
+                     if use_norm_act else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.norm is None:
+            return x
         return F.gelu(layer_norm(x, self.norm), approximate="none")
 
 
@@ -376,36 +381,46 @@ class GroupedBatchNorm(nn.Module):
     activations with a large mean lose digits to ``E[x^2] - mean^2``), and
     the running buffers move as flax's do, momentum 0.99 on the biased
     variance, averaged over the groups; in eval the running buffers
-    normalise. ``affine=False`` has neither ``weight`` nor ``bias``."""
+    normalise. ``affine=False`` has neither ``weight`` nor ``bias``.
+    ``track_running_stats=False`` keeps no running buffers and always
+    normalises with the batch's statistics: the ECDP key encoder, whose
+    BatchNorm mutations JAX discards (steps.py:817-824)."""
 
     def __init__(self, num_features: int, groups: int = 1,
                  affine: bool = True, momentum: float = 0.99,
-                 eps: float = 1e-5, *, device=None):
+                 eps: float = 1e-5, *, track_running_stats: bool = True,
+                 device=None):
         super().__init__()
         self.groups = groups
         self.momentum = momentum
         self.eps = eps
+        self.track_running_stats = track_running_stats
         f32 = dict(dtype=torch.float32, device=device)
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features, **f32))
             self.bias = nn.Parameter(torch.zeros(num_features, **f32))
         else:
             self.weight = self.bias = None
-        self.register_buffer("running_mean",
-                             torch.zeros(num_features, **f32))
-        self.register_buffer("running_var", torch.ones(num_features, **f32))
+        if track_running_stats:
+            self.register_buffer("running_mean",
+                                 torch.zeros(num_features, **f32))
+            self.register_buffer("running_var",
+                                 torch.ones(num_features, **f32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = x.shape[-1]
-        if self.training:
+        if self.training or not self.track_running_stats:
             xg = x.float().reshape(self.groups, -1, feat)
             mean = xg.mean(dim=1, keepdim=True)                # (G, 1, C)
             var = ((xg - mean) ** 2).mean(dim=1, keepdim=True)
             xn = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean.mean(dim=(0, 1)))
-                self.running_var.mul_(m).add_((1 - m) * var.mean(dim=(0, 1)))
+            if self.track_running_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(
+                        (1 - m) * mean.mean(dim=(0, 1)))
+                    self.running_var.mul_(m).add_(
+                        (1 - m) * var.mean(dim=(0, 1)))
         else:
             xn = (x.float() - self.running_mean) * torch.rsqrt(
                 self.running_var + self.eps)
@@ -416,31 +431,37 @@ class GroupedBatchNorm(nn.Module):
 
 class ProjectorMlp(nn.Sequential):
     """Bias-free Linears with BatchNorm and ReLU between them and an
-    affine-free BatchNorm at the end, over (B, L, C) tokens (layers.py:
-    510-556; the reference's ``_build_mlp_2d``). The BatchNorms normalise
-    over the B*L rows per feature. Layer ``i`` is the Linear at index
-    ``3i``, its BatchNorm at ``3i + 1`` and its ReLU at ``3i + 2``, the
-    reference's ``nn.Sequential`` indices, so the exporter's
-    ``emb_h_proj.{3i}.weight`` and ``.{3i+1}.running_mean`` load strictly.
-    The Linears compute in ``dtype``, each BatchNorm in f32, its output cast
-    back to ``dtype``."""
+    affine-free BatchNorm at the end, over (B, L, C) tokens or (B, C) rows
+    (layers.py:510-556; the reference's ``_build_mlp_2d``). The BatchNorms
+    normalise over the B*L rows per feature. Layer ``i`` is the Linear at
+    index ``3i``, its BatchNorm at ``3i + 1`` and its ReLU at ``3i + 2``,
+    the reference's ``nn.Sequential`` indices, so the exporter's
+    ``emb_h_proj.{3i}.weight`` and ``.{3i+1}.running_mean`` load strictly;
+    with ``flax_names`` they are ``fc{i}``, ``bn{i}`` and ``relu{i}``, the
+    exporter's keys of the ECDP heads. The Linears compute in ``dtype``,
+    each BatchNorm in f32, its output cast back to ``dtype``;
+    ``track_running_stats`` goes to every BatchNorm."""
 
     def __init__(self, in_dim: int, num_layers: int, mlp_dim: int,
-                 out_dim: int, bn_groups: int = 1, *, dtype=torch.float32,
+                 out_dim: int, bn_groups: int = 1, *, flax_names: bool = False,
+                 track_running_stats: bool = True, dtype=torch.float32,
                  device=None):
-        layers: list[nn.Module] = []
+        layers: list[tuple[str, nn.Module]] = []
         dim = in_dim
         for i in range(num_layers):
             last = i == num_layers - 1
             dim2 = out_dim if last else mlp_dim
-            layers.append(Linear(dim, dim2, bias=False, dtype=dtype,
-                                 device=device))
-            layers.append(GroupedBatchNorm(dim2, bn_groups, affine=not last,
-                                           device=device))
+            names = ((f"fc{i}", f"bn{i}", f"relu{i}") if flax_names
+                     else (str(3 * i), str(3 * i + 1), str(3 * i + 2)))
+            layers.append((names[0], Linear(dim, dim2, bias=False,
+                                             dtype=dtype, device=device)))
+            layers.append((names[1], GroupedBatchNorm(
+                dim2, bn_groups, affine=not last,
+                track_running_stats=track_running_stats, device=device)))
             if not last:
-                layers.append(nn.ReLU())
+                layers.append((names[2], nn.ReLU()))
             dim = dim2
-        super().__init__(*layers)
+        super().__init__(collections.OrderedDict(layers))
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Event-stream rasterisation: temporal-bilinear voxel grids and the
 per-event weights of the splats.
 
-Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323, and
-``polarity_weights_coordvalid`` :336), with its conventions:
+Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323, the
+ECDP count image :111-124 and :326-369, and ``polarity_weights_coordvalid``
+:336), with its conventions:
 
 * ``events``: float32 ``(B, E, 4)`` with columns ``[x, y, t, p]``,
   time-sorted, valid rows leading; ``counts``: int ``(B,)`` valid rows.
@@ -53,6 +54,44 @@ def bilinear_bin_weights_windowed(events: torch.Tensor, valid: torch.Tensor,
         w_left[..., None] * (tis_i[..., None] == bins)
         + w_right[..., None] * (tis_i[..., None] + 1 == bins)
     )
+
+
+def _polarity_weights(events: torch.Tensor,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """``(B, 2, E)`` f32 [positive, negative] indicators of each event,
+    zeroed past ``count`` (events.py:326-333). Coordinates outside the
+    frame keep their weights: the splat drops them."""
+    e = events.shape[1]
+    valid = (torch.arange(e, device=events.device)[None]
+             < counts.to(events.device)[:, None]).float()
+    p = events[..., 3]
+    return torch.stack([(p > 0).float() * valid, (p <= 0).float() * valid],
+                       dim=1)
+
+
+def events_to_image_ecdp(events: torch.Tensor, count, *, height: int,
+                         width: int) -> torch.Tensor:
+    """One sample's ECDP [positive, negative] count image, ``(E, 4)`` ->
+    ``(H, W, 2)`` f32 (events.py:111-124): the batched path at B=1, over
+    the first ``count`` events that fall in the frame; polarity <= 0
+    counts as negative."""
+    counts = torch.as_tensor(count, dtype=torch.int32).reshape(1)
+    return events_to_image_ecdp_batch(events[None], counts, height=height,
+                                      width=width)[0]
+
+
+def events_to_image_ecdp_batch(events: torch.Tensor, counts: torch.Tensor,
+                               *, height: int, width: int) -> torch.Tensor:
+    """``(B, E, 4), (B,)`` -> ``(B, H, W, 2)`` f32 ECDP count images
+    (events.py:351-369): the prefix-valid polarity weights summed by the
+    splat kernel (ops/splat.py, K3) on CUDA, by its exact scatter on the
+    CPU."""
+    from eventpretrain_tpu_torch.ops.splat import splat
+
+    return splat(events[..., 1].to(torch.int32).contiguous(),
+                 events[..., 0].to(torch.int32).contiguous(),
+                 _polarity_weights(events, counts).contiguous(),
+                 height=height, width=width)
 
 
 def polarity_weights_coordvalid(events: torch.Tensor, height: int,

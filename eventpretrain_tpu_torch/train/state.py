@@ -8,19 +8,21 @@ costs no device synchronisation. Under gradient accumulation (the
 optimizer's ``accum_steps`` k > 1, ``optax.MultiSteps``) each call of
 ``apply_gradients`` is a microstep and ``step`` counts updates. The projectors' BatchNorm running
 statistics (JAX's ``batch_stats``) are buffers of the module; the queue
-(``QueueState``, JAX's ``queue``) is held here and replaced by each
-contrastive step, its buffer written in place.
+(``QueueState``, JAX's ``queue``; the ECDP step's pair of
+``SampleQueueState``) is held here and replaced by each contrastive step.
+The ECDP baseline's EMA key encoder (JAX's ``ema_params``) is
+``key_encoder``, a module outside the optimizer that the ECDP step moves
+in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
 
-from eventpretrain_tpu_torch.objectives.contrastive import QueueState
 from eventpretrain_tpu_torch.train.optim import (
     clip_by_safe_global_norm,
     global_grad_norm,
@@ -34,8 +36,9 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0
     clip_grad: Optional[float] = None
-    queue: Optional[QueueState] = None
+    queue: Any = None
     micro_step: int = 0
+    key_encoder: Optional[nn.Module] = None
     # the running mean of the window's gradients, one tensor per parameter
     # of the optimizer's groups in their order (optax's ``acc_grads``)
     acc_grads: Optional[list] = dataclasses.field(default=None, repr=False)

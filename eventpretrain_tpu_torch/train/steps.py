@@ -9,8 +9,8 @@ Counterpart of eventpretrain_tpu/train/steps.py: ``make_rec_step``
 ``make_swin_rec_and_con_step`` :877-948, ``make_cls_train_step``
 :298-345, ``make_cls_eval_step`` :348-385, ``make_semseg_train_step``
 :607-648, ``make_semseg_eval_step`` :651-675, ``make_flow_train_step``
-:679-717 and ``make_flow_eval_step`` :720-761, with ``_valid_row_mask``
-:29-42. Stage 2's frozen trunk is ``requires_grad=False`` on the module
+:679-717, ``make_flow_eval_step`` :720-761 and ``make_ecdp_step``
+:764-874, with ``_valid_row_mask`` :29-42. Stage 2's frozen trunk is ``requires_grad=False`` on the module
 (``train/optim.py::freeze_except_norm``), JAX's ``trainable_mask``: the
 trunk runs forward only, as under ``partitioned_value_and_grad``.
 Under gradient accumulation (the optimizer's ``accum_steps`` k) each step
@@ -32,6 +32,7 @@ from eventpretrain_tpu_torch.eval.metrics import (
     topk_accuracy,
 )
 from eventpretrain_tpu_torch.models.dense_heads import set_dropout_source
+from eventpretrain_tpu_torch.models.ecdp_hub import forward_key
 from eventpretrain_tpu_torch.models.layers import (
     DropPathSource,
     set_drop_path_source,
@@ -46,6 +47,14 @@ from eventpretrain_tpu_torch.objectives.contrastive import (
     QueueState,
     global_token_infonce,
     token_infonce_queue,
+)
+from eventpretrain_tpu_torch.objectives.ecdp import (
+    cosine_ema_momentum,
+    ecdp_kl_loss,
+    ema_update,
+    global_sample_infonce,
+    sample_infonce_queue,
+    vector_project,
 )
 from eventpretrain_tpu_torch.objectives.flow import flow_l1_loss
 from eventpretrain_tpu_torch.objectives.rec import reconstruct_loss
@@ -403,6 +412,84 @@ def _check_replayed(source: DropPathSource, what: str) -> None:
 
 def _topk(num_classes: int) -> tuple[int, ...]:
     return (1,) if num_classes < 5 else (1, 5)
+
+
+def make_ecdp_step(model, *, num_patches: int = 196,
+                   mask_ratio: float = 0.75, use_queue: bool = False,
+                   t_image: float = 0.1, t_event: float = 0.2,
+                   lambda_image: float = 1.0, lambda_event: float = 1.0,
+                   lambda_kl: float = 2.0, base_ema_momentum: float = 0.99,
+                   total_epochs: float = 100.0, steps_per_epoch: int = 1,
+                   generator: Optional[torch.Generator] = None) -> Callable:
+    """``step(state, batch) -> metrics``: the ECDP baseline's step
+    (steps.py:764-874). First the key encoder ``state.key_encoder`` moves
+    toward the query encoder's parameters before this update, ``m`` the
+    cosine in ``state.step / steps_per_epoch``; then two independently
+    masked views: the query through ``forward_query`` (training mode, the
+    BatchNorms' running statistics moving), the key through the key
+    encoder without gradients. The losses: the image InfoNCE of ``q_image``
+    against the projected CLIP embedding, the event InfoNCE of the two
+    event projections projected onto the CLIP direction (no l2 norm),
+    against the queues ``state.queue = (image, event)`` with
+    ``use_queue``, else against the batch (times 2T), and the sinkhorn-KL
+    of ``q_image`` against the CLIP projection; one backward of their
+    weighted sum and one AdamW update.
+
+    ``batch = {'img_q', 'img_k': (B, H, W, 2), 'clip_emb': (B, 512)}``; a
+    batch that also holds ``ids_keep_q``, ``mask_q``, ``ids_keep_k`` and
+    ``mask_k`` replays those maskings, otherwise their noise is drawn from
+    ``generator`` (on the batch's device), which also feeds stochastic
+    depth. ``metrics`` holds ``loss``, ``loss_image``, ``loss_event``,
+    ``loss_kl``, ``grad_norm`` as device tensors and ``ema_momentum``."""
+    len_keep = int(num_patches * (1 - mask_ratio))
+
+    def view_mask(batch: dict, view: str, img: torch.Tensor):
+        if f"ids_keep_{view}" in batch:
+            return batch[f"ids_keep_{view}"], batch[f"mask_{view}"]
+        noise = torch.rand((img.shape[0], num_patches), generator=generator,
+                           device=img.device)
+        return make_mask_from_noise(noise, len_keep)[:2]
+
+    def step(state: TrainState, batch: dict) -> dict:
+        key_encoder = state.key_encoder
+        model.train()
+        key_encoder.train()
+        source = DropPathSource(generator)
+        set_drop_path_source(model, source)
+        set_drop_path_source(key_encoder, source)
+        momentum = cosine_ema_momentum(base_ema_momentum,
+                                       state.step / steps_per_epoch,
+                                       total_epochs)
+        ema_update(model.encoder, key_encoder, momentum)
+        ids_q, mask_q = view_mask(batch, "q", batch["img_q"])
+        ids_k, mask_k = view_mask(batch, "k", batch["img_k"])
+        q_event, q_image, clip_proj = model.forward_query(
+            batch["img_q"], ids_q, batch["clip_emb"], mask_q)
+        k_event = forward_key(key_encoder, batch["img_k"], ids_k, mask_k)
+        q_event_p = vector_project(q_event, clip_proj)
+        k_event_p = vector_project(k_event, clip_proj)
+        if use_queue:
+            queue_image, queue_event = state.queue
+            loss_image, queue_image = sample_infonce_queue(
+                q_image, clip_proj, queue_image, t_image)
+            loss_event, queue_event = sample_infonce_queue(
+                q_event_p, k_event_p, queue_event, t_event, l2_norm=False)
+            state.queue = (queue_image, queue_event)
+        else:
+            loss_image = global_sample_infonce(q_image, clip_proj, t_image)
+            loss_event = global_sample_infonce(q_event_p, k_event_p, t_event,
+                                               l2_norm=False)
+        loss_kl = ecdp_kl_loss(q_image, clip_proj, t_image)
+        loss = (lambda_image * loss_image + lambda_event * loss_event
+                + lambda_kl * loss_kl)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        return {"loss": loss.detach(), "loss_image": loss_image.detach(),
+                "loss_event": loss_event.detach(),
+                "loss_kl": loss_kl.detach(), "ema_momentum": momentum,
+                "grad_norm": grad_norm}
+
+    return step
 
 
 def make_cls_train_step(hub, *, smoothing: float = 0.0,

@@ -394,7 +394,7 @@ def test_cli_chains_the_stages_through_init_from(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--pr_phase", "ecdp"], NotImplementedError),
+    (["--pr_phase", "ecdp", "--data_parallel"], NotImplementedError),
     (["--pr_phase", "con", "--use_queue", "--queue_length", "24",
       "--accum_iter", "2"], ValueError),
     (["--pr_phase", "con", "--data_parallel"], NotImplementedError),

@@ -709,7 +709,7 @@ def test_cli_finetunes_from_a_pretrain_checkpoint(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--accum_iter", "0"], ["--resume", "x"], ["--visualize"],
     ["--export_torch", "x.pth"], ["--backbone", "swin_ecddp"],
-    ["--dataset", "n_imagenet"], ["--num_bins", "2"],
+    ["--dataset", "n_imagenet"], ["--num_bins", "3"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):
     """Each flag of a later slice exits naming it; ``--accum_iter``, which

@@ -566,7 +566,9 @@ def test_normalize_representation_matches_jax(num_bins):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("kw", [dict(num_bins=2), dict(num_bins=3),
+@pytest.mark.parametrize("kw", [dict(num_bins=3,
+                                     sensor_hw=torch.tensor([[8, 8]])),
+                                dict(num_bins=3),
                                 dict(num_bins=5, use_evrep=True),
                                 dict(num_bins=3, tile_table=torch.zeros(1))])
 def test_unported_representations_raise(kw):

@@ -498,4 +498,4 @@ def test_cli_runs_four_steps_and_writes_a_loadable_checkpoint(tmp_path):
         torch.testing.assert_close(hub.state_dict()[k], v.cpu(), rtol=0,
                                    atol=0)
     with pytest.raises(NotImplementedError):
-        main(["--pr_phase", "ecdp", "--device", "cpu"])
+        main(["--pr_phase", "ecdp", "--visualize", "--device", "cpu"])
