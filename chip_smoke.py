@@ -238,6 +238,33 @@ backend's refusal of a shape, which its timing records as null):
    (4 steps, counted), ``cli.finetune_cls.main --backbone vit_ecdp
    --num_bins 2 --finetune`` from its checkpoint and
    ``cli.finetune_semseg.main --backbone vit_ecdp --num_bins 2``.
+5l. Slice 5d, every on-disk reader and the MEM count image: fixture
+   trees of the six other cls sources (``data/cls_sources.py``) written
+   at their true sensors (N-Caltech101 and UCF101-DVS 180x240, CIFAR10-DVS
+   and DVS128 128x128, N-ImageNet 480x640 with a robustness variant root,
+   ES-ImageNet's 254x254 files cropped to 224x224 by their label file),
+   128 train and 64 val samples of 30000 events in 2 classes (DVS128's
+   directories '2' and '10'); ``cli.finetune_cls.main`` (ViT-S, bf16,
+   B=64, 2 steps and one eval) on each: N-ImageNet at 5 bins (rescaled,
+   K3 on 224x224x5, its variant evaluated and printed), CIFAR10-DVS at 2
+   bins (rescaled, 224x224x2) and 5 (128x128x5), N-Caltech101 at 3 (the
+   MEM image: K3 on 180x240x2), ES-ImageNet, DVS128 and UCF101-DVS at 5,
+   each run counted: K3 one a batch on the route ``splat_route`` names,
+   K4 11 + 11 a step, the losses finite. Then 2 semseg steps of the ViT-S
+   dense hub (B=16, drop-path and the heads' dropout replayed) over
+   ``DensePipeline`` on synthetic streams at DDD17's 200x346 (80000
+   events, 6 classes, K6 on 2x3 tiles, the last row and column partial)
+   and at DSEC's 440x640 with ``--num_bins 3`` (the MEM image: K6 on the
+   2 count planes), each against the plain path rebuilt from the same
+   wire data with K6's plain version (the first loss within 2%; K6 1,
+   K1/K2 1 + 1, K4 11 + 11 a step); the whole MEM representation with a
+   hot pixel through K3 (B=64 on 180x240, ragged sensor boxes) and K6
+   (B=2 on 440x640) against the plain path's; K3 at (64, 5, 30300) on
+   180x240x5 and (64, 2, 30300) on 180x240x2, and K6 on the two dense
+   paths' first wire batches (200x346x5 with bin ranges, 440x640x2
+   without), each held against its plain version and timed, one call an
+   event pair and from a CUDA graph of 10 calls, beside ``index_put_``
+   (these rows join phase 6's K3 and K6 rows).
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -2068,10 +2095,11 @@ def build_dense_hub(dev):
 
 
 def dense_pipeline(dev, train: bool, batches: int,
-                   num_bins: int = NUM_BINS):
+                   num_bins: int = NUM_BINS, sensor_hw=DSEC_HW,
+                   events: int = DSEC_EVENTS):
     """DSEC-shape synthetic streams (sensor 440x640, 200000 events, labels
-    at 440x640) through the dense pipeline at B=16, u32 codec, tiling on
-    "auto" (on: 440 * 640 > 65536)."""
+    at 440x640; or another sensor and count) through the dense pipeline at
+    B=16, u32 codec, tiling on "auto" (on: 440 * 640 > 65536)."""
     from eventpretrain_tpu_torch.data.dense_pipeline import (
         DenseDataConfig,
         DensePipeline,
@@ -2080,15 +2108,15 @@ def dense_pipeline(dev, train: bool, batches: int,
 
     source = SyntheticDenseSource(
         "semseg", n=DENSE_BATCH * batches, num_classes=DENSE_CLASSES,
-        sensor_hw=DSEC_HW, num_events=DSEC_EVENTS, seed=0 if train else 1000)
+        sensor_hw=sensor_hw, num_events=events, seed=0 if train else 1000)
     cfg = DenseDataConfig(
         task="semseg", num_bins=num_bins, input_size=TRAIN_INPUT,
-        fix_events_num=DSEC_EVENTS, val_fix_events_num=DSEC_EVENTS,
-        sensor_height=DSEC_HW[0], sensor_width=DSEC_HW[1],
-        label_size=DSEC_HW, tiled_raster="auto")
+        fix_events_num=events, val_fix_events_num=events,
+        sensor_height=sensor_hw[0], sensor_width=sensor_hw[1],
+        label_size=sensor_hw, tiled_raster="auto")
     pipe = DensePipeline(source, cfg, DENSE_BATCH, train=train, seed=0,
                          device=dev)
-    require(pipe.tiled, "the DSEC-shape pipeline does not tile")
+    require(pipe.tiled, f"the {sensor_hw} pipeline does not tile")
     return pipe
 
 
@@ -2121,7 +2149,8 @@ class record_wire:
             return self.fn(*args, **kwargs)
 
 
-def make_dense_trainer(hub, dev, steps_per_epoch: int):
+def make_dense_trainer(hub, dev, steps_per_epoch: int,
+                       num_classes: int = DENSE_CLASSES):
     """The semseg CLI's optimizer and step (cli/finetune_semseg.py) with its
     defaults: lr 1e-3 * 16 / 256, wd 0.05, betas (0.9, 0.999), no clip,
     loss weights 1 and 0.4, bilinear resizes; the warmup is one epoch of
@@ -2138,7 +2167,7 @@ def make_dense_trainer(hub, dev, steps_per_epoch: int):
     optimizer = build_optimizer(hub, weight_decay=0.05, betas=(0.9, 0.999))
     state = TrainState(hub, optimizer, schedule)
     step = make_semseg_train_step(
-        hub, num_classes=DENSE_CLASSES, ignore_index=DENSE_IGNORE,
+        hub, num_classes=num_classes, ignore_index=DENSE_IGNORE,
         generator=torch.Generator(dev).manual_seed(0))
     return state, step
 
@@ -2544,13 +2573,15 @@ def make_flow_trainer(hub, dev, steps_per_epoch: int):
     return state, step
 
 
-def k6_wire_inputs(args, kw, hw):
+def k6_wire_inputs(args, kw, hw, num_bins: int = NUM_BINS):
     """K6's operands as the dense pipeline's device half builds them from
     a recorded call's wire data: ``(y, x, weights, tile_table, bin
-    ranges)``."""
+    ranges)``; the count images (``num_bins`` 2 or 3) take the polarity
+    weights and no bin ranges."""
     from eventpretrain_tpu_torch.data.codec import decode_events_u32
     from eventpretrain_tpu_torch.ops.events import (
         bilinear_bin_weights_windowed,
+        polarity_weights_coordvalid,
     )
     from eventpretrain_tpu_torch.ops.splat_tiled import chunk_bin_range
 
@@ -2559,6 +2590,9 @@ def k6_wire_inputs(args, kw, hw):
     h, w = hw
     x = events[..., 0].to(torch.int32).contiguous()
     y = events[..., 1].to(torch.int32).contiguous()
+    if num_bins in (2, 3):
+        return (y, x, polarity_weights_coordvalid(events, h, w),
+                kw["tile_table"].contiguous(), None)
     valid = (x >= 0) & (x < w) & (y >= 0) & (y < h)
     wb = bilinear_bin_weights_windowed(events, valid, t_range[:, 0],
                                        t_range[:, 1], NUM_BINS)
@@ -4678,6 +4712,340 @@ def phase_ecdp_cli(dev) -> None:
             "the vit_ecdp semseg CLI did not take K3")
 
 
+# --------------------------------------------------------------- phase 5l
+#
+# slice 5d: every on-disk reader and the MEM count image. The six cls
+# sources read fixture trees written in their datasets' layouts at their
+# true sensors; the DSEC and DDD17 readers need h5py and PIL, which the
+# card's machine lacks, so the dense steps read the synthetic source at
+# those readers' sensors.
+
+FIXTURE_TRAIN = 128  # samples a class tree holds for training: 2 steps
+FIXTURE_VAL = 64  # one eval batch of B=64 (a short one wraps once only)
+FIXTURE_EVENTS = 30000  # finetune_cls.py's --fix_events_num
+CLS_CAPACITY = FIXTURE_EVENTS + FIXTURE_EVENTS // 100
+NCALTECH_HW = (180, 240)  # N-Caltech101's and UCF101-DVS's sensor
+DDD17_HW = (200, 346)
+DDD17_EVENTS = 80_000  # Ddd17Source's default, the CLI's --fix_events_num
+DDD17_CLASSES = 6
+READER_STEPS = 2
+# each finetune_cls run: (dataset, --num_bins, the canvas K3 rasterises
+# on, its planes)
+READER_RUNS = (
+    ("n_imagenet", 5, (TRAIN_INPUT, TRAIN_INPUT), 5),
+    ("cifar10_dvs", 2, (TRAIN_INPUT, TRAIN_INPUT), 2),
+    ("cifar10_dvs", 5, (128, 128), 5),
+    ("n_caltech101", 3, NCALTECH_HW, 2),
+    ("es_imagenet", 5, (224, 224), 5),
+    ("dvs128_gesture", 5, (128, 128), 5),
+    ("ucf101_dvs", 5, NCALTECH_HW, 5),
+)
+
+
+def write_cls_fixture(root: str, dataset: str, rng, n: int,
+                      events: int = FIXTURE_EVENTS) -> None:
+    """``n`` samples in 2 classes of ``dataset``'s on-disk layout under
+    ``root`` (data/cls_sources.py), each of ``events`` random events at
+    the dataset's true sensor; ES-ImageNet's label file beside its
+    tree."""
+    h, w = {"n_caltech101": NCALTECH_HW, "ucf101_dvs": NCALTECH_HW,
+            "n_imagenet": RAW_HW, "es_imagenet": (254, 254)}.get(
+                dataset, (128, 128))
+    classes = ("2", "10") if dataset == "dvs128_gesture" else ("a", "b")
+    labels = []
+    for k in range(n):
+        cls = classes[k % 2]
+        d = os.path.join(root, cls)
+        os.makedirs(d, exist_ok=True)
+        x = rng.integers(0, w, events).astype(np.int16)
+        y = rng.integers(0, h, events).astype(np.int16)
+        t = np.sort(rng.uniform(0.0, 0.1, events))
+        p = rng.integers(0, 2, events).astype(np.uint8)
+        name = os.path.join(d, f"{cls}_{k}")
+        if dataset in ("n_caltech101", "cifar10_dvs"):
+            np.save(name + ".npy", np.stack([x, y, t, p], -1)
+                    .astype(np.float32))
+        elif dataset == "n_imagenet":
+            arr = np.zeros(events, dtype=[("x", "<u2"), ("y", "<u2"),
+                                          ("t", "<i8"), ("p", "?")])
+            arr["x"], arr["y"] = x, y
+            arr["t"] = (t * 1e6).astype(np.int64)
+            arr["p"] = p.astype(bool)
+            np.savez(name + ".npz", event_data=arr)
+        elif dataset == "dvs128_gesture":
+            np.savez(name + ".npz", x=x, y=y, t=t.astype(np.float32), p=p)
+        elif dataset == "es_imagenet":
+            # (row, col, frame) of each polarity; the crop to 16..240
+            # keeps about 78% of them
+            frame = rng.integers(1, 9, events).astype(np.int16)
+            half = events // 2
+            np.savez(name + ".npz",
+                     pos=np.stack([y, x, frame], -1)[:half],
+                     neg=np.stack([y, x, frame], -1)[half:])
+            labels.append(f"{cls}_{k}.npz 254 254 0\n")
+        elif dataset == "ucf101_dvs":
+            import scipy.io
+
+            scipy.io.savemat(name + ".mat", {
+                "x": x[:, None], "y": y[:, None], "ts": t[:, None],
+                "pol": p[:, None]})
+    if labels:
+        with open(root + "_labels.txt", "w") as f:
+            f.writelines(labels)
+
+
+def reader_cli_runs(dev, base: str) -> dict:
+    """``cli.finetune_cls.main`` (ViT-S, bf16, B=64, one epoch: 2 steps
+    and one eval) on each fixture tree, counted: K3 a batch on the canvas
+    and the route ``READER_RUNS`` name, the loss finite, N-ImageNet's
+    variant evaluated (its printed line is held by the CPU test)."""
+    from eventpretrain_tpu_torch.cli.finetune_cls import main as cls_main
+    from eventpretrain_tpu_torch.ops.splat import splat, splat_route
+
+    rng = np.random.default_rng(21)
+    t0 = time.perf_counter()
+    for dataset in sorted({r[0] for r in READER_RUNS}):
+        for split, n in (("train", FIXTURE_TRAIN), ("val", FIXTURE_VAL)):
+            write_cls_fixture(os.path.join(base, dataset, split), dataset,
+                              rng, n)
+    write_cls_fixture(os.path.join(base, "n_imagenet", "val_mode_1"),
+                      "n_imagenet", rng, FIXTURE_VAL)
+    log(f"fixture trees of {len(READER_RUNS) - 1} datasets, "
+        f"{FIXTURE_TRAIN} + {FIXTURE_VAL} samples of {FIXTURE_EVENTS} "
+        f"events each, written in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for dataset, bins, canvas, planes in READER_RUNS:
+        root = os.path.join(base, dataset)
+        # DVS128's label is its directory's name: '10' needs 11 classes
+        classes = 11 if dataset == "dvs128_gesture" else 2
+        argv = ["--dataset", dataset, "--num_classes", str(classes),
+                "--num_bins",
+                str(bins), "--batch_size", str(TRAIN_BATCH), "--epochs",
+                "1", "--print_freq", "1", "--device", str(dev),
+                "--train_root", os.path.join(root, "train"),
+                "--val_root", os.path.join(root, "val"), "--output_dir",
+                os.path.join("build", f"chip_smoke_{dataset}_{bins}")]
+        batches = FIXTURE_TRAIN // TRAIN_BATCH + 1
+        if dataset == "n_imagenet":
+            argv += ["--val_variant_roots", os.path.join(root, "val_mode_1")]
+            batches += 1
+        if dataset == "es_imagenet":
+            argv += ["--es_train_label", os.path.join(root, "train")
+                     + "_labels.txt", "--es_val_label",
+                     os.path.join(root, "val") + "_labels.txt"]
+        t0 = time.perf_counter()
+        reset_counts()
+        res = cls_main(argv)
+        counts = read_counts()
+        route = splat_route(TRAIN_BATCH, *canvas, planes)
+        by_route = dict(splat.launches_by_route)
+        log(f"cli.finetune_cls --dataset {dataset} --num_bins {bins}: "
+            f"{res['state'].step} steps, val {res['val']}, in "
+            f"{time.perf_counter() - t0:.1f} s; K3 {counts['splat']} on "
+            f"{canvas[0]}x{canvas[1]}x{planes} {by_route}; launches "
+            f"{counts}")
+        require(res["state"].step == FIXTURE_TRAIN // TRAIN_BATCH,
+                f"{dataset}: the CLI ran {res['state'].step} steps")
+        require(np.isfinite(res["val"]["loss"]),
+                f"{dataset}: non-finite val loss")
+        require(counts["splat"] == by_route[route] == batches,
+                f"{dataset} at {bins} bins: K3 {counts['splat']} "
+                f"({by_route}), expected {batches} on the {route} route")
+        require(counts["fused_attn_layer_bwd"]
+                == CLS_K4_BLOCKS * FIXTURE_TRAIN // TRAIN_BATCH,
+                f"{dataset}: the train steps did not take K4")
+        if dataset == "n_imagenet":
+            vm = res["variants"].get("val_mode_1", {})
+            require(np.isfinite(vm.get("loss", np.nan))
+                    and np.isfinite(vm.get("acc1", np.nan)),
+                    "the N-ImageNet variant was not evaluated")
+        launches[f"cls_cli_{dataset}_{bins}"] = counts
+    return launches
+
+
+def k3_held_row(dev, grid_hw, capacity: int, ecdp: bool, seed: int, smi,
+                launches: dict, path: str) -> dict:
+    """K3 at (64, planes, capacity) on ``grid_hw``: held against its plain
+    version, then ``k3_timing``'s entry."""
+    from eventpretrain_tpu_torch.ops.splat import splat, splat_reference
+
+    y, x, wb = splat_args(np.random.default_rng(seed), TRAIN_BATCH, dev,
+                          grid_hw, capacity, ecdp)
+    hw = dict(height=grid_hw[0], width=grid_hw[1])
+    err = (splat(y, x, wb, **hw)
+           - splat_reference(y, x, wb, **hw)).abs().max().item()
+    require(err <= SPLAT_ATOL, f"splat at {grid_hw}x{wb.shape[1]} disagrees "
+                               "with splat_reference")
+    del y, x, wb
+    entry = k3_timing(dev, TRAIN_BATCH, grid_hw, capacity, smi, ecdp=ecdp)
+    entry.update(max_abs_err=err, tol=SPLAT_ATOL,
+                 launches_by_path={path: launches[path]["splat"]})
+    return entry
+
+
+def mem_representation_check(dev) -> dict:
+    """The whole MEM representation, the hot pixels removed, on the card
+    against the plain path's (the splats' plain versions): K3 at B=64 on
+    N-Caltech101's 180x240 with ragged sensor boxes, and K6 at B=2 of
+    DSEC's 440x640, each with a hot pixel."""
+    from eventpretrain_tpu_torch.data.representations import (
+        build_representation,
+    )
+
+    rng = np.random.default_rng(23)
+    ev, counts, _ = make_events(rng, TRAIN_BATCH, NCALTECH_HW, CLS_CAPACITY,
+                                out_of_frame=True)
+    ev[:, :counts.min() // 20, :2] = (17, 9)  # a hot pixel, 5% of events
+    sensor = np.tile(np.asarray(NCALTECH_HW, np.int32), (TRAIN_BATCH, 1))
+    sensor[::2] -= (20, 40)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in
+         (("events", ev), ("counts", counts), ("sensor", sensor))}
+    kw = dict(num_bins=3, height=NCALTECH_HW[0], width=NCALTECH_HW[1],
+              sensor_hw=t["sensor"])
+    got = build_representation(t["events"], t["counts"], **kw)
+    with plain_splat():
+        ref = build_representation(t["events"], t["counts"], **kw)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    hot = bool((ref[:, 9, 17, 0] == 0).all())
+    inp = dsec_tiled_inputs(np.random.default_rng(24), 2, dev)
+    inp["events"][:, 1 << 14:1 << 15, :2] = torch.tensor(
+        [300.0, 200.0], device=dev)
+    tkw = dict(num_bins=3, height=DSEC_HW[0], width=DSEC_HW[1],
+               tile_table=inp["table"], t_range=inp["t_range"],
+               chunk_trange=inp["chunk_trange"])
+    tgot = build_representation(inp["events"], None, **tkw)
+    with plain_tiled_splat():
+        tref = build_representation(inp["events"], None, **tkw)
+    torch.cuda.synchronize()
+    terr = (tgot - tref).abs().max().item()
+    log(f"MEM representation (64, 3) on 180x240 through K3 against the "
+        f"plain path: max_abs_err {err:.3g}, hot pixel zeroed {hot}; tiled "
+        f"(2, 3) on 440x640 through K6: max_abs_err {terr:.3g} (tol "
+        f"{SPLAT_ATOL}); nonzero cells {int((tref > 0).sum())}")
+    require(err <= SPLAT_ATOL and terr <= SPLAT_ATOL,
+            "the MEM representation leaves the plain path's")
+    require(hot, "the hot pixel of the MEM image was not removed")
+    require(int((tref > 0).sum()) > 0, "the tiled MEM image is empty")
+    require(float(ref[..., 1].abs().max()) == 0.0,
+            "the MEM image's middle channel is not zero")
+    return {"max_abs_err": max(err, terr), "tol": SPLAT_ATOL}
+
+
+def reader_dense_steps(dev, what: str, sensor_hw, events: int,
+                       num_classes: int, num_bins: int) -> dict:
+    """``READER_STEPS`` semseg steps of the ViT-S dense hub (B=16,
+    drop-path and the heads' dropout 0.1, replayed) over ``DensePipeline``
+    on the synthetic source at ``sensor_hw`` (tiled, K6), counted, and the
+    plain path from the same init on the same wire data; the first step's
+    loss within 2%."""
+    import eventpretrain_tpu_torch.data.dense_pipeline as dense_data
+    from eventpretrain_tpu_torch.models.dense_hub import dense_hub_vit_small
+
+    hub = dense_hub_vit_small(
+        num_classes, num_bins, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator().manual_seed(0),
+        drop_path_rate=DENSE_DROP, decode_dropout=DENSE_DROP)
+    plain_hub = copy.deepcopy(hub)
+    set_fused(plain_hub, False)
+    state, step = make_dense_trainer(hub, dev, READER_STEPS, num_classes)
+    pstate, pstep = make_dense_trainer(plain_hub, dev, READER_STEPS,
+                                       num_classes)
+    pipe = dense_pipeline(dev, True, READER_STEPS, num_bins=num_bins,
+                          sensor_hw=sensor_hw, events=events)
+    rng = np.random.default_rng(25)
+    sites = np.repeat(np.linspace(0, DENSE_DROP, DEPTH)[1:], 2)
+    reset_counts()
+    batches, kern = [], []
+    with record_wire(dense_data) as wire:
+        for batch in pipe:
+            batch["drop_path_keep"] = torch.from_numpy(
+                rng.random((len(sites), DENSE_BATCH)) < (1.0 - sites)[:, None]
+            ).to(dev)
+            batch["dropout_keep"] = [
+                torch.from_numpy(rng.random((DENSE_BATCH, c))
+                                 < 1.0 - DENSE_DROP).to(dev)
+                for c in DENSE_DROPOUT_CHANNELS]
+            batches.append(batch)
+            kern.append(step(state, batch))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    kern = [{k: float(v) for k, v in m.items()} for m in kern]
+    pbatches, evg_err = [], 0.0
+    for i, batch in enumerate(batches):
+        rebuilt = wire.rebuild_plain(i)
+        evg_err = max(evg_err,
+                      (rebuilt["evg"] - batch["evg"]).abs().max().item())
+        pbatches.append({**batch, **rebuilt})
+    plain = run_steps(pstep, pstate, pbatches)
+    require(read_counts() == launches, "the plain path launched a kernel")
+    lk = [m["loss"] for m in kern]
+    lp = [m["loss"] for m in plain]
+    gap = abs(lk[0] - lp[0]) / abs(lp[0])
+    log(f"{what}: {READER_STEPS} semseg steps at {sensor_hw}, {events} "
+        f"events, {num_bins} bins, {num_classes} classes; loss kernel "
+        f"{lk}, plain {lp}, first-step gap {gap:.3g} (bound "
+        f"{LOSS_GAP_REL}); evg of K6 vs its plain version {evg_err:.3g}; "
+        f"host build {pipe.host_seconds / pipe.batches * 1e3:.1f} ms a "
+        f"batch; launches {launches}")
+    require(all(np.isfinite([*lk, *lp])), f"{what}: non-finite loss")
+    require(evg_err <= SPLAT_ATOL, f"{what}: the K6 input differs")
+    require(gap <= LOSS_GAP_REL, f"{what}: the kernel path's first loss "
+                                 "leaves the plain path's")
+    per_step = {"splat_tiled": 1, "splat": 0,
+                "fused_ln_attn_layer": 1, "fused_ln_attn_layer_bwd": 1,
+                "fused_ln_mlp": 1, "fused_ln_mlp_bwd": 1,
+                "fused_attn_layer": CLS_K4_BLOCKS,
+                "fused_attn_layer_bwd": CLS_K4_BLOCKS}
+    for name, want in per_step.items():
+        require(launches[name] == want * READER_STEPS,
+                f"{what}: {name} {launches[name]} launches over "
+                f"{READER_STEPS} steps, expected {want} a step")
+    return {"launches": launches, "wire": wire.calls, "loss_gap": gap,
+            "losses": lk, "plain_losses": lp}
+
+
+def phase_readers(dev, smi) -> dict:
+    """Phase 5l: the cls CLI on the six sources' fixture trees; K3 at
+    180x240 (5 and 2 planes), the MEM representation and K6 at 200x346x5
+    and 440x640x2 against their plain versions, one call and
+    graph-timed; the DDD17-shape and the DSEC-shape MEM semseg steps."""
+    import tempfile
+
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as base:
+        launches = reader_cli_runs(dev, base)
+    ddd17 = reader_dense_steps(dev, "DDD17 shape", DDD17_HW, DDD17_EVENTS,
+                               DDD17_CLASSES, NUM_BINS)
+    dsec = reader_dense_steps(dev, "DSEC shape, MEM", DSEC_HW, DSEC_EVENTS,
+                              DENSE_CLASSES, 3)
+    launches["ddd17_semseg_train"] = ddd17["launches"]
+    launches["dsec_mem_semseg_train"] = dsec["launches"]
+    mem = mem_representation_check(dev)
+    k3 = [k3_held_row(dev, NCALTECH_HW, CLS_CAPACITY, ecdp, seed, smi,
+                      launches, path)
+          for ecdp, seed, path in (
+              (False, 26, "cls_cli_ucf101_dvs_5"),
+              (True, 27, "cls_cli_n_caltech101_3"))]
+    k6 = []
+    for what, run, hw, bins, path in (
+            ("DDD17", ddd17, DDD17_HW, NUM_BINS, "ddd17_semseg_train"),
+            ("DSEC MEM", dsec, DSEC_HW, 3, "dsec_mem_semseg_train")):
+        args, kw = run["wire"][0]
+        y, x, wb, table, br = k6_wire_inputs(args, kw, hw, bins)
+        entry = k6_entry(y, x, wb, table, br, hw, smi)
+        entry.update(path=path, launches_per_step=(
+            launches[path]["splat_tiled"] / READER_STEPS))
+        k6.append(entry)
+        del y, x, wb, table, br
+    return {"launches": launches, "k3_shapes": k3, "k6_shapes": k6,
+            "mem": mem, "records": {
+                "ddd17_semseg_train": {k: ddd17[k] for k in (
+                    "loss_gap", "losses", "plain_losses")},
+                "dsec_mem_semseg_train": {k: dsec[k] for k in (
+                    "loss_gap", "losses", "plain_losses")}}}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -5035,21 +5403,80 @@ def row_rows(dev, errs, launches, smi) -> list:
     return out
 
 
-def k6_row(dense, flow, errs, total, launches, smi) -> dict:
-    """K6 on the main paths' own inputs: the first semseg batch's wire data
-    (B=16, DSEC's 440x640), with and without bin ranges, and the first flow
-    batch's (B=16, MVSEC's 260x346, partial tiles), with them; each held
-    against its plain version, then timed beside it, one ``index_put_`` of
-    the whole batch, and its bound. The bound counts the bytes this data
-    needs: the coordinates of every slot, the weights of the channels
-    inside each chunk's bin range, the table and the ranges, and the grid
-    written once."""
+def k6_entry(y, x, wb, table, bins, hw, smi) -> dict:
+    """K6 on one batch's operands (``bins`` the chunks' bin ranges, or
+    None): held against its plain version, then timed beside it (one call
+    an event pair, and from a CUDA graph of 10 calls), beside one
+    ``index_put_`` of the whole batch, and its bound. The bound counts the
+    bytes this data needs: the coordinates of every slot, the weights of
+    the channels inside each chunk's bin range, the table and the ranges,
+    and the grid written once."""
     from eventpretrain_tpu_torch.native import TILE_CHUNK
     from eventpretrain_tpu_torch.ops.splat_tiled import (
         splat_tiled,
         splat_tiled_reference,
     )
 
+    h, w = hw
+    kw = dict(height=h, width=w)
+    b, c, e = wb.shape
+
+    def fn():
+        return splat_tiled(y, x, wb, table, bins, **kw)
+
+    def plain():
+        return splat_tiled_reference(y, x, wb, table, bins, **kw)
+
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    require(err <= SPLAT_ATOL, f"splat_tiled at B={b} on {h}x{w}x{c} "
+                               "disagrees with its plain version")
+    del got, ref
+    ms, plain_ms = time_pair(fn, plain)
+    device_ms = graph_ms(fn)
+    if bins is None:
+        in_range = b * c * e
+    else:
+        ch = torch.arange(c, device=bins.device)[None, None]
+        in_range = int(((ch >= bins[..., :1]) & (ch <= bins[..., 1:]))
+                       .sum()) * TILE_CHUNK
+    nbytes = (8 * b * e + 4 * in_range + 4 * table.numel()
+              + (0 if bins is None else 4 * bins.numel())
+              + 4 * b * h * w * c)
+    bms, bby = bound(in_range, nbytes)
+    entry = {"shape": [b, c, e], "sensor": [h, w],
+             "bin_range": bins is not None, "max_abs_err": err, "ms": ms,
+             "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": bby, "flops": in_range, "bytes": nbytes}
+    # the library call: index_put_(accumulate=True) of the whole batch, on
+    # the cells and weights the plain version selects (the bin ranges skip
+    # only zero weights: the same function either way)
+    tiles_x = -(-w // 128)
+    tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
+    ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
+    yl, xl = y.long(), x.long()
+    ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0) & (xl < tx0 + 128)
+          & (yl < h) & (xl < w))
+    cell = ((torch.arange(b, device=y.device)[:, None] * h + yl) * w
+            + xl)[ok]
+    vals = wb.transpose(1, 2)[ok]
+    acc = torch.zeros((b * h * w, c), device=y.device)
+    entry["library_ms"] = cuda_ms(
+        lambda: acc.index_put_((cell,), vals, accumulate=True))
+    del tile, ty0, tx0, ok, cell, vals, acc
+    log(f"time splat_tiled B={b} {h}x{w}x{c} bin_range={bins is not None}: "
+        f"kernel {ms:.4g} ms (graph-timed {device_ms * 1e3:.4g} us), plain "
+        f"{plain_ms:.4g} ms, index_put_ {entry['library_ms']:.4g} ms, bound "
+        f"{bms:.4g} ms ({bby}) ({smi})")
+    return entry
+
+
+def k6_row(dense, flow, errs, total, launches, smi, more=()) -> dict:
+    """K6 on the main paths' own inputs: the first semseg batch's wire data
+    (B=16, DSEC's 440x640), with and without bin ranges, and the first flow
+    batch's (B=16, MVSEC's 260x346, partial tiles), with them; each entry
+    of ``k6_entry``. ``more``: entries measured elsewhere (phase 5l)."""
     row = {"name": "splat_tiled", "route": "cuda",
            "source": "eventpretrain_tpu_torch/csrc/splat_tiled.cu",
            "also": ["eventpretrain_tpu_torch/csrc/splat_core.cuh"],
@@ -5060,77 +5487,26 @@ def k6_row(dense, flow, errs, total, launches, smi) -> dict:
            "max_abs_err": errs["splat_tiled"][0],
            "tol": errs["splat_tiled"][1],
            "library": "index_put_(accumulate=True)", "shapes": []}
-    for path, (args, kw), (h, w), modes in (
+    for path, (args, kw), hw, modes in (
             ("semseg_train", dense["wire"][0], DSEC_HW, (True, False)),
             ("flow_train", flow["wire"][0], MVSEC_HW, (True,))):
-        y, x, wb, table, br = k6_wire_inputs(args, kw, (h, w))
-        hw = dict(height=h, width=w)
-        b, c, e = wb.shape
+        y, x, wb, table, br = k6_wire_inputs(args, kw, hw)
         for with_bins in modes:
-            bins = br if with_bins else None
-
-            def fn(bins=bins):
-                return splat_tiled(y, x, wb, table, bins, **hw)
-
-            def plain(bins=bins):
-                return splat_tiled_reference(y, x, wb, table, bins, **hw)
-
-            got, ref = fn(), plain()
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            require(err <= SPLAT_ATOL, f"splat_tiled at B={b} on {h}x{w} "
-                                       "disagrees with its plain version")
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            del got, ref
-            ms, plain_ms = time_pair(fn, plain)
-            device_ms = graph_ms(fn)
-            if bins is None:
-                in_range = b * c * e
-            else:
-                ch = torch.arange(c, device=br.device)[None, None]
-                in_range = int(((ch >= br[..., :1]) & (ch <= br[..., 1:]))
-                               .sum()) * TILE_CHUNK
-            nbytes = (8 * b * e + 4 * in_range + 4 * table.numel()
-                      + (0 if bins is None else 4 * br.numel())
-                      + 4 * b * h * w * c)
-            bms, bby = bound(in_range, nbytes)
-            entry = {"shape": [b, c, e], "sensor": [h, w], "path": path,
-                     "launches_per_step": launches[path]["splat_tiled"]
-                     / (DENSE_STEPS if path == "semseg_train"
-                        else FLOW_STEPS),
-                     "bin_range": bins is not None,
-                     "max_abs_err": err, "ms": ms, "device_ms": device_ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": bms, "bound_by": bby, "flops": in_range,
-                     "bytes": nbytes}
-            # the library call: index_put_(accumulate=True) of the whole
-            # batch, on the cells and weights the plain version selects
-            # (the bin ranges skip only zero weights: the same function
-            # either way)
-            tiles_x = -(-w // 128)
-            tile = table.long().repeat_interleave(TILE_CHUNK, dim=1)
-            ty0, tx0 = tile // tiles_x * 128, tile % tiles_x * 128
-            yl, xl = y.long(), x.long()
-            ok = ((yl >= ty0) & (yl < ty0 + 128) & (xl >= tx0)
-                  & (xl < tx0 + 128) & (yl < h) & (xl < w))
-            cell = ((torch.arange(b, device=y.device)[:, None] * h + yl)
-                    * w + xl)[ok]
-            vals = wb.transpose(1, 2)[ok]
-            acc = torch.zeros((b * h * w, c), device=y.device)
-            entry["library_ms"] = cuda_ms(
-                lambda: acc.index_put_((cell,), vals, accumulate=True))
-            del tile, ty0, tx0, ok, cell, vals, acc
-            if path == "semseg_train" and bins is not None:
+            entry = k6_entry(y, x, wb, table, br if with_bins else None, hw,
+                             smi)
+            entry.update(path=path, launches_per_step=(
+                launches[path]["splat_tiled"]
+                / (DENSE_STEPS if path == "semseg_train" else FLOW_STEPS)))
+            row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
+            if path == "semseg_train" and with_bins:
                 row.update({k: entry[k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape", "sensor", "flops", "bytes")})
             else:
                 row["shapes"].append(entry)
-            log(f"time splat_tiled B={b} {h}x{w} bin_range="
-                f"{bins is not None}: kernel {ms:.4g} ms (graph-timed "
-                f"{device_ms * 1e3:.4g} us), plain {plain_ms:.4g} ms, "
-                f"index_put_ {entry['library_ms']:.4g} ms, bound "
-                f"{bms:.4g} ms ({bby}) ({smi})")
+    for entry in more:
+        row["shapes"].append(entry)
+        row["max_abs_err"] = max(row["max_abs_err"], entry["max_abs_err"])
     return row
 
 
@@ -5483,7 +5859,7 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi,
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                  dense, flow, host, loops, con, clip, convvit, swin, ecdp,
-                 smi) -> None:
+                 readers, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -5660,17 +6036,20 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                    launches_by_path={"ecdp_raw_train":
                                      launches["ecdp_raw_train"]["splat"]})
     err, tol = errs["splat"]
+    k3_shapes = [k3_raw, k3_ecdp, *readers["k3_shapes"]]
     kernels.append({
         "name": "splat", "route": "cuda", "source": csrc + "splat.cu",
         "also": [csrc + "splat_core.cuh"],
         "replaces": "eventpretrain_tpu/ops/pallas_voxel.py:227",
         "launches": total["splat"],
         "launches_by_path": {p: launches[p]["splat"] for p in launches},
-        "max_abs_err": err, "tol": tol, **k3,
+        "max_abs_err": max([err] + [e["max_abs_err"] for e in k3_shapes]),
+        "tol": tol, **k3,
         "library": "index_put_(accumulate=True)",
-        "shapes": [k3_raw, k3_ecdp],
+        "shapes": k3_shapes,
     })
-    kernels.append(k6_row(dense, flow, errs, total, launches, smi))
+    kernels.append(k6_row(dense, flow, errs, total, launches, smi,
+                          readers["k6_shapes"]))
     for (name, source, also, replaces, shapes, backward, case, work,
          library) in rows:
         ln = name.startswith("fused_ln")
@@ -5840,6 +6219,11 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # slice 5c's ECDP steps (phase 5k)
     for key, rec in ecdp.items():
         e2e[key] = {**rec, "card": smi}
+    # slice 5d's dense steps at the readers' sensors and the MEM check
+    # (phase 5l)
+    for key, rec in readers["records"].items():
+        e2e[key] = {**rec, "card": smi}
+    e2e["mem_representation"] = readers["mem"]
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -5959,6 +6343,9 @@ def main() -> int:
     del ecdp_ft
     phase_ecdp_cli(dev)
     mark("ECDP baseline")
+    readers = phase_readers(dev, smi)
+    launches.update(readers["launches"])
+    mark("dataset readers and the MEM image")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
@@ -5966,7 +6353,7 @@ def main() -> int:
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                  dense, flow, host, loops, con, clip, convvit, swin,
-                 ecdp["records"], smi)
+                 ecdp["records"], readers, smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

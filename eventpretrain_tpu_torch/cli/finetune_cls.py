@@ -3,8 +3,16 @@
 Counterpart of eventpretrain_tpu/cli/finetune_cls.py for ``--backbone
 vit``, ``convvit``, ``swin`` (Swin-T whatever ``--model_size``, as in
 JAX), ``vit_ecdp`` and ``convvit_ecdp`` (the head over the two learned
-tokens; ``--num_bins 2`` is the 2-channel count image, through K3) on the
-synthetic and N-Cars sources, with the JAX CLI's flags and
+tokens) on every source of the JAX CLI: synthetic, N-Cars, N-Caltech101,
+CIFAR10-DVS, DVS128 Gesture, N-ImageNet (with ``--val_variant_roots``,
+each root evaluated on its own every epoch), ES-ImageNet (with
+``--es_train_label``/``--es_val_label``) and UCF101-DVS
+(``data/cls_sources.py``). ``--num_bins`` 2 is the count image, 3 the
+MEM image (3 channels), others the voxel grid, all through K3. The
+fixed-sensor sources rasterise at their sensor, or at ``--input_size``
+where the coordinates are rescaled (N-ImageNet always, CIFAR10-DVS,
+DVS128 and UCF101-DVS at 2 bins); N-Cars and the synthetic source infer
+the sensor on the ``--canvas``. The CLI has the JAX CLI's flags and
 defaults for the data, the optimizer (AdamW (0.9, 0.999), the global-norm
 clip, layer decay) and the regularizers (drop-path 0.1, label smoothing
 0.1). ``--device`` picks the card (default) or the CPU; on ``cuda`` the
@@ -17,6 +25,9 @@ through K4.
     python -m eventpretrain_tpu_torch.cli.finetune_cls --dataset n_cars \\
         --train_root N-Cars/train --val_root N-Cars/test \\
         --finetune results/pretrain/checkpoint.pth
+    python -m eventpretrain_tpu_torch.cli.finetune_cls --dataset n_imagenet \\
+        --num_classes 1000 --train_root N-ImageNet/train \\
+        --val_root N-ImageNet/val --val_variant_roots N-ImageNet/val_mode_1
 
 ``--finetune`` initialises the hub from a ``checkpoint.pth`` that
 ``cli/pretrain.py`` (or this CLI) wrote, as JAX's ``init_backbone_from``
@@ -47,6 +58,7 @@ from eventpretrain_tpu_torch.ckpt.bridge import (
     load_torch_checkpoint,
 )
 from eventpretrain_tpu_torch.cli.finetune_semseg import REFUSED_BACKBONES
+from eventpretrain_tpu_torch.data import cls_sources as cs
 from eventpretrain_tpu_torch.data.cls_pipeline import (
     ClsDataConfig,
     ClsPipeline,
@@ -97,17 +109,28 @@ _NOT_PORTED = {
     "feed_batches": (str, None, "slice 6 (batch replay)"),
     "forward_only": (bool, False, "slice 6 (forward-only steps)"),
     "lenient_import": (bool, False, "slice 6 (the torch import dialects)"),
-    "use_evrepsl": (bool, False, "slice 5 (EvRep and EvRepSL)"),
-    "evrepsl_checkpoint": (str, None, "slice 5 (EvRep and EvRepSL)"),
-    "es_train_label": (str, None, "slice 5 (the other cls sources)"),
-    "es_val_label": (str, None, "slice 5 (the other cls sources)"),
-    "val_variant_roots": (str, [], "slice 5 (the other cls sources)"),
+    "use_evrepsl": (bool, False, "slice 5e (EvRep and EvRepSL)"),
+    "evrepsl_checkpoint": (str, None, "slice 5e (EvRep and EvRepSL)"),
+}
+
+# where each dataset rescales its coordinates to the input after the
+# stream augment (finetune_cls.py:184-189; ClsDataConfig.rescale_to_input)
+_RESCALE_MODE = {
+    "n_imagenet": "always",
+    "cifar10_dvs": "ecdp",
+    "dvs128_gesture": "ecdp",
+    "ucf101_dvs": "ecdp",
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("finetune_cls")
     p.add_argument("--dataset", default="synthetic", choices=DATASETS)
+    p.add_argument("--es_train_label", default=None)
+    p.add_argument("--es_val_label", default=None)
+    p.add_argument("--val_variant_roots", nargs="*", default=[],
+                   help="N-ImageNet robustness val roots, each evaluated "
+                        "on its own every epoch")
     p.add_argument("--train_root", default=None)
     p.add_argument("--val_root", default=None)
     p.add_argument("--num_classes", type=int, default=2)
@@ -157,8 +180,6 @@ def build_parser() -> argparse.ArgumentParser:
     for name, (typ, default, _) in _NOT_PORTED.items():
         if typ is bool:
             p.add_argument(f"--{name}", action="store_true")
-        elif isinstance(default, list):
-            p.add_argument(f"--{name}", nargs="*", default=default)
         else:
             p.add_argument(f"--{name}", type=typ, default=default)
     return p
@@ -176,20 +197,16 @@ def _refuse_unported(args) -> None:
     if args.accum_iter < 1:
         raise SystemExit(f"finetune_cls: --accum_iter must be at least 1, "
                          f"got {args.accum_iter}")
-    if args.dataset not in ("synthetic", "n_cars"):
-        raise SystemExit(f"finetune_cls: --dataset {args.dataset} is not "
-                         "ported yet; it comes with slice 5 (the other cls "
-                         "sources)")
-    if args.num_bins == 3:
-        raise SystemExit(f"finetune_cls: --num_bins 3 (the MEM count "
-                         "image) is not ported yet; it comes with slice "
-                         "5 (the MEM baseline)")
 
 
 def make_sources(args):
-    """(train, val) sources (finetune_cls.py:192-208). The synthetic ones
-    have the N-Cars shape: a 100x120 sensor and as many events per sample
-    as the window takes."""
+    """``(train, val, variants, sensor_hw, rescale)`` as
+    finetune_cls.py:192-231: the sources, N-ImageNet's variant sources by
+    their root's name, the fixed sensor (None: inferred from the events)
+    and the dataset's rescale mode. The synthetic sources have the N-Cars
+    shape: a 100x120 sensor and as many events per sample as the window
+    takes."""
+    rescale = _RESCALE_MODE.get(args.dataset, "never")
     if args.dataset == "synthetic":
         return (SyntheticClsSource(args.num_classes, 64,
                                    num_events=args.fix_events_num,
@@ -197,11 +214,61 @@ def make_sources(args):
                 SyntheticClsSource(args.num_classes, 16,
                                    num_events=args.val_fix_events_num,
                                    sensor_hw=(100, 120),
-                                   seed=args.seed + 1000))
+                                   seed=args.seed + 1000),
+                {}, None, rescale)
     if not (args.train_root and args.val_root):
-        raise SystemExit(f"--train_root/--val_root required for "
-                         f"{args.dataset}")
-    return NCarsSource(args.train_root), NCarsSource(args.val_root)
+        raise SystemExit(f"finetune_cls: --train_root/--val_root required "
+                         f"for {args.dataset}")
+    if args.dataset == "n_cars":
+        return (NCarsSource(args.train_root), NCarsSource(args.val_root),
+                {}, None, rescale)
+    if args.dataset == "es_imagenet":
+        if not (args.es_train_label and args.es_val_label):
+            raise SystemExit("finetune_cls: --es_train_label/--es_val_label "
+                             "required for es_imagenet")
+        train = cs.EsImageNetSource(args.train_root, args.es_train_label,
+                                    args.num_classes)
+        val = cs.EsImageNetSource(args.val_root, args.es_val_label,
+                                  args.num_classes)
+        return train, val, {}, train.sensor_hw, rescale
+    make = {
+        "n_caltech101": cs.NCaltech101Source,
+        "cifar10_dvs": cs.Cifar10DvsSource,
+        "dvs128_gesture": cs.Dvs128GestureSource,
+        "ucf101_dvs": cs.Ucf101DvsSource,
+        "n_imagenet": lambda root: cs.NImageNetSource(root,
+                                                      args.num_classes),
+    }[args.dataset]
+    train, val = make(args.train_root), make(args.val_root)
+    variants = {}
+    if args.dataset == "n_imagenet":
+        for root in args.val_variant_roots:
+            variants[os.path.basename(root.rstrip("/"))] = make(root)
+    return train, val, variants, train.sensor_hw, rescale
+
+
+def data_config(args, sensor_hw, rescale: str) -> ClsDataConfig:
+    """The pipeline's config (finetune_cls.py:257-288): the canvas is
+    ``input_size`` squared under an active rescale, else the source's
+    fixed sensor, else ``--canvas`` with the sensor inferred."""
+    rescale_active = rescale == "always" or (
+        rescale == "ecdp" and args.num_bins == 2)
+    if sensor_hw is not None:
+        canvas = ((args.input_size, args.input_size) if rescale_active
+                  else tuple(sensor_hw))
+    else:
+        canvas = tuple(args.canvas)
+    return ClsDataConfig(
+        num_classes=args.num_classes, num_bins=args.num_bins,
+        input_size=args.input_size, fix_events_num=args.fix_events_num,
+        val_fix_events_num=args.val_fix_events_num,
+        canvas_height=canvas[0], canvas_width=canvas[1],
+        infer_sensor_size=sensor_hw is None,
+        event_noise=args.val_event_noise, resize_mode=args.resize_mode,
+        sensor_height=None if sensor_hw is None else sensor_hw[0],
+        sensor_width=None if sensor_hw is None else sensor_hw[1],
+        rescale_to_input=rescale,
+    )
 
 
 def load_backbone(hub, path: str) -> None:
@@ -218,22 +285,16 @@ def load_backbone(hub, path: str) -> None:
 
 
 def main(argv=None) -> dict:
-    """Run the finetune; returns ``{"state", "best_acc1", "val"}`` (the
-    train state, the best and the last epoch's validation metrics)."""
+    """Run the finetune; returns ``{"state", "best_acc1", "val",
+    "variants"}`` (the train state, the best and the last epoch's
+    validation metrics, and the last epoch's metrics of each variant)."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
-    train_src, val_src = make_sources(args)
-    cfg = ClsDataConfig(
-        num_classes=args.num_classes, num_bins=args.num_bins,
-        input_size=args.input_size, fix_events_num=args.fix_events_num,
-        val_fix_events_num=args.val_fix_events_num,
-        canvas_height=args.canvas[0], canvas_width=args.canvas[1],
-        event_noise=args.val_event_noise,
-        resize_mode=args.resize_mode,
-    )
+    train_src, val_src, variants, sensor_hw, rescale = make_sources(args)
+    cfg = data_config(args, sensor_hw, rescale)
     factory = {
         ("vit", "small"): cls_hub_vit_small,
         ("vit", "base"): cls_hub_vit_base,
@@ -284,7 +345,7 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.output_dir, exist_ok=True)
     path = os.path.join(args.output_dir, "checkpoint.pth")
-    best_acc, val_metrics = 0.0, {}
+    best_acc, val_metrics, variant_metrics = 0.0, {}, {}
     for epoch in range(args.epochs):
         t0 = time.time()
         pipe = ClsPipeline(train_src, cfg, args.batch_size, train=True,
@@ -300,6 +361,14 @@ def main(argv=None) -> dict:
         # mean inference time per batch (ft_cls_trainer.py:190)
         val_metrics["infer_ms"] = round(
             1000 * (time.time() - tv) / max(len(val_pipe), 1), 2)
+        for name, src in variants.items():
+            vm = evaluate(eval_step, ClsPipeline(
+                src, cfg, args.batch_size, train=False, seed=args.seed,
+                num_workers=args.num_workers, device=device),
+                header=f"Val[{name}]:")
+            print(f"  variant {name}: acc1 {vm.get('acc1', 0):.2f}",
+                  flush=True)
+            variant_metrics[name] = vm
         record = {"epoch": epoch,
                   **{f"train_{k}": v for k, v in train_metrics.items()},
                   **{f"val_{k}": v for k, v in val_metrics.items()},
@@ -311,7 +380,8 @@ def main(argv=None) -> dict:
         torch.save({"model": sd, "epoch": epoch}, path)
         best_acc = max(best_acc, val_metrics.get("acc1", 0.0))
     print(f"best val acc1: {best_acc:.2f}")
-    return {"state": state, "best_acc1": best_acc, "val": val_metrics}
+    return {"state": state, "best_acc1": best_acc, "val": val_metrics,
+            "variants": variant_metrics}
 
 
 if __name__ == "__main__":

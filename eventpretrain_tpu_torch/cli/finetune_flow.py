@@ -2,7 +2,8 @@
 
 Counterpart of eventpretrain_tpu/cli/finetune_flow.py for ``--backbone
 convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T),
-``vit_ecdp`` and ``convvit_ecdp`` (``--num_bins 2``: the count image), with
+``vit_ecdp`` and ``convvit_ecdp`` (``--num_bins`` 2: the count image, 3:
+the MEM image), with
 the JAX CLI's flags and defaults for the data (30000 events a sample,
 MVSEC's outdoor_day2 to train and the three indoor_flying splits to
 validate), the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
@@ -161,10 +162,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"finetune_flow: --backbone {args.backbone} is not "
                          "ported yet; it comes with "
                          f"{REFUSED_BACKBONES[args.backbone]}")
-    if args.num_bins == 3:
-        raise SystemExit(f"finetune_flow: --num_bins 3 (the MEM count "
-                         "image) is not ported yet; it comes with slice "
-                         "5 (the MEM baseline)")
     if args.dataset == "mvsec" and not args.data_root:
         raise SystemExit("finetune_flow: --dataset mvsec needs --data_root")
 

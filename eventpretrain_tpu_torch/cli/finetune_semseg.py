@@ -4,21 +4,30 @@ segmentation hub.
 Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
 convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T whatever
 ``--model_size``, as in JAX), ``vit_ecdp`` and ``convvit_ecdp`` on the
-synthetic source (``--num_bins 2``: the 2-channel count image), with the
-JAX CLI's
-flags and defaults for the data, the optimizer (AdamW (0.9, 0.999), base lr
-1e-3, layer decay, no gradient clip unless asked), the loss weights (decode
-1.0, auxiliary 0.4), ``--sample_mode`` and the regularizers (drop-path 0.1,
-the heads' dropout 0.1). ``--device`` picks the card (default) or the CPU;
-on ``cuda`` the hub computes in bf16 (``--bf16``, the default).
+synthetic source and on DSEC and DDD17 under ``--data_root``
+(``--num_bins`` 2: the count image; 3: the MEM image), with the JAX
+CLI's flags and defaults for the data, the optimizer (AdamW (0.9,
+0.999), base lr 1e-3, layer decay, no gradient clip unless asked), the
+loss weights (decode 1.0, auxiliary 0.4), ``--sample_mode`` and the
+regularizers (drop-path 0.1, the heads' dropout 0.1). ``--device``
+picks the card (default) or the CPU; on ``cuda`` the hub computes in bf16
+(``--bf16``, the default).
 
     python -m eventpretrain_tpu_torch.cli.finetune_semseg \\
         --dataset synthetic --epochs 2 --batch_size 4
 
 As in JAX, the synthetic source has 5 classes and no ignore label (64x64
-sensor, 4000 events per sample). ``--finetune`` initialises the hub from a
-``checkpoint.pth`` that a port CLI wrote as JAX's
-``init_variables_from(strict_backbone=True)`` does: every backbone
+sensor, 4000 events per sample). ``--dataset dsec`` reads DSEC's train
+and val sequences under ``--data_root`` at 440x640 (``DsecSource``; it
+needs ``h5py`` and ``PIL``); ``--dataset ddd17`` reads DDD17's ``dir0,
+dir3, dir4, dir6, dir7`` for training and ``dir1`` for validation at
+200x346 (``Ddd17Source``; it needs ``PIL``), the validation window taken
+at the training fix + 10000 events, as the reference does: pass
+``--fix_events_num 80000`` for DDD17's default.
+
+``--finetune`` initialises the hub from a ``checkpoint.pth`` that a port
+CLI wrote as JAX's ``init_variables_from(strict_backbone=True)`` does:
+every backbone
 parameter must be in the file (a ConvViT rec checkpoint lacks the FPN's
 and raises, as in JAX), the tensors the hub lacks go unused, and the heads
 take the file's tensors, BatchNorm running statistics included, where it
@@ -26,9 +35,8 @@ has them. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
 writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
 "epoch": ...}``; an ECDP checkpoint's query encoder fills the backbone
 (``ckpt.bridge.finetune_state_dict``). Flags of the JAX CLI that the port
-does not have yet (``swin_ecddp``, ``vit_mem``, ``--num_bins 3``) raise an
-error naming the slice that brings them; DSEC and DDD17 wait for
-their data and for ``h5py``/``PIL`` on the machine that runs the port.
+does not have yet (``swin_ecddp``, ``vit_mem``) raise an error naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -46,8 +54,10 @@ from eventpretrain_tpu_torch.ckpt.bridge import (
     load_torch_checkpoint,
 )
 from eventpretrain_tpu_torch.data.dense_pipeline import (
+    Ddd17Source,
     DenseDataConfig,
     DensePipeline,
+    DsecSource,
     SyntheticDenseSource,
 )
 from eventpretrain_tpu_torch.eval.metrics import (
@@ -81,15 +91,13 @@ BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp",
 # the backbones of the JAX CLIs that the port does not have yet, each with
 # the slice that brings it (the finetune CLIs refuse them)
 REFUSED_BACKBONES = {
-    "swin_ecddp": "slice 5 (ECDDP's Swin, with MEM and EvRepSL)",
-    "vit_mem": "slice 5 (the MEM baseline)",
+    "swin_ecddp": "slice 5e (ECDDP's Swin, with ViT-MEM and EvRepSL)",
+    "vit_mem": "slice 5e (the MEM baseline's ViT-MEM)",
 }
 
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
 _NOT_PORTED = {
-    "data_root": (str, None, "a later slice (the DSEC/DDD17 readers; they "
-                            "need the data, h5py and PIL)"),
     "use_checkpoint": (bool, False, "slice 6 (activation recompute)"),
     "feed_batches": (str, None, "slice 6 (batch replay)"),
     "lenient_import": (bool, False, "slice 6 (the torch import dialects)"),
@@ -111,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("finetune_semseg")
     p.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "dsec", "ddd17"])
+    p.add_argument("--data_root", default=None,
+                   help="the DSEC or DDD17 tree (the reference's layout)")
     p.add_argument("--num_classes", type=int, default=11)
     p.add_argument("--ignore_label", type=int, default=255)
     p.add_argument("--backbone", default="convvit", choices=BACKBONES)
@@ -168,27 +178,35 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"finetune_semseg: --backbone {args.backbone} is "
                          "not ported yet; it comes with "
                          f"{REFUSED_BACKBONES[args.backbone]}")
-    if args.dataset != "synthetic":
-        raise SystemExit(f"finetune_semseg: --dataset {args.dataset} is not "
-                         "ported yet; it comes with a later slice (the "
-                         "DSEC/DDD17 readers; they need the data, h5py and "
-                         "PIL)")
-    if args.num_bins == 3:
-        raise SystemExit(f"finetune_semseg: --num_bins 3 (the MEM count "
-                         "image) is not ported yet; it comes with slice "
-                         "5 (the MEM baseline)")
+    if args.dataset != "synthetic" and not args.data_root:
+        raise SystemExit(f"finetune_semseg: --dataset {args.dataset} needs "
+                         "--data_root")
 
 
 def make_sources(args):
-    """(train, val, sensor (h, w)); the synthetic sources are JAX's smoke
-    data: 5 classes, no ignore label (finetune_semseg.py:181-203)."""
-    args.num_classes = 5
-    args.ignore_label = None
-    train = SyntheticDenseSource("semseg", n=32, num_classes=5,
-                                 seed=args.seed)
-    val = SyntheticDenseSource("semseg", n=8, num_classes=5,
-                               seed=args.seed + 100)
-    return train, val, train.sensor_hw
+    """(train, val, sensor (h, w)) as finetune_semseg.py:180-209; the
+    synthetic sources are JAX's smoke data: 5 classes, no ignore label."""
+    if args.dataset == "synthetic":
+        args.num_classes = 5
+        args.ignore_label = None
+        train = SyntheticDenseSource("semseg", n=32, num_classes=5,
+                                     seed=args.seed)
+        val = SyntheticDenseSource("semseg", n=8, num_classes=5,
+                                   seed=args.seed + 100)
+        return train, val, train.sensor_hw
+    if args.dataset == "dsec":
+        train = DsecSource(args.data_root, DsecSource.TRAIN_SEQUENCES,
+                           args.fix_events_num)
+        val = DsecSource(args.data_root, DsecSource.VAL_SEQUENCES,
+                         args.val_fix_events_num)
+        return train, val, (440, 640)
+    train = Ddd17Source(args.data_root, ["dir0", "dir3", "dir4", "dir6",
+                                         "dir7"], args.fix_events_num)
+    # the reference windows DDD17's validation at the training fix + 10000
+    # too, then keeps the last val_fix_events_num
+    val = Ddd17Source(args.data_root, ["dir1"], args.val_fix_events_num,
+                      window_events_num=args.fix_events_num + 10_000)
+    return train, val, (200, 346)
 
 
 def load_finetune(hub, path: str) -> None:

@@ -2,10 +2,12 @@
 and encoding; device decode, rasterisation, view augment and
 normalisation.
 
-Counterpart of eventpretrain_tpu/data/cls_pipeline.py: ``ClsDataConfig``,
-``_device_preprocess`` :95-132, ``ClsPipeline`` :135-363 (train and eval,
-the wrapped tail batch with ``num_valid``), ``NCarsSource`` :366-388 and
-``SyntheticClsSource`` :391-420. The host draws every random number with
+Counterpart of eventpretrain_tpu/data/cls_pipeline.py: ``ClsDataConfig``
+:48-87, ``_device_preprocess`` :95-132, ``ClsPipeline`` :135-363 (train
+and eval, the wrapped tail batch with ``num_valid``, the three sensor
+rules, the coordinate rescale), ``NCarsSource`` :366-388 and
+``SyntheticClsSource`` :391-420; the other sources are in
+``data/cls_sources.py``. The host draws every random number with
 the JAX pipeline's ``numpy.random.Generator`` calls in the same order, so
 one seed gives the same windows, augmented streams and views. The stream
 augment and the packing are the C++ passes of
@@ -14,9 +16,17 @@ seeds drawn here, so the batches are the JAX pipeline's word for word when
 its library builds too; with ``native.BACKEND = "numpy-forced"`` they are
 its numpy fallback's. Loads run on the pool of ``data/io_pool.py``.
 
-Not ported yet: EvRep, the coordinate rescale of N-ImageNet and the DVS
-datasets (``rescale_to_input``), fixed-sensor sources and the other
-sources of data/cls_sources.py.
+The sensor box each sample is augmented and viewed at comes from the
+window's maxima (``infer_sensor_size``, N-Cars' rule), from the
+dataset's fixed sensor (``sensor_height``/``sensor_width``), or from the
+canvas; without a rescale it is clamped to the canvas. Under an active
+rescale (``rescale_to_input``: "always" for N-ImageNet, "ecdp" for the
+2-bin image of CIFAR10-DVS, DVS128 and UCF101-DVS) the packed
+coordinates are scaled from the sensor to ``input_size`` after the
+stream augment, in f64 and floored on the host, and rasterised at the
+input's resolution (cls_pipeline.py:298-315).
+
+Not ported yet: EvRep (it comes with the EvRepSL network).
 """
 
 from __future__ import annotations
@@ -66,9 +76,23 @@ class ClsDataConfig:
     canvas_width: int = 128
     resize_mode: str = "bilinear"
     crop_min: float = 0.8
+    infer_sensor_size: bool = True  # N-Cars: from the window's maxima
     event_noise: bool = False       # robustness eval (--val_event_noise)
     compact_transfer: bool = True   # the transfer codec (data/codec.py)
     transfer_codec: str = "u32"     # "u32" (4 B/event) | "u16" (8 B/event)
+    # the true sensor for the stream augment where it differs from the
+    # canvas (fixed-sensor sources)
+    sensor_height: Optional[int] = None
+    sensor_width: Optional[int] = None
+    # where the coordinates are rescaled to the input after the stream
+    # augment: "always" (N-ImageNet), "ecdp" (num_bins == 2 only: CIFAR10-
+    # DVS, DVS128, UCF101-DVS) or "never" (N-Cars, N-Caltech101, ES-ImageNet)
+    rescale_to_input: str = "never"
+
+    @property
+    def rescale_active(self) -> bool:
+        return self.rescale_to_input == "always" or (
+            self.rescale_to_input == "ecdp" and self.num_bins == 2)
 
 
 def eval_view_params(sensor_hw: torch.Tensor) -> ViewParams:
@@ -149,10 +173,19 @@ class ClsPipeline:
         events = np.ascontiguousarray(events, np.float32)
         cap = cfg.fix_events_num if self.train else cfg.val_fix_events_num
         start, end = random_window(self.rng, events.shape[0], cap)
-        # the N-Cars layout: the sensor box from the window's maxima
-        view = events[start:end]
-        sensor_h = min(int(view[:, 1].max()) + 1, cfg.canvas_height)
-        sensor_w = min(int(view[:, 0].max()) + 1, cfg.canvas_width)
+        if cfg.infer_sensor_size:
+            view = events[start:end]
+            sensor_h = int(view[:, 1].max()) + 1
+            sensor_w = int(view[:, 0].max()) + 1
+        elif cfg.sensor_height is not None:
+            sensor_h, sensor_w = cfg.sensor_height, cfg.sensor_width
+        else:
+            sensor_h, sensor_w = cfg.canvas_height, cfg.canvas_width
+        if not cfg.rescale_active:
+            # the sensor box must fit the canvas; under a rescale the
+            # raster is at input_size, and the augment keeps the true size
+            sensor_h = min(sensor_h, cfg.canvas_height)
+            sensor_w = min(sensor_w, cfg.canvas_width)
         return events, (start, end), (sensor_h, sensor_w), label
 
     def _sample_view(self, sensor_hw: Sequence[tuple[int, int]]) -> ViewParams:
@@ -205,7 +238,23 @@ class ClsPipeline:
                        for ev, (a, b), _, _ in samples]
             packed, counts = pack_event_batch(streams, cap, out=buf)
         self._pack_buffers[self._buf_i] = packed
+        if self.cfg.rescale_active:
+            hws = self._rescale(packed, hws)
         return packed, counts, hws, labels
+
+    def _rescale(self, packed: np.ndarray, hws: list) -> list:
+        """Scale the packed x, y from each sensor to ``input_size`` in
+        place (padded rows stay 0) and return the input's boxes. The
+        product runs in f64 and is floored here: every rasteriser truncates
+        the coordinates, and the f32 store of an unfloored product could
+        round 223.999... up across a pixel."""
+        size = self.cfg.input_size
+        hw = np.asarray(hws, np.float64)
+        sx = (size / hw[:, 1])[:, None]
+        sy = (size / hw[:, 0])[:, None]
+        packed[:, :, 0] = np.floor(packed[:, :, 0].astype(np.float64) * sx)
+        packed[:, :, 1] = np.floor(packed[:, :, 1].astype(np.float64) * sy)
+        return [(size, size)] * len(hws)
 
     def __iter__(self) -> Iterator[dict]:
         cfg = self.cfg

@@ -4,7 +4,8 @@ rasterisation, view and label augments, normalisation.
 
 Counterpart of eventpretrain_tpu/data/dense_pipeline.py:
 ``DenseDataConfig`` :48-71, ``_device_preprocess`` :73-141, ``DensePipeline``
-:144-333 and ``SyntheticDenseSource`` :521-568 (``MvsecSource`` is in
+:144-333, the readers ``DsecSource`` :336-446 and ``Ddd17Source`` :449-518,
+and ``SyntheticDenseSource`` :521-568 (``MvsecSource`` is in
 ``data/mvsec.py``). The host draws every random number with the JAX
 pipeline's ``numpy.random.Generator`` calls in the same order, so one seed
 gives the same order, augmented streams and views. The stream augment, the
@@ -29,13 +30,16 @@ Flow ground truth travels as f16 under ``compact_transfer`` (about 1e-3
 relative, as in JAX) and as f32 without it; the validity mask as uint8
 either way (dense_pipeline.py:210-219).
 
-Not ported yet: the DSEC and DDD17 readers (``DsecSource``,
-``Ddd17Source``; they need ``h5py`` and ``PIL``).
+The DSEC reader needs ``h5py`` and both readers ``PIL``; each imports
+them where it opens a file, so the module imports without them, and a
+reader raises ``ImportError`` where one is missing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import Iterator, Optional
 
@@ -75,6 +79,11 @@ from eventpretrain_tpu_torch.ops.view_augment import (
 MAX_UNTILED_CELLS = 256 * 256
 
 TASKS = ("semseg", "flow")
+# DSEC's labels of the first 250 ms, (250 // 100 + 1) * 2 of them, come
+# before enough events exist to fill a window (dense_pipeline.py:336-446)
+DSEC_SKIP_LABELS = 6
+DSEC_LABEL_DIR = os.path.join("semantic", "left", "11classes")
+DDD17_LABEL_DIR = "segmentation_masks"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,6 +322,169 @@ class DensePipeline:
             )
             batch["num_valid"] = num_valid
             yield batch
+
+
+class DsecSource:
+    """DSEC semantic-segmentation sequences (dense_pipeline.py:336-446).
+
+    Per sequence: ``events/left/events.h5`` (``events/{p,x,y,t}``,
+    ``ms_to_idx``, ``t_offset``) kept open, ``events/left/rectify_map.h5``,
+    ``semantic/left/<seq>_semantic_timestamps.txt`` (or
+    ``timestamps.txt``) and ``semantic/left/11classes/*.png``. The first
+    ``DSEC_SKIP_LABELS`` labels are skipped and every other one of the
+    rest is an item. An item's events end at its label's timestamp (``ms_to_idx`` brackets it, a binary search refines it) and
+    start ``fix_events_num`` before; their coordinates are rectified and
+    those outside ``sensor_hw`` dropped."""
+
+    TRAIN_SEQUENCES = [
+        "zurich_city_00_a", "zurich_city_01_a", "zurich_city_02_a",
+        "zurich_city_04_a", "zurich_city_05_a", "zurich_city_06_a",
+        "zurich_city_07_a", "zurich_city_08_a",
+    ]
+    VAL_SEQUENCES = ["zurich_city_13_a", "zurich_city_14_c",
+                     "zurich_city_15_a"]
+
+    def __init__(self, root: str, sequences: list[str],
+                 fix_events_num: int = 200_000,
+                 sensor_hw: tuple[int, int] = (440, 640)):
+        import h5py
+
+        try:  # registers the filters of compressed files; plain ones
+            import hdf5plugin  # noqa: F401  # read without it
+        except ImportError:
+            pass
+        self.sensor_hw = sensor_hw
+        self.fix_events_num = fix_events_num
+        self.items: list[tuple[int, int]] = []  # (sequence, label index)
+        self.seqs = []
+        for seq in sequences:
+            path = os.path.join(root, seq)
+            label_dir = os.path.join(path, DSEC_LABEL_DIR)
+            ts_path = os.path.join(path, "semantic", "left",
+                                   f"{seq}_semantic_timestamps.txt")
+            if not os.path.exists(ts_path):
+                ts_path = os.path.join(path, "semantic", "left",
+                                       "timestamps.txt")
+            ts = np.loadtxt(ts_path, dtype=np.int64)
+            labels = sorted(f for f in os.listdir(label_dir)
+                            if f.endswith(".png"))
+            ts = ts[DSEC_SKIP_LABELS:]
+            labels = labels[DSEC_SKIP_LABELS:]
+            h5 = h5py.File(os.path.join(path, "events", "left",
+                                        "events.h5"), "r")
+            ev = {k: h5[f"events/{k}"] for k in ("p", "x", "y", "t")}
+            t_offset = int(h5["t_offset"][()]) if "t_offset" in h5 else 0
+            ms_to_idx = np.asarray(h5["ms_to_idx"], np.int64)
+            with h5py.File(os.path.join(path, "events", "left",
+                                        "rectify_map.h5"), "r") as f:
+                rect = f["rectify_map"][()]
+            seq_idx = len(self.seqs)
+            self.seqs.append(dict(
+                events=ev, t_offset=t_offset, ms_to_idx=ms_to_idx,
+                rectify=rect, timestamps=ts,
+                labels=[os.path.join(label_dir, f) for f in labels]))
+            # every other label; an odd count keeps the last
+            for li in range((len(ts) + 1) // 2):
+                self.items.append((seq_idx, li))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def _event_end_index(self, seq, t_end_us: int) -> int:
+        """The first event at or after ``t_end_us``: ``ms_to_idx`` at the
+        millisecond below and above, then a binary search between."""
+        t_end_us -= seq["t_offset"]
+        lo_ms = math.floor(t_end_us / 1000)
+        hi_ms = math.ceil(t_end_us / 1000)
+        lo = int(seq["ms_to_idx"][lo_ms])
+        hi = int(seq["ms_to_idx"][hi_ms])
+        if lo == hi:
+            return lo
+        t_slice = np.asarray(seq["events"]["t"][lo:hi])
+        return lo + int(np.searchsorted(t_slice, t_end_us, side="left"))
+
+    def load(self, index: int) -> dict:
+        from PIL import Image
+
+        seq_idx, li = self.items[index]
+        seq = self.seqs[seq_idx]
+        ts_end = int(seq["timestamps"][li * 2])
+        end = self._event_end_index(seq, ts_end)
+        start = max(end - self.fix_events_num, 0)
+        x = np.asarray(seq["events"]["x"][start:end], np.int64)
+        y = np.asarray(seq["events"]["y"][start:end], np.int64)
+        t = np.asarray(seq["events"]["t"][start:end], np.float64)
+        p = np.asarray(seq["events"]["p"][start:end], np.float64)
+        xy_rect = seq["rectify"][y, x]
+        x_r, y_r = xy_rect[:, 0], xy_rect[:, 1]
+        h, w = self.sensor_hw
+        keep = (x_r >= 0) & (x_r < w) & (y_r >= 0) & (y_r < h)
+        events = np.stack([x_r[keep], y_r[keep], t[keep], p[keep]], axis=-1)
+        label = np.array(Image.open(seq["labels"][li * 2]), np.int32)
+        return {"events": events, "label": label}
+
+
+class Ddd17Source:
+    """DDD17 semantic-segmentation sequences (dense_pipeline.py:449-518).
+
+    Per sequence: ``events.dat.t`` (int64 ns) and ``events.dat.xyp``
+    (int16 rows of x, y, p) memmaps, ``index/index_50ms.npy`` rows of
+    ``(t_ns, event_idx, event_idx_before)`` giving each image's last event,
+    and ``segmentation_masks/*.png`` whose name ends in the 1-based image
+    index. An item takes the ``window_events_num`` (default the fix +
+    10000) events before its image, drops those outside ``sensor_hw`` and
+    keeps the last ``fix_events_num``; the timestamps pass through f32 as
+    the reference's memmap cast does."""
+
+    def __init__(self, root: str, sequences: list[str],
+                 fix_events_num: int = 80_000,
+                 window_events_num: Optional[int] = None,
+                 sensor_hw: tuple[int, int] = (200, 346)):
+        self.sensor_hw = sensor_hw
+        self.fix_events_num = fix_events_num
+        self.window_events_num = (window_events_num
+                                  if window_events_num is not None
+                                  else fix_events_num + 10_000)
+        self.items = []
+        self.seqs = []
+        for seq in sequences:
+            path = os.path.join(root, seq)
+            t_map = np.memmap(os.path.join(path, "events.dat.t"),
+                              dtype=np.int64, mode="r")
+            xyp_map = np.memmap(os.path.join(path, "events.dat.xyp"),
+                                dtype=np.int16, mode="r").reshape(-1, 3)
+            index = np.load(os.path.join(path, "index", "index_50ms.npy"))
+            label_dir = os.path.join(path, DDD17_LABEL_DIR)
+            labels = sorted(f for f in os.listdir(label_dir)
+                            if f.endswith(".png"))
+            seq_idx = len(self.seqs)
+            self.seqs.append(dict(
+                t=t_map, xyp=xyp_map, index=index,
+                labels=[os.path.join(label_dir, f) for f in labels]))
+            for li in range(len(labels)):
+                self.items.append((seq_idx, li))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def load(self, index: int) -> dict:
+        from PIL import Image
+
+        seq_idx, li = self.items[index]
+        seq = self.seqs[seq_idx]
+        label_file = os.path.basename(seq["labels"][li])
+        img_index = int(label_file[:-4].split("_")[-1]) - 1
+        end = int(seq["index"][img_index][1])
+        start = max(end - self.window_events_num, 0)
+        t = np.asarray(seq["t"][start:end], np.float32)
+        xyp = np.asarray(seq["xyp"][start:end], np.float32)
+        events = np.stack([xyp[:, 0], xyp[:, 1], t, xyp[:, 2]], axis=-1)
+        h, w = self.sensor_hw
+        keep = ((events[:, 0] >= 0) & (events[:, 0] < w)
+                & (events[:, 1] >= 0) & (events[:, 1] < h))
+        events = events[keep][-self.fix_events_num:]
+        label = np.array(Image.open(seq["labels"][li]), np.int32)
+        return {"events": events.astype(np.float64), "label": label}
 
 
 class SyntheticDenseSource:

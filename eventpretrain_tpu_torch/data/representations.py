@@ -1,13 +1,18 @@
 """Batched on-device event representations and their post-augment
 normalisation.
 
-Counterpart of eventpretrain_tpu/data/representations.py:33-133. The port
-has the temporal-bilinear voxel grid (``num_bins`` not in {2, 3}), the
-2-bin ECDP count image through the splat (K3, :102-105), and over a
-tile-bucketed layout (``tile_table``, :67-100) the voxel grid and the
-2-bin count image through the tiled splat (K6). The MEM (3) image needs
-``remove_hot_pixels``, which is not ported, and neither is EvRep: they
-raise ``NotImplementedError`` naming slice 5.
+Counterpart of eventpretrain_tpu/data/representations.py:29-133:
+
+* ``num_bins == 2``: the ECDP [positive, negative] count image;
+* ``num_bins == 3``: the MEM [positive, 0, negative] image / 255 with its
+  hot pixels removed (statistics over each sample's sensor region when
+  ``sensor_hw`` is given);
+* else the temporal-bilinear voxel grid.
+
+The counts and the grid go through the splat (K3) on a prefix-valid
+layout, and through the tiled splat (K6) over a tile-bucketed one
+(``tile_table``, :67-100). EvRep raises ``NotImplementedError``: it comes
+with the EvRepSL network.
 """
 
 from __future__ import annotations
@@ -18,13 +23,19 @@ import torch
 
 from eventpretrain_tpu_torch.ops.events import (
     events_to_image_ecdp_batch,
+    events_to_image_mem_batch,
     events_to_voxel_grid_batch,
+    insert_zero_channel,
     polarity_weights_coordvalid,
+    remove_hot_pixels,
 )
-from eventpretrain_tpu_torch.ops.splat_tiled import (
-    splat_tiled,
-    voxelize_batch_tiled,
-)
+from eventpretrain_tpu_torch.ops.splat_tiled import voxelize_batch_tiled
+
+
+def num_channels(num_bins: int) -> int:
+    """The representation's channels: 2 and 3 for the count images, else
+    one a bin."""
+    return {2: 2, 3: 3}.get(num_bins, num_bins)
 
 
 def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
@@ -40,29 +51,38 @@ def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
     With ``tile_table`` the events are tile-bucketed
     (``native.bucket_pack_event_batch``): validity comes from the
     coordinates, ``t_range`` is the time window and ``chunk_trange`` each
-    chunk's time span, and the grid goes through the tiled splat (K6)."""
-    del sensor_hw  # used by the MEM hot-pixel removal, not by voxel grids
+    chunk's time span, and the grid goes through the tiled splat (K6).
+    ``sensor_hw`` ``(B, 2)`` bounds the MEM image's hot-pixel statistics."""
     if use_evrep:
         raise NotImplementedError(
-            "EvRep is not ported yet; it comes with slice 5")
-    if num_bins == 3:
-        raise NotImplementedError(
-            "the num_bins=3 MEM count image needs remove_hot_pixels, which "
-            "is not ported yet; it comes with slice 5")
+            "EvRep is not ported yet; it comes with the EvRepSL network "
+            "(the next slice)")
     if tile_table is not None:
-        if num_bins == 2:
-            return splat_tiled(
+        if num_bins in (2, 3):
+            # looked up at the call, as the other splat calls are, so a
+            # caller may put the plain version in its place
+            from eventpretrain_tpu_torch.ops.splat_tiled import splat_tiled
+
+            img = splat_tiled(
                 events[..., 1].to(torch.int32).contiguous(),
                 events[..., 0].to(torch.int32).contiguous(),
                 polarity_weights_coordvalid(events, height, width),
                 tile_table.to(torch.int32).contiguous(), height=height,
                 width=width)
+            if num_bins == 2:
+                return img
+            return remove_hot_pixels(insert_zero_channel(img) / 255.0,
+                                     10.0, sensor_hw)
         return voxelize_batch_tiled(
             events, tile_table, t_range, chunk_trange, num_bins=num_bins,
             height=height, width=width)
     if num_bins == 2:
         return events_to_image_ecdp_batch(events, counts, height=height,
                                           width=width)
+    if num_bins == 3:
+        img = events_to_image_mem_batch(events, counts, height=height,
+                                        width=width) / 255.0
+        return remove_hot_pixels(img, 10.0, sensor_hw)
     return events_to_voxel_grid_batch(
         events, counts, num_bins=num_bins, height=height, width=width
     )

@@ -445,8 +445,8 @@ def group_windows_native(capacity: int, weights: Sequence[int],
     """The sparse-Swin planner's greedy knapsack grouping of windows
     (JAX's models/swin_plan.py::group_windows, selection and ties
     included): ``(group_of (n,) int32, num_groups)``. None under
-    ``"numpy-forced"``; the planner itself comes with slice 5 (the other
-    backbones)."""
+    ``"numpy-forced"``, where the planner (``models/swin_plan.py``) takes
+    its numpy version."""
     if forced_numpy():
         return None
     w = np.ascontiguousarray(weights, np.int32)

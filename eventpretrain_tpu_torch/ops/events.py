@@ -2,8 +2,9 @@
 per-event weights of the splats.
 
 Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323, the
-ECDP count image :111-124 and :326-369, and ``polarity_weights_coordvalid``
-:336), with its conventions:
+ECDP count image :111-124 and :326-369, the MEM image :126-138 and
+:374-395 with ``remove_hot_pixels`` :141-180, and
+``polarity_weights_coordvalid`` :336), with its conventions:
 
 * ``events``: float32 ``(B, E, 4)`` with columns ``[x, y, t, p]``,
   time-sorted, valid rows leading; ``counts``: int ``(B,)`` valid rows.
@@ -92,6 +93,64 @@ def events_to_image_ecdp_batch(events: torch.Tensor, counts: torch.Tensor,
                  events[..., 0].to(torch.int32).contiguous(),
                  _polarity_weights(events, counts).contiguous(),
                  height=height, width=width)
+
+
+def events_to_image_mem_batch(events: torch.Tensor, counts: torch.Tensor,
+                              *, height: int, width: int) -> torch.Tensor:
+    """``(B, E, 4), (B,)`` -> ``(B, H, W, 3)`` f32 MEM count images
+    (events.py:374-395): the two polarity planes of
+    :func:`events_to_image_ecdp_batch` (K3 on CUDA, its exact scatter on
+    the CPU) with a zero channel between them."""
+    img = events_to_image_ecdp_batch(events, counts, height=height,
+                                     width=width)
+    return insert_zero_channel(img)
+
+
+def insert_zero_channel(img: torch.Tensor) -> torch.Tensor:
+    """``(..., 2)`` [positive, negative] planes -> ``(..., 3)`` [positive,
+    0, negative]."""
+    return torch.cat([img[..., :1], torch.zeros_like(img[..., :1]),
+                      img[..., 1:]], dim=-1)
+
+
+def remove_hot_pixels(hist: torch.Tensor, num_stds: float = 10.0,
+                      region_hw=None) -> torch.Tensor:
+    """Zero the hot pixels of MEM count images, ``(H, W, 3)`` or ``(B, H,
+    W, 3)`` (events.py:141-180), each sample on its own statistics.
+
+    The statistics run over the two count channels (0 and 2), the std
+    unbiased as torch's; a pixel above ``mean + num_stds * std`` in either
+    count channel has both zeroed. ``region_hw``, ``(2,)`` or ``(B, 2)``
+    ints (h, w), takes the statistics over each canvas's top-left sensor
+    region only (JAX's formulas: the count clamped to 2 at least)."""
+    single = hist.ndim == 3
+    if single:
+        hist = hist[None]
+    b, h, w, _ = hist.shape
+    counts = hist[..., 0::2]
+    if region_hw is None:
+        flat = counts.reshape(b, -1)
+        mean = flat.mean(dim=1)
+        std = flat.std(dim=1, correction=1)
+    else:
+        region_hw = torch.as_tensor(region_hw, device=hist.device)
+        region_hw = region_hw.reshape(-1, 2).expand(b, 2)
+        rows = (torch.arange(h, device=hist.device)[None, :, None]
+                < region_hw[:, 0, None, None])
+        cols = (torch.arange(w, device=hist.device)[None, None, :]
+                < region_hw[:, 1, None, None])
+        region = (rows & cols)[..., None].to(counts.dtype)
+        n = torch.clamp_min((region * torch.ones_like(counts)).sum(
+            dim=(1, 2, 3)), 2.0)
+        mean = (counts * region).sum(dim=(1, 2, 3)) / n
+        var = (((counts - mean[:, None, None, None]) * region) ** 2).sum(
+            dim=(1, 2, 3)) / (n - 1.0)
+        std = torch.sqrt(var)
+    threshold = (mean + num_stds * std)[:, None, None]
+    hot = (hist[..., 0] > threshold) | (hist[..., 2] > threshold)
+    keep = torch.where(hot, 0.0, 1.0).to(hist.dtype)[..., None]
+    out = hist * torch.cat([keep, torch.ones_like(keep), keep], dim=-1)
+    return out[0] if single else out
 
 
 def polarity_weights_coordvalid(events: torch.Tensor, height: int,

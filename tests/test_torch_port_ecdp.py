@@ -746,8 +746,8 @@ def test_cls_cli_finetunes_vit_ecdp_from_the_ecdp_checkpoint(
 
 @pytest.mark.parametrize("task", ["semseg", "flow"])
 def test_dense_clis_run_convvit_ecdp(monkeypatch, tmp_path, task):
-    """``--backbone convvit_ecdp --num_bins 2`` trains and validates; the
-    MEM image and ``swin_ecddp`` are still refused."""
+    """``--backbone convvit_ecdp --num_bins 2`` trains and validates;
+    ``vit_mem`` and ``swin_ecddp`` are still refused."""
     cli = semseg_cli if task == "semseg" else flow_cli
     monkeypatch.setattr(cli, "dense_hub_convvit_ecdp_small", _tiny_dense)
     res = cli.main(["--backbone", "convvit_ecdp", "--num_bins", "2",
@@ -755,6 +755,6 @@ def test_dense_clis_run_convvit_ecdp(monkeypatch, tmp_path, task):
                     "--fix_events_num", "1000", "--val_fix_events_num",
                     "1000", "--output_dir", str(tmp_path)] + DENSE_COMMON)
     assert res["state"].step == 2
-    for argv in (["--num_bins", "3"], ["--backbone", "swin_ecddp"]):
+    for argv in (["--backbone", "vit_mem"], ["--backbone", "swin_ecddp"]):
         with pytest.raises(SystemExit):
             cli.main(argv + DENSE_COMMON)

@@ -712,10 +712,20 @@ def test_cli_finetunes_from_a_pretrain_checkpoint(tmp_path):
     ["--dataset", "n_imagenet"], ["--num_bins", "3"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):
-    """Each flag of a later slice exits naming it; ``--accum_iter``, which
-    this slice brings, refuses only a count below 1."""
-    from eventpretrain_tpu_torch.cli.finetune_cls import main
+    """Each flag of a later slice exits naming it; ``--accum_iter`` refuses
+    only a count below 1. The other datasets and ``--num_bins 3`` are
+    ported: a dataset exits only for want of its roots, and the MEM image
+    passes the refusals."""
+    from eventpretrain_tpu_torch.cli.finetune_cls import (
+        _refuse_unported,
+        build_parser,
+        main,
+    )
 
-    match = "at least 1" if flags[0] == "--accum_iter" else "slice"
+    if flags[0] == "--num_bins":
+        _refuse_unported(build_parser().parse_args(flags))
+        return
+    match = {"--accum_iter": "at least 1",
+             "--dataset": "--train_root/--val_root"}.get(flags[0], "slice")
     with pytest.raises(SystemExit, match=match):
         main(["--device", "cpu", *flags])

@@ -566,19 +566,18 @@ def test_normalize_representation_matches_jax(num_bins):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("kw", [dict(num_bins=3,
-                                     sensor_hw=torch.tensor([[8, 8]])),
-                                dict(num_bins=3),
-                                dict(num_bins=5, use_evrep=True),
-                                dict(num_bins=3, tile_table=torch.zeros(1))])
-def test_unported_representations_raise(kw):
+def test_unported_representations_raise():
+    """EvRep waits for the EvRepSL network: it raises before any other
+    option is read. The MEM image (``num_bins=3``) is held in
+    tests/test_torch_port_datasets.py."""
     from eventpretrain_tpu_torch.data.representations import (
         build_representation,
     )
 
     ev = torch.zeros((1, 4, 4))
     with pytest.raises(NotImplementedError):
-        build_representation(ev, torch.tensor([4]), height=8, width=8, **kw)
+        build_representation(ev, torch.tensor([4]), height=8, width=8,
+                             num_bins=5, use_evrep=True)
 
 
 # ------------------------------------------------ K4 fused_attn_layer, K5
