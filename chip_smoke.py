@@ -265,6 +265,32 @@ backend's refusal of a shape, which its timing records as null):
    without), each held against its plain version and timed, one call an
    event pair and from a CUDA graph of 10 calls, beside ``index_put_``
    (these rows join phase 6's K3 and K6 rows).
+5m. Slice 5e, the last three backbones, bf16, seed 0, on an N-Caltech101
+   fixture tree (192 train and 64 val samples of 30000 events at
+   180x240): ViT-MEM-S (drop-path 0.1, 22 replayed masks a step, the MEM
+   image of ``--num_bins 3``) for 3 cls steps at B=64 on the tree (K3 1 a
+   step on the 2 count planes, the cluster route) and 3 semseg steps at
+   DSEC's 440x640 at B=16 (K6 1 on 2 planes), no other kernel in its
+   steps (the relative-position bias keeps its attention plain), so one
+   path, timed, the cls step profiled; each eval step (K3 or K6 1, K5 12
+   at (64, 197, 384) and (16, 197, 384)) against the plain path's;
+   ``cli.finetune_cls`` on the tree and ``cli.finetune_semseg`` on its
+   synthetic source at DSEC's shape (K6 3) with ``--backbone vit_mem
+   --num_bins 3``, counted.
+   Swin-ECDDP-T (drop-path 0.1, 22 masks a step, the unclamped plans) for
+   3 cls steps at B=64 on 224x224x5 (K3 1, the cluster route), 3 semseg
+   steps at DSEC's and 3 flow steps at MVSEC's shape at B=16 (K6 1), one
+   path, timed, the cls step profiled; each eval step (K3 or K6 1, K5 6:
+   stage 3's MLPs) against the plain path's; ``cli.finetune_semseg`` and
+   ``cli.finetune_flow --backbone swin_ecddp`` on their synthetic sources
+   at DSEC's and MVSEC's shapes (K6 3 each), counted. EvRepSL: an
+   EffWNet checkpoint written, then ``cli.finetune_cls --use_evrepsl
+   --evrepsl_checkpoint`` on the tree (ViT-S of 5 channels, B=64, 3 steps
+   and one eval; counted: K3 0, K1/K2 1 + 1 and K4 11 + 11 a step, K1/K2
+   12 in the eval), the network it builds equal to the file's and frozen,
+   the hub's checkpoint loaded back strictly; EvRep on the card against
+   EvRep on the CPU of a batch's wire events (counts and polarity exact,
+   the std within ``EVREP_STD_ATOL``); EvRep's and EffWNet's ms a batch.
 5d. Slice 3c, the kernels no CLI reaches, each through its entry point:
    ``Attention(512, 16, use_fused_kernel=True)``, bf16, seed 0, forward
    and backward at (64, 196, 512) with ``fused=False`` (K7 1 + 1 on the
@@ -295,7 +321,8 @@ backend's refusal of a shape, which its timing records as null):
    (64, 196, 768) H12, ConvViT-S rec's encoder (64, 49, 384) H12 and
    decoder (64, 196, 256) H8, Swin-T rec's decoder (64, 49, 256) H8 and
    the ECDP step's (64, 51, 384) H12, forward and backward, beside
-   ``sdpa``; K4 also at ConvViT-S's dense (16, 196, 384) H12; K3 also at
+   ``sdpa``; K4 also at ConvViT-S's dense (16, 196, 384) H12; K5 also at
+   ViT-MEM-S's eval shapes (64, 197, 384) and (16, 197, 384); K3 also at
    the raw pretrain path's (64, 5, 30300) on 224x224x5 and the ECDP raw
    path's (64, 2, 30300) on 224x224x2; the rec and
    cls train steps' ms, samples/s and peak memory on both paths (and the
@@ -321,6 +348,7 @@ and power limit and the per-kernel JSON record.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -1488,12 +1516,13 @@ def build_hub(dev, dtype):
 def set_fused(hub, fused: bool) -> None:
     """The kernel path (``fused``) or the plain path of every block: K1/K2
     (and K4/K5 when unfused) in ``ViTBlock``, K5 in ``SparseSwinBlock``'s
-    MLP."""
+    and ``ViTBlockMEM``'s MLP."""
     from eventpretrain_tpu_torch.models.layers import ViTBlock
     from eventpretrain_tpu_torch.models.swin import SparseSwinBlock
+    from eventpretrain_tpu_torch.models.vit_mem import ViTBlockMEM
 
     for m in hub.modules():
-        if isinstance(m, (ViTBlock, SparseSwinBlock)):
+        if isinstance(m, (ViTBlock, SparseSwinBlock, ViTBlockMEM)):
             m.use_fused_layer = None if fused else False
 
 
@@ -3614,16 +3643,22 @@ def convvit_finetune_run(what: str, hub, make, pipe, dropout: bool,
 def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
                    train_want: dict, eval_want: dict,
                    tasks: tuple = ("cls", "semseg", "flow"),
-                   num_bins: int = NUM_BINS) -> dict:
-    """Each of ``tasks``: cls at B=64 on N-Cars-shaped streams (K3 1 a
-    step), semseg at DSEC's 440x640 and flow at MVSEC's 260x346 at B=16
-    (K6 1), the pipelines' representation of ``num_bins`` channels, each
-    with ``make_hub(task)``'s hub, ``train_want``'s launches a step and
+                   num_bins: int = NUM_BINS, cls_pipe=None,
+                   profile: tuple = ()) -> dict:
+    """Each of ``tasks``: cls at B=64 on N-Cars-shaped streams (or on
+    ``cls_pipe(train, batches)``'s; K3 1 a step), semseg at DSEC's
+    440x640 and flow at MVSEC's 260x346 at B=16 (K6 1), the pipelines'
+    representation of ``num_bins`` channels, each with
+    ``make_hub(task)``'s hub, ``train_want``'s launches a step and
     replayed drop-path masks at ``site_rates``, against the plain path
     where ``train_want`` names a kernel (else the steps run the same code
-    on both paths, and one is run and timed); then each task's eval step,
-    counted on its own (K3 or K6 1 and ``eval_want``), against the plain
-    path's on the same weights."""
+    on both paths, and one is run and timed); the steps of the tasks in
+    ``profile`` profiled on the kernel path (device ms, busy share); then
+    each task's eval step, counted on its own (K3 or K6 1 and
+    ``eval_want``), against the plain path's on the same weights."""
+    if cls_pipe is None:
+        def cls_pipe(train, batches):
+            return cls_pipeline(dev, train, batches, num_bins)
     from eventpretrain_tpu_torch.train.steps import (
         make_cls_eval_step,
         make_flow_eval_step,
@@ -3639,10 +3674,10 @@ def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
             run = convvit_finetune_run(
                 f"{label} cls", hub,
                 lambda h: make_cls_trainer(h, dev, n),
-                cls_pipeline(dev, True, n, num_bins), dropout=False,
+                cls_pipe(True, n), dropout=False,
                 site_rates=site_rates, compare=compare)
             want = {"splat": 1, **train_want}
-            val_pipe = cls_pipeline(dev, False, 1, num_bins)
+            val_pipe = cls_pipe(False, 1)
             evals = [make_cls_eval_step(h) for h in (run["hub"],
                                                      run["plain_hub"])]
         else:
@@ -3672,6 +3707,12 @@ def finetune_tasks(dev, label: str, make_hub, site_rates, drop: float,
                          for h in (run["hub"], run["plain_hub"])]
         require_launches(f"{label} {task}", run["launches"], n, want)
         launches[f"{label}_{task}_train"] = run["launches"]
+        if task in profile:
+            step, state, batch = run["step"], run["state"], run["batches"][0]
+            run["record"]["profile"] = device_profile(
+                lambda: step(state, batch), 3)
+            log_profile(f"{label} {task} step B={run['record']['batch']}",
+                        run["record"]["profile"])
         # the eval steps on the same weights: the kernel path's
         run["plain_hub"].load_state_dict(run["hub"].state_dict())
         reset_counts()
@@ -5046,6 +5087,391 @@ def phase_readers(dev, smi) -> dict:
                     "loss_gap", "losses", "plain_losses")}}}
 
 
+# --------------------------------------------------------------- phase 5m
+#
+# slice 5e: the last three backbones. ViT-MEM-S (a class token and the
+# relative-position bias tables in plain PyTorch: no K1/K4; its evals take
+# K5 at 197 tokens) on the MEM image; Swin-ECDDP-T (the sparse Swin's
+# blocks under the unclamped dense plans; stage 3's eval MLPs take K5);
+# and EvRepSL: the EvRep image (plain PyTorch, no splat) through the
+# frozen EffWNet before a ViT-S of 5 channels (K1/K2, K4 in training).
+
+SLICE5E_TRAIN = 3 * TRAIN_BATCH  # the N-Caltech101 tree: 3 steps of B=64
+MEM_DEPTH = 12
+# the EvRep image's std channel (µs, clipped at 1000) on the card against
+# the CPU's on the same events: the card's accumulating index_put_ adds
+# some pixels' deltas in another order, and the std subtracts two nearly
+# equal sums of them, so its last bits differ: at most 6.1e-5 in 2752 of
+# 2.76 M cells at B=64 (H100 80GB HBM3, 700 W); held at 1e-6 of the clip
+EVREP_STD_ATOL = 1e-3
+
+
+@contextlib.contextmanager
+def sensor_shaped(cli, task: str, sensor_hw, events: int):
+    """Within the block the dense CLI module ``cli`` reads its synthetic
+    sources at a sensor's shape (``sensor_hw``, ``events`` a sample) in
+    place of their 64x64 smoke shape, so ``main`` runs its pipeline (tiled
+    at DSEC's and MVSEC's sensors: K6) and steps at that sensor's size.
+    No reader of the sensor's files runs here: DSEC's and MVSEC's need
+    h5py."""
+    from eventpretrain_tpu_torch.data.dense_pipeline import (
+        SyntheticDenseSource,
+    )
+
+    make_sources = cli.make_sources
+
+    def shaped(src):
+        return SyntheticDenseSource(task, n=src.n,
+                                    num_classes=src.num_classes,
+                                    sensor_hw=sensor_hw, num_events=events,
+                                    seed=src.seed)
+
+    def sources(args):
+        train, val, _ = make_sources(args)
+        val = ({k: shaped(v) for k, v in val.items()}
+               if isinstance(val, dict) else shaped(val))
+        return shaped(train), val, sensor_hw
+
+    cli.make_sources = sources
+    try:
+        yield
+    finally:
+        cli.make_sources = make_sources
+
+
+def slice5e_cls_args(dev, root: str, *extra) -> list:
+    """``finetune_cls`` on the N-Caltech101 fixture tree at ``root`` (B=64,
+    one epoch, bf16)."""
+    return ["--dataset", "n_caltech101", "--train_root",
+            os.path.join(root, "train"), "--val_root",
+            os.path.join(root, "val"), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", "1", "--print_freq", "1", "--device", str(dev),
+            *extra]
+
+
+def ncaltech_pipeline(dev, root: str, train: bool, num_bins: int,
+                      use_evrep: bool = False):
+    """The cls CLI's own pipeline on the fixture tree (its sources and
+    ``data_config``: the 180x240 sensor as the canvas, no rescale)."""
+    from eventpretrain_tpu_torch.cli.finetune_cls import (
+        build_parser,
+        data_config,
+        make_sources,
+    )
+    from eventpretrain_tpu_torch.data.cls_pipeline import ClsPipeline
+
+    args = build_parser().parse_args(slice5e_cls_args(
+        dev, root, "--num_bins", str(num_bins),
+        *(["--use_evrepsl"] if use_evrep else [])))
+    train_src, val_src, _, sensor_hw, rescale = make_sources(args)
+    return ClsPipeline(train_src if train else val_src,
+                       data_config(args, sensor_hw, rescale), TRAIN_BATCH,
+                       train=train, seed=0, device=dev)
+
+
+def vit_mem_run(dev, root: str) -> dict:
+    """ViT-MEM-S, drop-path 0.1 (22 replayed masks a step), ``--num_bins
+    3``: cls on the N-Caltech101 tree (K3 1 a step on its 2 count planes,
+    the cluster route), the DSEC-shape MEM semseg (K6 1 on 2 planes), no
+    other kernel in the steps (one path, timed; cls profiled); each eval
+    step K3 or K6 1 and K5 12 ((64, 197, 384), (16, 197, 384)) against the
+    plain path's; then ``finetune_cls`` on the tree and
+    ``finetune_semseg`` on its synthetic source at DSEC's shape
+    (``sensor_shaped``: K6) with ``--backbone vit_mem --num_bins 3``,
+    counted."""
+    from eventpretrain_tpu_torch.cli import finetune_semseg
+    from eventpretrain_tpu_torch.cli.finetune_cls import main as cls_main
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_vit_mem_small
+    from eventpretrain_tpu_torch.models.dense_hub import (
+        dense_hub_vit_mem_small,
+    )
+    from eventpretrain_tpu_torch.ops.splat import splat, splat_route
+
+    kw = dict(dtype=torch.bfloat16, device=dev,
+              generator=torch.Generator().manual_seed(0),
+              drop_path_rate=CLS_DROP_PATH, input_size=TRAIN_INPUT)
+
+    def make_hub(task):
+        if task == "cls":
+            return cls_hub_vit_mem_small(NUM_CLASSES, 3, **kw)
+        return dense_hub_vit_mem_small(DENSE_CLASSES, 3,
+                                       decode_dropout=DENSE_DROP, **kw)
+
+    tasks = finetune_tasks(
+        dev, "vit_mem", make_hub, CLS_SITE_RATES, CLS_DROP_PATH, {},
+        {"fused_mlp": MEM_DEPTH}, tasks=("cls", "semseg"), num_bins=3,
+        cls_pipe=lambda train, n: ncaltech_pipeline(dev, root, train, 3),
+        profile=("cls",))
+    launches = tasks["launches"]
+    route = splat_route(TRAIN_BATCH, *NCALTECH_HW, 2)
+    for what, argv, main_fn, shaped, splats in (
+            ("cls", slice5e_cls_args(
+                dev, root, "--backbone", "vit_mem", "--num_bins", "3",
+                "--output_dir", os.path.join("build",
+                                             "chip_smoke_vit_mem_cls")),
+             cls_main, contextlib.nullcontext(),
+             {"splat": SLICE5E_TRAIN // TRAIN_BATCH + 1}),
+            ("semseg", ["--backbone", "vit_mem", "--num_bins", "3",
+                        "--dataset", "synthetic", "--batch_size",
+                        str(DENSE_BATCH), "--fix_events_num",
+                        str(DSEC_EVENTS), "--val_fix_events_num",
+                        str(DSEC_EVENTS), "--epochs", "1", "--print_freq",
+                        "1", "--device", str(dev), "--output_dir",
+                        os.path.join("build", "chip_smoke_vit_mem_semseg")],
+             finetune_semseg.main,
+             sensor_shaped(finetune_semseg, "semseg", DSEC_HW, DSEC_EVENTS),
+             {"splat_tiled": 3})):
+        t0 = time.perf_counter()
+        reset_counts()
+        with shaped:
+            res = main_fn(argv)
+        counts = read_counts()
+        log(f"cli.finetune_{what} --backbone vit_mem --num_bins 3: "
+            f"{res['state'].step} steps in {time.perf_counter() - t0:.1f} s; "
+            f"K3 {dict(splat.launches_by_route)}; launches {counts}")
+        require(type(res["state"].module.backbone).__name__ == "ViTMEM",
+                f"finetune_{what} --backbone vit_mem built another backbone")
+        for name, n in splats.items():
+            require(counts[name] == n, f"the vit_mem {what} CLI: {name} "
+                                       f"{counts[name]}, expected {n}")
+        if what == "cls":
+            require(splat.launches_by_route[route] == splats["splat"],
+                    f"the vit_mem cls CLI's K3 left the {route} route")
+        require(counts["fused_mlp"] == MEM_DEPTH,
+                f"the vit_mem {what} CLI's eval: K5 {counts['fused_mlp']}, "
+                f"expected {MEM_DEPTH}")
+        require(sum(v for k, v in counts.items()
+                    if k not in (*splats, "fused_mlp")) == 0,
+                f"the vit_mem {what} CLI launched another kernel")
+        launches[f"vit_mem_{what}_cli"] = counts
+    return {"launches": launches, "records": tasks["records"]}
+
+
+def swin_ecddp_run(dev) -> dict:
+    """Swin-ECDDP-T, drop-path 0.1 (22 replayed masks a step): cls at B=64
+    on 224x224x5 (K3 1 a step, the cluster route), semseg at DSEC's and
+    flow at MVSEC's shape at B=16 (K6 1), no other kernel in the steps
+    (one path, timed; cls profiled); each eval step K3 or K6 1 and K5 6
+    (stage 3's MLPs) against the plain path's; then ``finetune_semseg``
+    and ``finetune_flow --backbone swin_ecddp`` on their synthetic
+    sources at DSEC's and MVSEC's shapes (``sensor_shaped``: K6),
+    counted."""
+    from eventpretrain_tpu_torch.cli import finetune_flow, finetune_semseg
+    from eventpretrain_tpu_torch.data.cls_pipeline import (
+        ClsDataConfig,
+        ClsPipeline,
+        SyntheticClsSource,
+    )
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_swin_ecddp_tiny
+    from eventpretrain_tpu_torch.models.dense_hub import (
+        dense_hub_swin_ecddp_tiny,
+    )
+    from eventpretrain_tpu_torch.ops.splat import splat_route
+
+    kw = dict(dtype=torch.bfloat16, device=dev,
+              generator=torch.Generator().manual_seed(0),
+              drop_path_rate=SWIN_DROP, input_size=TRAIN_INPUT)
+
+    def make_hub(task):
+        if task == "cls":
+            return cls_hub_swin_ecddp_tiny(NUM_CLASSES, NUM_BINS, **kw)
+        classes = DENSE_CLASSES if task == "semseg" else 2
+        return dense_hub_swin_ecddp_tiny(classes, NUM_BINS,
+                                         decode_dropout=DENSE_DROP, **kw)
+
+    def cls_pipe(train, n):
+        source = SyntheticClsSource(
+            num_classes=NUM_CLASSES,
+            samples_per_class=TRAIN_BATCH * n // NUM_CLASSES,
+            num_events=EVENTS, sensor_hw=(TRAIN_INPUT, TRAIN_INPUT),
+            seed=0 if train else 1000)
+        cfg = ClsDataConfig(num_classes=NUM_CLASSES, input_size=TRAIN_INPUT,
+                            canvas_height=TRAIN_INPUT,
+                            canvas_width=TRAIN_INPUT, transfer_codec="u32")
+        return ClsPipeline(source, cfg, TRAIN_BATCH, train=train, seed=0,
+                           device=dev)
+
+    reset_counts()
+    tasks = finetune_tasks(dev, "swin_ecddp", make_hub, SWIN_SITE_RATES,
+                           SWIN_DROP, {}, {"fused_mlp": SWIN_K5_BLOCKS},
+                           cls_pipe=cls_pipe, profile=("cls",))
+    launches = tasks["launches"]
+    route = splat_route(TRAIN_BATCH, TRAIN_INPUT, TRAIN_INPUT, NUM_BINS)
+    require(route == "cluster", f"K3 at 224x224x5, B=64 takes the {route} "
+                                "route")
+    for name, cli, hw, events in (
+            ("semseg", finetune_semseg, DSEC_HW, DSEC_EVENTS),
+            ("flow", finetune_flow, MVSEC_HW, MVSEC_EVENTS)):
+        t0 = time.perf_counter()
+        reset_counts()
+        with sensor_shaped(cli, name, hw, events):
+            res = cli.main([
+                "--backbone", "swin_ecddp", "--dataset", "synthetic",
+                "--batch_size", str(DENSE_BATCH), "--fix_events_num",
+                str(events), "--val_fix_events_num", str(events),
+                "--epochs", "1", "--print_freq", "1", "--device", str(dev),
+                "--output_dir", os.path.join(
+                    "build", f"chip_smoke_{name}_swin_ecddp")])
+        counts = read_counts()
+        backbone = type(res["state"].module.backbone).__name__
+        log(f"cli.finetune_{name} --backbone swin_ecddp ({backbone}): "
+            f"{res['state'].step} steps in {time.perf_counter() - t0:.1f} s; "
+            f"launches {counts}")
+        require(backbone == "SwinECDDP", f"finetune_{name} --backbone "
+                                         f"swin_ecddp built {backbone}")
+        require(res["state"].step == 2, f"the swin_ecddp {name} CLI ran "
+                                        f"{res['state'].step} steps")
+        require(counts["fused_mlp"] == SWIN_K5_BLOCKS
+                and counts["splat_tiled"] == 3 and counts["splat"] == 0,
+                f"the swin_ecddp {name} CLI: K5 {counts['fused_mlp']}, K6 "
+                f"{counts['splat_tiled']}, K3 {counts['splat']}, expected "
+                f"{SWIN_K5_BLOCKS}, 3 and 0")
+        launches[f"swin_ecddp_{name}_cli"] = counts
+    return {"launches": launches, "records": tasks["records"]}
+
+
+def evrepsl_run(dev, root: str, base: str) -> dict:
+    """EvRepSL: an EffWNet checkpoint written (seed 5's weights) and
+    loaded by ``finetune_cls --use_evrepsl --evrepsl_checkpoint`` (ViT-S,
+    B=64, drop-path 0.1, 3 steps and one eval on the N-Caltech101 tree),
+    counted: K3 0 (EvRep launches no splat), K1/K2 1 + 1 and K4 11 + 11 a
+    step, K1/K2 12 in the eval; the network the CLI builds equal to the
+    file's, frozen; the hub's checkpoint loaded back strictly. Then EvRep
+    on the card against EvRep on the CPU of the same wire events (counts
+    and polarity exact, the std within ``EVREP_STD_ATOL``), EvRep's and
+    EffWNet's ms a batch of 64."""
+    from eventpretrain_tpu_torch.ckpt.bridge import load_torch_checkpoint
+    import eventpretrain_tpu_torch.data.cls_pipeline as cls_data
+    from eventpretrain_tpu_torch.cli.finetune_cls import (
+        build_parser,
+        build_repgen,
+        main as cls_main,
+    )
+    from eventpretrain_tpu_torch.models.cls_hub import cls_hub_vit_small
+    from eventpretrain_tpu_torch.models.evrepsl import evrepsl_net
+    from eventpretrain_tpu_torch.ops.events import events_to_evrep_batch
+
+    path = os.path.join(base, "repgen.pth")
+    net = evrepsl_net(device="cpu", generator=torch.Generator().manual_seed(5))
+    torch.save({"model": net.state_dict(), "epoch": 0}, path)
+    argv = slice5e_cls_args(
+        dev, root, "--use_evrepsl", "--evrepsl_checkpoint", path,
+        "--output_dir", os.path.join("build", "chip_smoke_evrepsl"))
+    t0 = time.perf_counter()
+    reset_counts()
+    res = cls_main(argv)
+    counts = read_counts()
+    steps = SLICE5E_TRAIN // TRAIN_BATCH
+    log(f"cli.finetune_cls --use_evrepsl --evrepsl_checkpoint: "
+        f"{res['state'].step} steps, val {res['val']}, in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    require(res["state"].step == steps and np.isfinite(res["val"]["loss"]),
+            "the EvRepSL CLI did not train and validate")
+    want = {"splat": 0, "splat_tiled": 0,
+            "fused_ln_attn_layer": steps + DEPTH,
+            "fused_ln_mlp": steps + DEPTH,
+            "fused_ln_attn_layer_bwd": steps, "fused_ln_mlp_bwd": steps,
+            "fused_attn_layer": CLS_K4_BLOCKS * steps,
+            "fused_attn_layer_bwd": CLS_K4_BLOCKS * steps, "fused_mlp": 0}
+    for name, n in want.items():
+        require(counts[name] == n, f"the EvRepSL CLI: {name} {counts[name]} "
+                                   f"launches, expected {n}")
+    rep = build_repgen(build_parser().parse_args(argv), torch.bfloat16, dev)
+    require(all(torch.equal(p.cpu(), net.state_dict()[k]) and
+                not p.requires_grad for k, p in rep.named_parameters()),
+            "the EvRepSL network is not the checkpoint's, frozen")
+    sd = load_torch_checkpoint(os.path.join("build", "chip_smoke_evrepsl",
+                                            "checkpoint.pth"))
+    hub = cls_hub_vit_small(NUM_CLASSES, 5, device=dev)
+    hub.load_state_dict(sd, strict=True)
+    require(not any(k.startswith(("inc.", "down_", "up_", "c_up_"))
+                    for k in sd), "the hub's checkpoint holds EffWNet")
+    # the wire events of a batch of the CLI's pipeline, through EvRep on
+    # the card and on the CPU
+    pipe = ncaltech_pipeline(dev, root, True, NUM_BINS, use_evrep=True)
+    seen = []
+    build = cls_data.build_representation
+
+    def keep(events, counts, **kw):
+        seen.append((events, counts, kw))
+        return build(events, counts, **kw)
+
+    cls_data.build_representation = keep
+    try:
+        batch = next(iter(pipe))
+    finally:
+        cls_data.build_representation = build
+    events, ev_counts, kw = seen[0]
+    hw = dict(height=kw["height"], width=kw["width"])
+    got = events_to_evrep_batch(events, ev_counts, **hw)
+    want_img = events_to_evrep_batch(events.cpu(), ev_counts.cpu(), **hw)
+    got = got.cpu()
+    exact = bool(torch.equal(got[..., :2], want_img[..., :2]))
+    std_err = (got[..., 2] - want_img[..., 2]).abs().max().item()
+    differ = int((got[..., 2] != want_img[..., 2]).sum())
+    evrep_ms = cuda_ms(lambda: events_to_evrep_batch(events, ev_counts, **hw))
+    evg = batch["evg"]
+
+    def forward():
+        with torch.no_grad():
+            return rep(evg)
+
+    out = forward()
+    repgen_ms = cuda_ms(forward, reps=REPS // 2)
+    record = {
+        "batch": TRAIN_BATCH, "events": list(events.shape),
+        "evrep_hw": [hw["height"], hw["width"]],
+        "evrep_ms": evrep_ms, "repgen_ms": repgen_ms,
+        "repgen_in": list(evg.shape), "repgen_out": list(out.shape),
+        "evrep_vs_cpu": {"counts_polarity_exact": exact,
+                         "std_max_abs_err": std_err,
+                         "std_cells_differing": differ,
+                         "std_tol": EVREP_STD_ATOL,
+                         "std_max": want_img[..., 2].max().item()},
+        "cli_steps": res["state"].step, "cli_val": res["val"]}
+    log(f"EvRep (64, {events.shape[1]}) on {hw['height']}x{hw['width']}: "
+        f"{evrep_ms:.4g} ms a batch; card against CPU: counts and polarity "
+        f"exact {exact}, std max_abs_err {std_err:.3g} in {differ} cells "
+        f"(tol {EVREP_STD_ATOL}); EffWNet bf16 {tuple(evg.shape)} -> "
+        f"{tuple(out.shape)}: {repgen_ms:.4g} ms a batch")
+    require(exact, "EvRep's counts or polarity on the card differ from the "
+                   "CPU's")
+    require(std_err <= EVREP_STD_ATOL, "EvRep's std on the card leaves the "
+                                       "CPU's")
+    require(out.shape == (TRAIN_BATCH, TRAIN_INPUT, TRAIN_INPUT, 5)
+            and bool(torch.isfinite(out).all()),
+            "EffWNet's output is not finite (64, 224, 224, 5)")
+    return {"launches": {"evrepsl_cls_cli": counts}, "record": record}
+
+
+def phase_slice5e(dev) -> dict:
+    """Phase 5m: an N-Caltech101 fixture tree (192 train and 64 val
+    samples of 30000 events), then ViT-MEM-S, Swin-ECDDP-T and EvRepSL
+    on the card."""
+    import tempfile
+
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as base:
+        rng = np.random.default_rng(31)
+        root = os.path.join(base, "n_caltech101")
+        t0 = time.perf_counter()
+        for split, n in (("train", SLICE5E_TRAIN), ("val", FIXTURE_VAL)):
+            write_cls_fixture(os.path.join(root, split), "n_caltech101",
+                              rng, n)
+        log(f"the N-Caltech101 tree ({SLICE5E_TRAIN} + {FIXTURE_VAL} "
+            f"samples) written in {time.perf_counter() - t0:.1f} s")
+        mem = vit_mem_run(dev, root)
+        evrepsl = evrepsl_run(dev, root, base)
+    ecddp = swin_ecddp_run(dev)
+    return {"launches": {**mem["launches"], **ecddp["launches"],
+                         **evrepsl["launches"]},
+            "records": {**{f"vit_mem_{k}_train": v
+                           for k, v in mem["records"].items()},
+                        **{f"swin_ecddp_{k}_train": v
+                           for k, v in ecddp["records"].items()},
+                        "evrepsl": evrepsl["record"]}}
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -5859,7 +6285,7 @@ def k3_timing(dev, b: int, grid_hw, capacity: int, smi,
 
 def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                  dense, flow, host, loops, con, clip, convvit, swin, ecdp,
-                 readers, smi) -> None:
+                 readers, slice5e, smi) -> None:
     import torch.nn.functional as F
 
     from eventpretrain_tpu_torch.ops import fused_attn_layer as ka
@@ -5962,7 +6388,8 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     # dense ViT-B of stage 3. K4 runs in the cls train step
     # (ViT-S, and ViT-B for the CLI's --finetune run) and in ConvViT-S's
     # dense steps at B=16, K5 in the attention-map forward (ViT-S) and up
-    # to the widest C of its gate.
+    # to the widest C of its gate, and in ViT-MEM-S's evals (197 tokens: the
+    # class token and 196 patches) at B=64 and B=16.
     csrc = "eventpretrain_tpu_torch/csrc/"
     attn = [csrc + "ln_gemm.cu"]
     attn_bwd = [csrc + "ln_gemm.cu", csrc + "ln_bwd.cu", csrc + "attention.cu"]
@@ -5999,7 +6426,8 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
          True, k4_case, k1_work, mha),
         ("fused_mlp", csrc + "ln_gemm.cu", [],
          "eventpretrain_tpu/ops/fused_mlp.py:152",
-         [(196, 384, 0), (196, 512, 0)], False, k5_case, k2_work, None),
+         [(196, 384, 0), (196, 512, 0), (197, 384, 0),
+          (197, 384, 0, DENSE_BATCH)], False, k5_case, k2_work, None),
         ("fused_mlp_bwd", csrc + "ln_gemm.cu", [csrc + "ln_bwd.cu"],
          "eventpretrain_tpu/ops/fused_mlp.py:173",
          [(196, 384, 0), (196, 512, 0)], True, k5_case, k2_work, None),
@@ -6224,6 +6652,9 @@ def phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
     for key, rec in readers["records"].items():
         e2e[key] = {**rec, "card": smi}
     e2e["mem_representation"] = readers["mem"]
+    # slice 5e's ViT-MEM-S, Swin-ECDDP-T and EvRepSL (phase 5m)
+    for key, rec in slice5e.items():
+        e2e[key] = {**rec, "card": smi}
 
     # where the time goes, every main path on the kernel path
     e2e["serve"]["profile"] = device_profile(lambda: infer(*big_inputs), 5)
@@ -6346,6 +6777,9 @@ def main() -> int:
     readers = phase_readers(dev, smi)
     launches.update(readers["launches"])
     mark("dataset readers and the MEM image")
+    slice5e = phase_slice5e(dev)
+    launches.update(slice5e["launches"])
+    mark("ViT-MEM, Swin-ECDDP and EvRepSL")
     launches.update(phase_k7_path(dev))
     launches.update(phase_k8_path(dev))
     loops, loop_launches = phase_prefetch_loops(dev)
@@ -6353,7 +6787,7 @@ def main() -> int:
     mark("K7 and K8 paths, prefetched loops")
     phase_timing(dev, hub, infer, big_inputs, errs, launches, train, cls,
                  dense, flow, host, loops, con, clip, convvit, swin,
-                 ecdp["records"], readers, smi)
+                 ecdp["records"], readers, slice5e["records"], smi)
     mark("timing")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

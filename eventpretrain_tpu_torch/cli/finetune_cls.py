@@ -3,7 +3,8 @@
 Counterpart of eventpretrain_tpu/cli/finetune_cls.py for ``--backbone
 vit``, ``convvit``, ``swin`` (Swin-T whatever ``--model_size``, as in
 JAX), ``vit_ecdp`` and ``convvit_ecdp`` (the head over the two learned
-tokens) on every source of the JAX CLI: synthetic, N-Cars, N-Caltech101,
+tokens), ``vit_mem`` and ``swin_ecddp`` (Swin-ECDDP-T whatever
+``--model_size``) on every source of the JAX CLI: synthetic, N-Cars, N-Caltech101,
 CIFAR10-DVS, DVS128 Gesture, N-ImageNet (with ``--val_variant_roots``,
 each root evaluated on its own every epoch), ES-ImageNet (with
 ``--es_train_label``/``--es_val_label``) and UCF101-DVS
@@ -18,7 +19,10 @@ clip, layer decay) and the regularizers (drop-path 0.1, label smoothing
 0.1). ``--device`` picks the card (default) or the CPU; on ``cuda`` the
 hub computes in bf16 (``--bf16``, the default), which routes the blocks
 that fuse through K1/K2 and, in training, the drop-path blocks' attention
-through K4.
+through K4. ``--use_evrepsl`` rasterises the EvRep image instead
+(``ClsDataConfig.use_evrep``) and runs the frozen EvRepSL network
+(``models/evrepsl.py``, from ``--evrepsl_checkpoint`` or a random init)
+before the hub, which then takes its 5 channels.
 
     python -m eventpretrain_tpu_torch.cli.finetune_cls --dataset synthetic \\
         --model_size small --epochs 2
@@ -55,9 +59,9 @@ import torch
 from eventpretrain_tpu_torch.ckpt.bridge import (
     finetune_state_dict,
     init_from_state_dict,
+    load_jax_state_dict,
     load_torch_checkpoint,
 )
-from eventpretrain_tpu_torch.cli.finetune_semseg import REFUSED_BACKBONES
 from eventpretrain_tpu_torch.data import cls_sources as cs
 from eventpretrain_tpu_torch.data.cls_pipeline import (
     ClsDataConfig,
@@ -65,17 +69,22 @@ from eventpretrain_tpu_torch.data.cls_pipeline import (
     NCarsSource,
     SyntheticClsSource,
 )
+from eventpretrain_tpu_torch.data.representations import num_channels
 from eventpretrain_tpu_torch.models.cls_hub import (
     cls_hub_convvit_base,
     cls_hub_convvit_ecdp_base,
     cls_hub_convvit_ecdp_small,
     cls_hub_convvit_small,
+    cls_hub_swin_ecddp_tiny,
     cls_hub_swin_tiny,
     cls_hub_vit_base,
     cls_hub_vit_ecdp_base,
     cls_hub_vit_ecdp_small,
+    cls_hub_vit_mem_base,
+    cls_hub_vit_mem_small,
     cls_hub_vit_small,
 )
+from eventpretrain_tpu_torch.models.evrepsl import evrepsl_net
 from eventpretrain_tpu_torch.train.loop import evaluate, train_one_epoch
 from eventpretrain_tpu_torch.train.optim import (
     build_optimizer,
@@ -109,8 +118,6 @@ _NOT_PORTED = {
     "feed_batches": (str, None, "slice 6 (batch replay)"),
     "forward_only": (bool, False, "slice 6 (forward-only steps)"),
     "lenient_import": (bool, False, "slice 6 (the torch import dialects)"),
-    "use_evrepsl": (bool, False, "slice 5e (EvRep and EvRepSL)"),
-    "evrepsl_checkpoint": (str, None, "slice 5e (EvRep and EvRepSL)"),
 }
 
 # where each dataset rescales its coordinates to the input after the
@@ -175,6 +182,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="IO threads per pipeline (0 = load on the pipeline "
                         "thread)")
     p.add_argument("--val_event_noise", action="store_true")
+    p.add_argument("--use_evrepsl", action="store_true",
+                   help="EvRep input and the frozen EvRepSL network before "
+                        "the backbone, which then takes 5 channels")
+    p.add_argument("--evrepsl_checkpoint", default=None,
+                   help="the EvRepSL network's weights (a .pth of its "
+                        "state dict under 'model'); random if absent")
     p.add_argument("--device", default="cuda",
                    help="the port's device: cuda (the card) or cpu")
     for name, (typ, default, _) in _NOT_PORTED.items():
@@ -190,10 +203,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_cls: --{name} is not ported yet; it "
                              f"comes with {slice_}")
-    if args.backbone in REFUSED_BACKBONES:
-        raise SystemExit(f"finetune_cls: --backbone {args.backbone} is not "
-                         "ported yet; it comes with "
-                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.accum_iter < 1:
         raise SystemExit(f"finetune_cls: --accum_iter must be at least 1, "
                          f"got {args.accum_iter}")
@@ -267,7 +276,7 @@ def data_config(args, sensor_hw, rescale: str) -> ClsDataConfig:
         event_noise=args.val_event_noise, resize_mode=args.resize_mode,
         sensor_height=None if sensor_hw is None else sensor_hw[0],
         sensor_width=None if sensor_hw is None else sensor_hw[1],
-        rescale_to_input=rescale,
+        rescale_to_input=rescale, use_evrep=args.use_evrepsl,
     )
 
 
@@ -282,6 +291,23 @@ def load_backbone(hub, path: str) -> None:
         hub, finetune_state_dict(load_torch_checkpoint(path)))
     if unused:
         print(f"{path}: {len(unused)} tensors unused (e.g. {unused[:4]})")
+
+
+def build_repgen(args, dtype, device):
+    """The frozen EvRepSL network in the compute dtype
+    (finetune_cls.py:306-325): ``--evrepsl_checkpoint``'s weights through a
+    strict ``load_state_dict`` (the key space JAX's exporter writes), else
+    a random init from seed 7 and JAX's warning. Its parameters require
+    no gradient, and it is not part of the hub or its checkpoint."""
+    rep = evrepsl_net(dtype=dtype, device=device,
+                      generator=torch.Generator().manual_seed(7))
+    if args.evrepsl_checkpoint:
+        load_jax_state_dict(rep, load_torch_checkpoint(
+            args.evrepsl_checkpoint))
+    else:
+        print("[warn] --use_evrepsl without --evrepsl_checkpoint: "
+              "random RepGen weights")
+    return rep.eval().requires_grad_(False)
 
 
 def main(argv=None) -> dict:
@@ -306,9 +332,18 @@ def main(argv=None) -> dict:
         ("vit_ecdp", "base"): cls_hub_vit_ecdp_base,
         ("convvit_ecdp", "small"): cls_hub_convvit_ecdp_small,
         ("convvit_ecdp", "base"): cls_hub_convvit_ecdp_base,
+        ("vit_mem", "small"): cls_hub_vit_mem_small,
+        ("vit_mem", "base"): cls_hub_vit_mem_base,
+        ("swin_ecddp", "small"): cls_hub_swin_ecddp_tiny,
+        ("swin_ecddp", "base"): cls_hub_swin_ecddp_tiny,
     }[(args.backbone, args.model_size)]
+    in_chans = num_channels(args.num_bins)
+    repgen = None
+    if args.use_evrepsl:
+        repgen = build_repgen(args, dtype, device)
+        in_chans = 5  # concat(EvRep, clean_ie, C)
     hub = factory(
-        args.num_classes, args.num_bins, dtype=dtype, device=device,
+        args.num_classes, in_chans, dtype=dtype, device=device,
         generator=torch.Generator().manual_seed(args.seed),
         input_size=args.input_size, drop_path_rate=args.drop_path_rate,
         drop_rate=args.drop_rate, attn_drop_rate=args.attn_drop_rate,
@@ -340,8 +375,9 @@ def main(argv=None) -> dict:
     train_step = make_cls_train_step(
         hub, smoothing=args.smoothing,
         generator=torch.Generator(device).manual_seed(args.seed),
+        preprocess_fn=repgen,
     )
-    eval_step = make_cls_eval_step(hub)
+    eval_step = make_cls_eval_step(hub, preprocess_fn=repgen)
 
     os.makedirs(args.output_dir, exist_ok=True)
     path = os.path.join(args.output_dir, "checkpoint.pth")

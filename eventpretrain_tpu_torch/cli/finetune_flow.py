@@ -2,8 +2,8 @@
 
 Counterpart of eventpretrain_tpu/cli/finetune_flow.py for ``--backbone
 convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T),
-``vit_ecdp`` and ``convvit_ecdp`` (``--num_bins`` 2: the count image, 3:
-the MEM image), with
+``vit_ecdp``, ``convvit_ecdp``, ``vit_mem`` and ``swin_ecddp``
+(Swin-ECDDP-T) (``--num_bins`` 2: the count image, 3: the MEM image), with
 the JAX CLI's flags and defaults for the data (30000 events a sample,
 MVSEC's outdoor_day2 to train and the three indoor_flying splits to
 validate), the optimizer (AdamW (0.9, 0.999), base lr 1e-3, layer decay,
@@ -45,7 +45,6 @@ import torch
 
 from eventpretrain_tpu_torch.cli.finetune_semseg import (
     BACKBONES,
-    REFUSED_BACKBONES,
     load_finetune,
 )
 from eventpretrain_tpu_torch.data.dense_pipeline import (
@@ -58,10 +57,13 @@ from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_ecdp_base,
     dense_hub_convvit_ecdp_small,
     dense_hub_convvit_small,
+    dense_hub_swin_ecddp_tiny,
     dense_hub_swin_tiny,
     dense_hub_vit_base,
     dense_hub_vit_ecdp_base,
     dense_hub_vit_ecdp_small,
+    dense_hub_vit_mem_base,
+    dense_hub_vit_mem_small,
     dense_hub_vit_small,
 )
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
@@ -158,10 +160,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_flow: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone in REFUSED_BACKBONES:
-        raise SystemExit(f"finetune_flow: --backbone {args.backbone} is not "
-                         "ported yet; it comes with "
-                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.dataset == "mvsec" and not args.data_root:
         raise SystemExit("finetune_flow: --dataset mvsec needs --data_root")
 
@@ -230,6 +228,10 @@ def main(argv=None) -> dict:
         ("vit_ecdp", "base"): dense_hub_vit_ecdp_base,
         ("convvit_ecdp", "small"): dense_hub_convvit_ecdp_small,
         ("convvit_ecdp", "base"): dense_hub_convvit_ecdp_base,
+        ("vit_mem", "small"): dense_hub_vit_mem_small,
+        ("vit_mem", "base"): dense_hub_vit_mem_base,
+        ("swin_ecddp", "small"): dense_hub_swin_ecddp_tiny,
+        ("swin_ecddp", "base"): dense_hub_swin_ecddp_tiny,
     }[(args.backbone, args.model_size)]
     hub = factory(
         2, args.num_bins, dtype=dtype, device=device,

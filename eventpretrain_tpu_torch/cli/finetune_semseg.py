@@ -3,7 +3,8 @@ segmentation hub.
 
 Counterpart of eventpretrain_tpu/cli/finetune_semseg.py for ``--backbone
 convvit`` (the default, as in JAX), ``vit``, ``swin`` (Swin-T whatever
-``--model_size``, as in JAX), ``vit_ecdp`` and ``convvit_ecdp`` on the
+``--model_size``, as in JAX), ``vit_ecdp``, ``convvit_ecdp``, ``vit_mem``
+and ``swin_ecddp`` (Swin-ECDDP-T whatever ``--model_size``) on the
 synthetic source and on DSEC and DDD17 under ``--data_root``
 (``--num_bins`` 2: the count image; 3: the MEM image), with the JAX
 CLI's flags and defaults for the data, the optimizer (AdamW (0.9,
@@ -35,8 +36,7 @@ has them. Each epoch appends a JSON line to ``<output_dir>/log.txt`` and
 writes ``<output_dir>/checkpoint.pth`` as ``{"model": state_dict,
 "epoch": ...}``; an ECDP checkpoint's query encoder fills the backbone
 (``ckpt.bridge.finetune_state_dict``). Flags of the JAX CLI that the port
-does not have yet (``swin_ecddp``, ``vit_mem``) raise an error naming the
-slice that brings them.
+does not have yet raise an error naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -69,10 +69,13 @@ from eventpretrain_tpu_torch.models.dense_hub import (
     dense_hub_convvit_ecdp_base,
     dense_hub_convvit_ecdp_small,
     dense_hub_convvit_small,
+    dense_hub_swin_ecddp_tiny,
     dense_hub_swin_tiny,
     dense_hub_vit_base,
     dense_hub_vit_ecdp_base,
     dense_hub_vit_ecdp_small,
+    dense_hub_vit_mem_base,
+    dense_hub_vit_mem_small,
     dense_hub_vit_small,
 )
 from eventpretrain_tpu_torch.train.loop import train_one_epoch
@@ -88,12 +91,6 @@ from eventpretrain_tpu_torch.train.steps import (
 
 BACKBONES = ["vit", "convvit", "swin", "vit_ecdp", "convvit_ecdp",
              "vit_mem", "swin_ecddp"]
-# the backbones of the JAX CLIs that the port does not have yet, each with
-# the slice that brings it (the finetune CLIs refuse them)
-REFUSED_BACKBONES = {
-    "swin_ecddp": "slice 5e (ECDDP's Swin, with ViT-MEM and EvRepSL)",
-    "vit_mem": "slice 5e (the MEM baseline's ViT-MEM)",
-}
 
 # flags of the JAX CLI that the port does not have yet: (type, default,
 # the slice that brings them); any other value is refused
@@ -174,10 +171,6 @@ def _refuse_unported(args) -> None:
         if getattr(args, name) != default:
             raise SystemExit(f"finetune_semseg: --{name} is not ported yet; "
                              f"it comes with {slice_}")
-    if args.backbone in REFUSED_BACKBONES:
-        raise SystemExit(f"finetune_semseg: --backbone {args.backbone} is "
-                         "not ported yet; it comes with "
-                         f"{REFUSED_BACKBONES[args.backbone]}")
     if args.dataset != "synthetic" and not args.data_root:
         raise SystemExit(f"finetune_semseg: --dataset {args.dataset} needs "
                          "--data_root")
@@ -251,6 +244,10 @@ def main(argv=None) -> dict:
         ("vit_ecdp", "base"): dense_hub_vit_ecdp_base,
         ("convvit_ecdp", "small"): dense_hub_convvit_ecdp_small,
         ("convvit_ecdp", "base"): dense_hub_convvit_ecdp_base,
+        ("vit_mem", "small"): dense_hub_vit_mem_small,
+        ("vit_mem", "base"): dense_hub_vit_mem_base,
+        ("swin_ecddp", "small"): dense_hub_swin_ecddp_tiny,
+        ("swin_ecddp", "base"): dense_hub_swin_ecddp_tiny,
     }[(args.backbone, args.model_size)]
     hub = factory(
         args.num_classes, args.num_bins, dtype=dtype, device=device,

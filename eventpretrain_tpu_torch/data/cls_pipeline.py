@@ -26,7 +26,11 @@ coordinates are scaled from the sensor to ``input_size`` after the
 stream augment, in f64 and floored on the host, and rasterised at the
 input's resolution (cls_pipeline.py:298-315).
 
-Not ported yet: EvRep (it comes with the EvRepSL network).
+``use_evrep`` builds the EvRep image instead (cls_pipeline.py:116-131,
+320): the events cross as f32 (no transfer codec), their timestamps are
+multiplied by ``EVREP_TIME_SCALE`` (1e6: the reference feeds EvRep
+microseconds) before ``ops.events.events_to_evrep_batch``, the temporal
+flip does not negate, and nothing normalises the image.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ from eventpretrain_tpu_torch.ops.view_augment import (
     sample_crop,
 )
 
+# stream seconds -> the microseconds that EvRep is fed (cls_pipeline.py:81)
+EVREP_TIME_SCALE = 1e6
+
 
 @dataclasses.dataclass(frozen=True)
 class ClsDataConfig:
@@ -88,6 +95,7 @@ class ClsDataConfig:
     # augment: "always" (N-ImageNet), "ecdp" (num_bins == 2 only: CIFAR10-
     # DVS, DVS128, UCF101-DVS) or "never" (N-Cars, N-Caltech101, ES-ImageNet)
     rescale_to_input: str = "never"
+    use_evrep: bool = False         # the EvRep image (--use_evrepsl)
 
     @property
     def rescale_active(self) -> bool:
@@ -110,9 +118,12 @@ def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
                        sensor_hw: torch.Tensor, params: ViewParams, *,
                        num_bins: int, height: int, width: int, out_size: int,
                        mode: str,
-                       t_range: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       t_range: Optional[torch.Tensor] = None,
+                       use_evrep: bool = False) -> torch.Tensor:
     """(B, E, 4) f32 events, or their u16 (B, E, 4) / u32 (B, E) words with
-    ``t_range``, -> (B, out_size, out_size, C) f32 input."""
+    ``t_range``, -> (B, out_size, out_size, C) f32 input; with
+    ``use_evrep`` the unnormalised EvRep image of the timestamps times
+    ``EVREP_TIME_SCALE``."""
     if events.dtype in (torch.int16, torch.uint16):
         events = decode_events_u16(events, t_range)
     elif events.dtype in (torch.int32, torch.uint32):
@@ -120,14 +131,19 @@ def _device_preprocess(events: torch.Tensor, counts: torch.Tensor,
     elif events.dtype != torch.float32:
         raise TypeError(f"events of {events.dtype}: expected f32 xytp or "
                         "the u16/u32 transfer words")
+    if use_evrep:
+        events = events * torch.tensor([1.0, 1.0, EVREP_TIME_SCALE, 1.0],
+                                       device=events.device)
     evg = build_representation(
         events, counts, num_bins=num_bins, height=height, width=width,
-        sensor_hw=sensor_hw,
+        sensor_hw=sensor_hw, use_evrep=use_evrep,
     )
     evg = apply_view_augment(
         evg, params, (out_size, out_size), mode,
-        negate_on_tflip=num_bins in (5, 6),
+        negate_on_tflip=not use_evrep and num_bins in (5, 6),
     )
+    if use_evrep:
+        return evg
     return normalize_representation(evg, num_bins)
 
 
@@ -282,7 +298,8 @@ class ClsPipeline:
                 params = self._sample_view(hws)
                 i = self._buf_i
                 events, t_range, self._enc_buffers[i] = encode_for_transfer(
-                    packed, counts, cfg.compact_transfer,
+                    packed, counts,
+                    cfg.compact_transfer and not cfg.use_evrep,
                     out=self._enc_buffers[i], codec=cfg.transfer_codec,
                 )
                 self.host_seconds += time.perf_counter() - t0
@@ -299,6 +316,7 @@ class ClsPipeline:
                     height=cfg.canvas_height, width=cfg.canvas_width,
                     out_size=cfg.input_size, mode=cfg.resize_mode,
                     t_range=torch.from_numpy(t_range).to(dev),
+                    use_evrep=cfg.use_evrep,
                 )
                 yield {
                     "evg": evg,

@@ -11,8 +11,9 @@ Counterpart of eventpretrain_tpu/data/representations.py:29-133:
 
 The counts and the grid go through the splat (K3) on a prefix-valid
 layout, and through the tiled splat (K6) over a tile-bucketed one
-(``tile_table``, :67-100). EvRep raises ``NotImplementedError``: it comes
-with the EvRepSL network.
+(``tile_table``, :67-100). ``use_evrep`` is the EvRep image
+(``ops.events.events_to_evrep_batch``, plain PyTorch), untiled only, as
+in JAX: it has no tiled path.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from eventpretrain_tpu_torch.ops.events import (
+    events_to_evrep_batch,
     events_to_image_ecdp_batch,
     events_to_image_mem_batch,
     events_to_voxel_grid_batch,
@@ -54,9 +56,10 @@ def build_representation(events: torch.Tensor, counts: torch.Tensor, *,
     chunk's time span, and the grid goes through the tiled splat (K6).
     ``sensor_hw`` ``(B, 2)`` bounds the MEM image's hot-pixel statistics."""
     if use_evrep:
-        raise NotImplementedError(
-            "EvRep is not ported yet; it comes with the EvRepSL network "
-            "(the next slice)")
+        if tile_table is not None:
+            raise ValueError("EvRep has no tiled splat path")
+        return events_to_evrep_batch(events, counts, height=height,
+                                     width=width)
     if tile_table is not None:
         if num_bins in (2, 3):
             # looked up at the call, as the other splat calls are, so a

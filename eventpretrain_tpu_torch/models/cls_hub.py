@@ -1,14 +1,14 @@
-"""Classification hub: ViT, ConvViT, sparse Swin, ViT-ECDP or
-ConvViT-ECDP backbone -> pool -> linear head.
+"""Classification hub: ViT, ConvViT, sparse Swin, ViT-ECDP, ConvViT-ECDP,
+ViT-MEM or Swin-ECDDP backbone -> pool -> linear head.
 
-Counterpart of eventpretrain_tpu/models/cls_hub.py:20-155 (the ViT,
-ConvViT, Swin and ECDP hubs; the MEM and Swin-ECDDP hubs wait for their
-backbones). A ConvViT or Swin hub's backbone has no stage decoders
-(``with_rec_decoders=False``), and the pool is the mean over its last
-tokens (14^2 of the ViT and ConvViT, Swin's 7^2), or with
-``pool="token_concat"`` their concatenation; an ECDP backbone's dense
-encode returns its pooled embedding itself, the two learned tokens
-concatenated (B, 2C), which the head takes as it is. The module's
+Counterpart of eventpretrain_tpu/models/cls_hub.py. A ConvViT or Swin
+hub's backbone has no stage decoders (``with_rec_decoders=False``), and
+the pool is the mean over its last tokens (14^2 of the ViT and ConvViT,
+7^2 of either Swin, the ECDDP one's ``norm3``-applied), or with
+``pool="token_concat"`` their concatenation; an ECDP or MEM backbone's
+dense encode returns its pooled embedding itself (the two learned tokens
+concatenated (B, 2C); the normed mean of the patch tokens (B, C)),
+which the head takes as it is. The module's
 mode is flax's ``train`` flag: ``hub.train()`` activates dropout and
 stochastic depth (``drop_rate``, ``attn_drop_rate``, ``drop_path_rate``,
 passed to the factories), whose masks come from the
@@ -33,6 +33,7 @@ from eventpretrain_tpu_torch.models.convvit_ecdp import (
 )
 from eventpretrain_tpu_torch.models.layers import Linear, init_weights
 from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
+from eventpretrain_tpu_torch.models.swin_ecddp import swin_ecddp_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
@@ -40,6 +41,10 @@ from eventpretrain_tpu_torch.models.vit import (
 from eventpretrain_tpu_torch.models.vit_ecdp import (
     vit_ecdp_base_patch16,
     vit_ecdp_small_patch16,
+)
+from eventpretrain_tpu_torch.models.vit_mem import (
+    vit_mem_base_patch16,
+    vit_mem_small_patch16,
 )
 
 
@@ -59,7 +64,7 @@ class FtClsHub(nn.Module):
                                   if pool == "token_concat" else 1))
         self.classify_head = Linear(
             in_dim, num_classes, dtype=backbone.dtype,
-            device=backbone.norm_layer.weight.device,
+            device=next(backbone.parameters()).device,
         )
 
     def forward(self, x: torch.Tensor, return_attn: bool = False):
@@ -174,4 +179,33 @@ def cls_hub_convvit_ecdp_base(num_classes: int, num_bins: int = 2, *,
                               **bk) -> FtClsHub:
     """ConvViT-ECDP-B hub (cls_hub.py:144-155)."""
     return _hub(convvit_ecdp_base_patch16, num_classes, num_bins, dtype,
+                device, generator, **bk)
+
+
+def cls_hub_vit_mem_small(num_classes: int, num_bins: int = 3, *,
+                          dtype=torch.float32, device="cuda",
+                          generator: Optional[torch.Generator] = None,
+                          **bk) -> FtClsHub:
+    """ViT-MEM-S hub over the normed mean of its patch tokens
+    (cls_hub.py:158-165), randomly initialised from ``generator``."""
+    return _hub(vit_mem_small_patch16, num_classes, num_bins, dtype, device,
+                generator, **bk)
+
+
+def cls_hub_vit_mem_base(num_classes: int, num_bins: int = 3, *,
+                         dtype=torch.float32, device="cuda",
+                         generator: Optional[torch.Generator] = None,
+                         **bk) -> FtClsHub:
+    """ViT-MEM-B hub (cls_hub.py:168-174)."""
+    return _hub(vit_mem_base_patch16, num_classes, num_bins, dtype, device,
+                generator, **bk)
+
+
+def cls_hub_swin_ecddp_tiny(num_classes: int, num_bins: int = 5, *,
+                            dtype=torch.float32, device="cuda",
+                            generator: Optional[torch.Generator] = None,
+                            **bk) -> FtClsHub:
+    """Swin-ECDDP-T hub, the mean over its 49 ``norm3``-applied stage-4
+    tokens at 224 px (cls_hub.py:176-183)."""
+    return _hub(swin_ecddp_tiny_window7, num_classes, num_bins, dtype,
                 device, generator, **bk)

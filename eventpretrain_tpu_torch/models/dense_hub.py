@@ -1,16 +1,17 @@
-"""Dense-task hub: the ViT, ConvViT, sparse Swin, ViT-ECDP or
-ConvViT-ECDP backbone's pyramid -> UPerHead + FCNHead.
+"""Dense-task hub: the ViT, ConvViT, sparse Swin, ViT-ECDP,
+ConvViT-ECDP, ViT-MEM or Swin-ECDDP backbone's pyramid -> UPerHead +
+FCNHead.
 
-Counterpart of eventpretrain_tpu/models/dense_hub.py:20-206 (``FtDenseHub``
-and the ViT, ConvViT, Swin and ECDP factories); the MEM and Swin-ECDDP
-hubs wait for their backbones. A ViT's pyramid is four 14^2 maps of its
-width, an ECDP backbone's four 14^2 maps of its patch tokens (its dense
-encode returns ``(emb, out_embs, attn)``, ``emb_h`` then the tokens'
-concatenation); a
+Counterpart of eventpretrain_tpu/models/dense_hub.py (``FtDenseHub`` and
+its factories). A ViT's pyramid is four 14^2 maps of its width, an ECDP
+or MEM backbone's four 14^2 maps of its patch tokens (its dense encode
+returns ``(emb, out_embs, attn)``, ``emb_h`` then the tokens'
+concatenation or normed mean); a
 ConvViT's is its two stage maps (56^2, 28^2), the 14^2 tokens and the FPN
 level (6^2, the backbone's ``with_fpn``), of widths (d0, d1, d2, d2), and
 its BatchNorm moves like the heads'; Swin-T's is its four stages' tokens
-as maps (56^2 x 96, 28^2 x 192, 14^2 x 384, 7^2 x 768). The module's
+as maps (56^2 x 96, 28^2 x 192, 14^2 x 384, 7^2 x 768), Swin-ECDDP's
+the same maps each through its own LayerNorm. The module's
 mode is flax's ``train`` flag: ``hub.train()`` activates drop-path, the
 heads' channel dropout and the BatchNorm statistics of the batch
 (updating the running ones); ``hub.eval()`` is deterministic and uses the
@@ -38,6 +39,7 @@ from eventpretrain_tpu_torch.models.convvit_ecdp import (
 from eventpretrain_tpu_torch.models.dense_heads import FCNHead, UPerHead
 from eventpretrain_tpu_torch.models.layers import init_weights
 from eventpretrain_tpu_torch.models.swin import swin_tiny_window7
+from eventpretrain_tpu_torch.models.swin_ecddp import swin_ecddp_tiny_window7
 from eventpretrain_tpu_torch.models.vit import (
     vit_base_patch16,
     vit_small_patch16,
@@ -45,6 +47,10 @@ from eventpretrain_tpu_torch.models.vit import (
 from eventpretrain_tpu_torch.models.vit_ecdp import (
     vit_ecdp_base_patch16,
     vit_ecdp_small_patch16,
+)
+from eventpretrain_tpu_torch.models.vit_mem import (
+    vit_mem_base_patch16,
+    vit_mem_small_patch16,
 )
 
 
@@ -61,7 +67,7 @@ class FtDenseHub(nn.Module):
                  sample_mode: str = "bilinear", decode_dropout: float = 0.1):
         super().__init__()
         kw = dict(dtype=backbone.dtype,
-                  device=backbone.norm_layer.weight.device)
+                  device=next(backbone.parameters()).device)
         self.backbone = backbone
         self.num_classes = num_classes
         self.decode_head = UPerHead(
@@ -211,3 +217,40 @@ def dense_hub_convvit_ecdp_base(num_classes: int, num_bins: int = 2, *,
                 (bk.get("embed_dims", (256, 384, 768))[2],) * 4, num_classes,
                 num_bins, dtype, device, generator, sample_mode,
                 decode_dropout, **bk)
+
+
+def dense_hub_vit_mem_small(num_classes: int, num_bins: int = 3, *,
+                            dtype=torch.float32, device="cuda",
+                            generator: Optional[torch.Generator] = None,
+                            sample_mode: str = "bilinear",
+                            decode_dropout: float = 0.1, **bk) -> FtDenseHub:
+    """ViT-MEM-S: four 14^2 maps of its patch tokens at C=384
+    (dense_hub.py:197-208)."""
+    return _hub(vit_mem_small_patch16, (bk.get("embed_dim", 384),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_vit_mem_base(num_classes: int, num_bins: int = 3, *,
+                           dtype=torch.float32, device="cuda",
+                           generator: Optional[torch.Generator] = None,
+                           sample_mode: str = "bilinear",
+                           decode_dropout: float = 0.1, **bk) -> FtDenseHub:
+    """ViT-MEM-B: four 14^2 maps at C=768 (dense_hub.py:211-221)."""
+    return _hub(vit_mem_base_patch16, (bk.get("embed_dim", 768),) * 4,
+                num_classes, num_bins, dtype, device, generator, sample_mode,
+                decode_dropout, **bk)
+
+
+def dense_hub_swin_ecddp_tiny(num_classes: int, num_bins: int = 5, *,
+                              dtype=torch.float32, device="cuda",
+                              generator: Optional[torch.Generator] = None,
+                              sample_mode: str = "bilinear",
+                              decode_dropout: float = 0.1,
+                              **bk) -> FtDenseHub:
+    """Swin-ECDDP-T: its four normed stages, 56^2 x 96, 28^2 x 192, 14^2 x
+    384, 7^2 x 768 (dense_hub.py:224-236; the widths follow
+    ``embed_dims``)."""
+    widths = bk.get("embed_dims", (96, 192, 384, 768))
+    return _hub(swin_ecddp_tiny_window7, widths, num_classes, num_bins,
+                dtype, device, generator, sample_mode, decode_dropout, **bk)

@@ -485,10 +485,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     Conv weights LeCun-normal (std 1/sqrt(fan_in), flax's default kernel
     scale), biases 0, LayerNorm 1 and 0, a Swin block's relative-position
     bias table as flax's ``truncated_normal(0.02)``: a normal truncated
-    at 2 of its std, that std chosen so the truncated law's is 0.02."""
+    at 2 of its std, that std chosen so the truncated law's is 0.02. A
+    module with ``zero_init_table`` (ViT-MEM's tables, zeros in flax) keeps
+    its table as built."""
     for m in module.modules():
         table = getattr(m, "relative_position_bias_table", None)
-        if isinstance(table, nn.Parameter):
+        if (isinstance(table, nn.Parameter)
+                and not getattr(m, "zero_init_table", False)):
             std = 0.02 / _TRUNC2_STD
             table.copy_(nn.init.trunc_normal_(
                 torch.empty(table.shape), std=std, a=-2 * std, b=2 * std,

@@ -306,16 +306,63 @@ _DENSE_PLANS: dict = {}
 
 
 def dense_plans(device, resolution: tuple[int, int], num_stages: int,
-                window_size: int, cell_grid: int):
+                window_size: int, cell_grid: int, clamp_shift: bool = True):
     """The no-mask plans on ``device``, built once for each (device,
-    geometry) (swin.py:487-496)."""
+    geometry, ``clamp_shift``) (swin.py:487-496). ``clamp_shift=False`` is
+    the ECDDP Swin's: a stage whose window covers the map still shifts its
+    odd blocks (swin_ecddp.py:86-96)."""
     key = (str(torch.device(device)), tuple(resolution), num_stages,
-           window_size, cell_grid)
+           window_size, cell_grid, clamp_shift)
     if key not in _DENSE_PLANS:
         _DENSE_PLANS[key] = plans_to_device(build_swin_plans(
             None, input_resolution=tuple(resolution), num_stages=num_stages,
-            window_size=window_size, cell_grid=cell_grid), device)
+            window_size=window_size, cell_grid=cell_grid,
+            clamp_shift=clamp_shift), device)
     return _DENSE_PLANS[key]
+
+
+def run_stages(stages, x: torch.Tensor, plans) -> list[torch.Tensor]:
+    """``x`` through ``stages`` (``SwinStage``s) under ``plans``: each
+    stage's tokens before its merge; each parity's plan is expanded once
+    for the stage's blocks (swin.py:415-426)."""
+    outs = []
+    for sp, stage in zip(plans, stages):
+        ws = stage.blocks[0].window_size
+        even = expand_plan(sp.plan_even, ws)
+        odd = (even if sp.plan_odd is sp.plan_even
+               else expand_plan(sp.plan_odd, ws))
+        for j, blk in enumerate(stage.blocks):
+            x = (blk(x, sp.plan_even, even) if j % 2 == 0
+                 else blk(x, sp.plan_odd, odd))
+        outs.append(x)
+        if stage.downsample is not None:
+            x = stage.downsample(x, sp.merge_child_idx)
+    return outs
+
+
+def swin_stages(embed_dims: Sequence[int], depths: Sequence[int],
+                num_heads: Sequence[int], window_size: int, resolution: int,
+                mlp_ratio: float, drop_rate: float, attn_drop_rate: float,
+                drop_path_rate: float, layer_norm_eps: float, **kw
+                ) -> nn.ModuleList:
+    """The stages of a Swin: ``depths[i]`` blocks at width
+    ``embed_dims[i]``, window ``min(window_size, resolution >> i)``, the
+    drop-path rates ``linspace(0, drop_path_rate, sum(depths))`` in block
+    order, a ``PatchMerging`` after each stage but the last
+    (swin.py:340-372)."""
+    dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
+    stages = []
+    for i, depth in enumerate(depths):
+        ws = min(window_size, resolution >> i)
+        first = sum(depths[:i])
+        blocks = [SparseSwinBlock(
+            embed_dims[i], num_heads[i], ws, mlp_ratio, drop=drop_rate,
+            attn_drop=attn_drop_rate, drop_path_rate=dpr[first + j],
+            layer_norm_eps=layer_norm_eps, **kw) for j in range(depth)]
+        merge = (PatchMerging(embed_dims[i], layer_norm_eps, **kw)
+                 if i < len(depths) - 1 else None)
+        stages.append(SwinStage(blocks, merge))
+    return nn.ModuleList(stages)
 
 
 class SparseSwin(nn.Module):
@@ -347,20 +394,10 @@ class SparseSwin(nn.Module):
         self.patch_embed = PatchEmbedNorm(patch_size, num_bins, embed_dims[0],
                                           layer_norm_eps, **kw)
         self.pos_drop = nn.Dropout(drop_rate)
-        dpr = [float(r) for r in np.linspace(0, drop_path_rate, sum(depths))]
         res = min(self.patches_resolution)
-        stages = []
-        for i, depth in enumerate(depths):
-            ws = min(window_size, res >> i)
-            first = sum(depths[:i])
-            blocks = [SparseSwinBlock(
-                embed_dims[i], num_heads[i], ws, mlp_ratio, drop=drop_rate,
-                attn_drop=attn_drop_rate, drop_path_rate=dpr[first + j],
-                layer_norm_eps=layer_norm_eps, **kw) for j in range(depth)]
-            merge = (PatchMerging(embed_dims[i], layer_norm_eps, **kw)
-                     if i < len(depths) - 1 else None)
-            stages.append(SwinStage(blocks, merge))
-        self.swin_block = nn.ModuleList(stages)
+        self.swin_block = swin_stages(
+            embed_dims, depths, num_heads, window_size, res, mlp_ratio,
+            drop_rate, attn_drop_rate, drop_path_rate, layer_norm_eps, **kw)
         if with_final_norm:
             self.norm_layer = nn.LayerNorm(embed_dims[-1], eps=layer_norm_eps,
                                            device=device)
@@ -381,21 +418,7 @@ class SparseSwin(nn.Module):
                                                                coords_flat)
 
     def _run_stages(self, x: torch.Tensor, plans) -> list[torch.Tensor]:
-        """Each stage's tokens before its merge; each parity's plan is
-        expanded once for the stage's blocks."""
-        outs = []
-        for sp, stage in zip(plans, self.swin_block):
-            ws = stage.blocks[0].window_size
-            even = expand_plan(sp.plan_even, ws)
-            odd = (even if sp.plan_odd is sp.plan_even
-                   else expand_plan(sp.plan_odd, ws))
-            for j, blk in enumerate(stage.blocks):
-                x = (blk(x, sp.plan_even, even) if j % 2 == 0
-                     else blk(x, sp.plan_odd, odd))
-            outs.append(x)
-            if stage.downsample is not None:
-                x = stage.downsample(x, sp.merge_child_idx)
-        return outs
+        return run_stages(self.swin_block, x, plans)
 
     def encode_masked(self, x: torch.Tensor, ids_keep: torch.Tensor, plans):
         """Masked encoding of ``x (B, H, W, num_bins)`` (swin.py:435-476)

@@ -3,8 +3,9 @@ per-event weights of the splats.
 
 Counterpart of eventpretrain_tpu/ops/events.py (:34-79, :242-323, the
 ECDP count image :111-124 and :326-369, the MEM image :126-138 and
-:374-395 with ``remove_hot_pixels`` :141-180, and
-``polarity_weights_coordvalid`` :336), with its conventions:
+:374-395 with ``remove_hot_pixels`` :141-180,
+``polarity_weights_coordvalid`` :336, and EvRep :182-244 and :398), with
+its conventions:
 
 * ``events``: float32 ``(B, E, 4)`` with columns ``[x, y, t, p]``,
   time-sorted, valid rows leading; ``counts``: int ``(B,)`` valid rows.
@@ -182,3 +183,74 @@ def events_to_voxel_grid_batch(events: torch.Tensor, counts: torch.Tensor, *,
 
     return voxelize_batch(events, counts, num_bins=num_bins, height=height,
                           width=width)
+
+
+# EvRep's clip of the delta std, in the timestamps' unit (events.py:188)
+EVREP_MAX_STD = 1000.0
+
+
+def events_to_evrep_batch(events: torch.Tensor, counts: torch.Tensor, *,
+                          height: int, width: int) -> torch.Tensor:
+    """``(B, E, 4), (B,)`` -> ``(B, H, W, 3)`` f32 EvRep images: each
+    pixel's event count, net polarity and the std of its timestamp deltas
+    (events.py:182-244, 398), in plain PyTorch.
+
+    A sample's rows past ``count`` and its out-of-frame rows add nothing;
+    the rest are put in lexicographic (x, y, t) order (a stable sort on t,
+    then a stable sort on the pixel key ``x * H + y``; every other row
+    after them, keyed past the frame), so the deltas are the reference's:
+    the first 0, and the delta across the boundary of two pixels' groups
+    counted in the later pixel (the reference's approximation). The std
+    is ``sqrt(max(E[d^2] - mean^2, 0))`` over the pixel's events, clipped
+    to ``EVREP_MAX_STD``. The count and polarity sums are of small
+    integers, exact in any order of the adds. The delta sums are f32 adds
+    in the sorted order, and the std subtracts two of them that nearly
+    cancel, so its value follows that order and the rounding of the
+    subtraction; both are JAX's on the CPU (XLA adds a scatter's updates
+    in order and rounds ``E[d^2] - mean^2`` once, a fused multiply-add),
+    so the std is JAX's to one f32 ulp there. On the card some pixels'
+    sums add in another order and its std differs in the last bits.
+    """
+    b, e, _ = events.shape
+    dev = events.device
+    valid = (torch.arange(e, device=dev)[None]
+             < counts.to(dev).reshape(-1, 1))
+    x = events[..., 0].to(torch.int32).long()
+    y = events[..., 1].to(torch.int32).long()
+    t = events[..., 2]
+    p = events[..., 3]
+    p = torch.where(p == 0, -1.0, p)
+    ok = valid & (x >= 0) & (x < width) & (y >= 0) & (y < height)
+    cells = height * width
+    base = torch.arange(b, device=dev)[:, None] * (cells + 1)
+    slot = (base + torch.where(ok, y * width + x, cells)).reshape(-1)
+
+    def per_pixel(index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+        # an accumulating index_put_: on the CPU each slot's values are
+        # added one after another in their order (XLA's scatter order);
+        # on the card some slots' values add in another order
+        out = torch.zeros(b * (cells + 1), device=dev)
+        out.index_put_((index,), values.reshape(-1), accumulate=True)
+        return out.view(b, cells + 1)[:, :cells]
+
+    count = per_pixel(slot, ok.float())
+    polarity = per_pixel(slot, torch.where(ok, p, 0.0))
+    key = torch.where(ok, x * height + y, width * height)
+    order = torch.sort(t, dim=1, stable=True).indices
+    order = order.gather(1, torch.sort(key.gather(1, order), dim=1,
+                                       stable=True).indices)
+    st = t.gather(1, order)
+    delta = st - torch.cat([st[:, :1], st[:, :-1]], dim=1)
+    sslot = slot.view(b, e).gather(1, order).reshape(-1)
+    d_sum = per_pixel(sslot, delta)
+    d_sq = per_pixel(sslot, delta * delta)
+    denom = torch.clamp_min(count, 1.0)
+    mean = d_sum / denom
+    # E[d^2] - mean^2 as XLA's fused multiply-add computes it: mean^2 is
+    # exact in f64, so the f32 of the f64 difference is the fused result
+    # but where rounding twice moves it by one ulp
+    var = ((d_sq / denom).double() - mean.double() ** 2).float()
+    std = torch.clamp_max(torch.sqrt(torch.clamp_min(var, 0.0)),
+                          EVREP_MAX_STD)
+    return torch.stack([count, polarity, std], dim=-1).view(
+        b, height, width, 3)

@@ -62,9 +62,12 @@ def vit_layer_id(name: str, num_layers: int, backbone_type: str = "vit",
     2, ``vit_block.i`` i + 1, or i + 3 on a ``convvit*`` backbone, the rest
     of the backbone ``num_layers``; outside the backbone ``num_layers``.
     Grafted: the embeds and the conv stages 0, ``vit_block.i`` min(i // 4,
-    2), the rest 2."""
+    2), the rest 2. A ``swin_ecddp`` backbone is all at the top id: JAX
+    reads its flax paths, ``('backbone', 'backbone_swin', 'patch_embed',
+    ...)`` and ``('backbone', 'norm0', ...)``, whose second name matches no
+    rule (optim.py:64-91)."""
     parts = name.split(".")
-    if parts[0] != "backbone":
+    if parts[0] != "backbone" or backbone_type == "swin_ecddp":
         return 2 if layer_grafted else num_layers
     sub = parts[1] if len(parts) > 1 else ""
     block_id = int(parts[2]) if sub == "vit_block" else None

@@ -493,7 +493,8 @@ def make_ecdp_step(model, *, num_patches: int = 196,
 
 
 def make_cls_train_step(hub, *, smoothing: float = 0.0,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        preprocess_fn: Optional[Callable] = None
                         ) -> Callable:
     """``step(state, batch) -> metrics``: the classification finetune step
     (steps.py:298-345). The hub runs in training mode (dropout and
@@ -509,13 +510,16 @@ def make_cls_train_step(hub, *, smoothing: float = 0.0,
     no update; the backbone then runs forward only. ``metrics`` holds
     ``loss``, ``grad_norm`` (before the clip) and ``acc1`` (and ``acc5``
     from 5 classes) as device tensors: no step synchronises.
+    ``preprocess_fn`` (the frozen EvRepSL network) maps ``evg`` first,
+    under ``torch.no_grad()``: JAX's ``stop_gradient`` (steps.py:314-315).
+    It is not the hub's, so the optimizer never sees its parameters.
     """
 
     def step(state: TrainState, batch: dict) -> dict:
         hub.train()
         source = DropPathSource(generator, batch.get("drop_path_keep"))
         set_drop_path_source(hub, source)
-        _, logits, _ = hub(batch["evg"])
+        _, logits, _ = hub(_preprocessed(batch["evg"], preprocess_fn))
         _check_replayed(source, "drop_path_keep")
         loss = cls_loss(logits, batch["label"], smoothing)
         loss.backward()
@@ -529,18 +533,28 @@ def make_cls_train_step(hub, *, smoothing: float = 0.0,
     return step
 
 
-def make_cls_eval_step(hub) -> Callable:
+def _preprocessed(evg: torch.Tensor,
+                  preprocess_fn: Optional[Callable]) -> torch.Tensor:
+    if preprocess_fn is None:
+        return evg
+    with torch.no_grad():
+        return preprocess_fn(evg)
+
+
+def make_cls_eval_step(hub, preprocess_fn: Optional[Callable] = None
+                       ) -> Callable:
     """``step(batch) -> metrics``: the validation step (steps.py:348-385)
-    in eval mode without gradients. Pad rows of a wrapped tail batch
-    (``num_valid`` / ``valid_rows``) weigh 0: ``loss`` (unsmoothed) and the
-    accuracies are means over the real rows, and ``_n`` is their count,
-    the weight :func:`~eventpretrain_tpu_torch.train.loop.evaluate` gives
-    the batch."""
+    in eval mode without gradients, ``preprocess_fn`` mapping ``evg``
+    first. Pad rows of a wrapped tail batch (``num_valid`` /
+    ``valid_rows``) weigh 0: ``loss`` (unsmoothed) and the accuracies are
+    means over the real rows, and ``_n`` is their count, the weight
+    :func:`~eventpretrain_tpu_torch.train.loop.evaluate` gives the
+    batch."""
 
     @torch.no_grad()
     def step(batch: dict) -> dict:
         hub.eval()
-        _, logits, _ = hub(batch["evg"])
+        _, logits, _ = hub(_preprocessed(batch["evg"], preprocess_fn))
         b = logits.shape[0]
         vmask = _valid_row_mask(batch, b, logits.device)
         w = (torch.ones((b,), device=logits.device) if vmask is None

@@ -782,7 +782,8 @@ def test_cli_trains_evaluates_and_writes_a_loadable_checkpoint(tmp_path):
 def test_cli_refuses_flags_of_later_slices(flags):
     """Each flag of a later slice exits naming it. DSEC and DDD17 are
     ported: a dataset exits only without ``--data_root``; ``--num_bins 3``
-    (the MEM image) passes the refusals."""
+    (the MEM image) and ``--backbone swin_ecddp`` (slice 5e) pass the
+    refusals."""
     from eventpretrain_tpu_torch.cli.finetune_semseg import (
         _refuse_unported,
         build_parser,
@@ -790,7 +791,7 @@ def test_cli_refuses_flags_of_later_slices(flags):
     )
 
     base = [] if flags[0] == "--backbone" else ["--backbone", "vit"]
-    if flags[0] == "--num_bins":
+    if flags[0] in ("--num_bins", "--backbone"):
         _refuse_unported(build_parser().parse_args(base + flags))
         return
     match = "--data_root" if flags[0] == "--dataset" else "slice"

@@ -747,7 +747,8 @@ def test_cls_cli_finetunes_vit_ecdp_from_the_ecdp_checkpoint(
 @pytest.mark.parametrize("task", ["semseg", "flow"])
 def test_dense_clis_run_convvit_ecdp(monkeypatch, tmp_path, task):
     """``--backbone convvit_ecdp --num_bins 2`` trains and validates;
-    ``vit_mem`` and ``swin_ecddp`` are still refused."""
+    ``vit_mem`` and ``swin_ecddp`` (slice 5e) now pass the refusals, and
+    a slice-6 flag is still refused."""
     cli = semseg_cli if task == "semseg" else flow_cli
     monkeypatch.setattr(cli, "dense_hub_convvit_ecdp_small", _tiny_dense)
     res = cli.main(["--backbone", "convvit_ecdp", "--num_bins", "2",
@@ -756,5 +757,7 @@ def test_dense_clis_run_convvit_ecdp(monkeypatch, tmp_path, task):
                     "1000", "--output_dir", str(tmp_path)] + DENSE_COMMON)
     assert res["state"].step == 2
     for argv in (["--backbone", "vit_mem"], ["--backbone", "swin_ecddp"]):
-        with pytest.raises(SystemExit):
-            cli.main(argv + DENSE_COMMON)
+        cli._refuse_unported(cli.build_parser().parse_args(
+            argv + DENSE_COMMON))
+    with pytest.raises(SystemExit, match="slice 6"):
+        cli.main(["--data_parallel"] + DENSE_COMMON)

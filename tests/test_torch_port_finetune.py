@@ -713,16 +713,17 @@ def test_cli_finetunes_from_a_pretrain_checkpoint(tmp_path):
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):
     """Each flag of a later slice exits naming it; ``--accum_iter`` refuses
-    only a count below 1. The other datasets and ``--num_bins 3`` are
-    ported: a dataset exits only for want of its roots, and the MEM image
-    passes the refusals."""
+    only a count below 1. The other datasets, ``--num_bins 3`` and
+    ``--backbone swin_ecddp`` are ported: a dataset exits only for want of
+    its roots, and the MEM image and ECDDP's Swin (slice 5e) pass the
+    refusals."""
     from eventpretrain_tpu_torch.cli.finetune_cls import (
         _refuse_unported,
         build_parser,
         main,
     )
 
-    if flags[0] == "--num_bins":
+    if flags[0] in ("--num_bins", "--backbone"):
         _refuse_unported(build_parser().parse_args(flags))
         return
     match = {"--accum_iter": "at least 1",

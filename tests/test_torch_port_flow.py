@@ -514,10 +514,10 @@ def test_cli_trains_and_validates_on_the_synthetic_source(monkeypatch,
 ], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_flags_of_later_slices(flags):
     """Each flag of a later slice exits naming it; MVSEC exits without
-    ``--data_root``; ``--num_bins 3`` (the MEM image) is ported and passes
-    the refusals."""
+    ``--data_root``; ``--num_bins 3`` (the MEM image) and ``--backbone
+    swin_ecddp`` (slice 5e) are ported and pass the refusals."""
     base = [] if flags[0] == "--backbone" else ["--backbone", "vit"]
-    if flags[0] == "--num_bins":
+    if flags[0] in ("--num_bins", "--backbone"):
         finetune_flow._refuse_unported(
             finetune_flow.build_parser().parse_args(base + flags))
         return

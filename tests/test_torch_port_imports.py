@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "eventpretrain_tpu_torch.cli.serve" in mods
     assert {"eventpretrain_tpu_torch.models.swin",
-            "eventpretrain_tpu_torch.models.swin_plan"} <= set(mods)
+            "eventpretrain_tpu_torch.models.swin_plan",
+            "eventpretrain_tpu_torch.models.vit_mem",
+            "eventpretrain_tpu_torch.models.swin_ecddp",
+            "eventpretrain_tpu_torch.models.evrepsl"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'eventpretrain_tpu', 'PIL',\n"

@@ -567,17 +567,24 @@ def test_normalize_representation_matches_jax(num_bins):
 
 
 def test_unported_representations_raise():
-    """EvRep waits for the EvRepSL network: it raises before any other
-    option is read. The MEM image (``num_bins=3``) is held in
-    tests/test_torch_port_datasets.py."""
+    """EvRep (slice 5e) has no tiled splat path, in JAX (an assert) or
+    here: with a tile table it raises before any other option is read;
+    untiled it is the EvRep image, held against JAX's in
+    tests/test_torch_port_evrepsl.py. The MEM image (``num_bins=3``) is
+    held in tests/test_torch_port_datasets.py."""
     from eventpretrain_tpu_torch.data.representations import (
         build_representation,
     )
 
     ev = torch.zeros((1, 4, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no tiled"):
         build_representation(ev, torch.tensor([4]), height=8, width=8,
-                             num_bins=5, use_evrep=True)
+                             num_bins=5, use_evrep=True,
+                             tile_table=torch.zeros((1, 1),
+                                                    dtype=torch.int32))
+    img = build_representation(ev, torch.tensor([4]), height=8, width=8,
+                               num_bins=5, use_evrep=True)
+    assert img.shape == (1, 8, 8, 3)
 
 
 # ------------------------------------------------ K4 fused_attn_layer, K5
